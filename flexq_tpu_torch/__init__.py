@@ -1,0 +1,13 @@
+"""flexq_tpu_torch: the PyTorch / CUDA port of flexq_tpu for one NVIDIA H100.
+
+The JAX package ``flexq_tpu`` is the reference; every module here has a
+counterpart of the same name there and is held against it by the tests in
+``tests/test_torch_*.py``. This package imports ``torch`` and never ``jax``
+or ``flexq_tpu``. Kernels are hand-written for Hopper (``csrc/*.cu`` built
+with nvcc, and one Triton kernel) and are built the first time they are
+launched, so importing the package needs neither a GPU nor a compiler.
+
+Slice 1 serves a ``QuantPolicy.llama_flex()`` LLaMA (W6 weights, A6
+activations, A8 into down_proj) with a dense bf16 KV cache through greedy
+``Engine.generate``.
+"""

@@ -1,0 +1,117 @@
+"""Model and quantization-policy configuration (port of flexq_tpu/config.py).
+
+Plain dataclasses with no framework dependency; the fields and presets the
+serve slice needs are kept identical to the reference so a config built for
+one package means the same model in the other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+from flexq_tpu_torch.quant.quantizer import QuantSpec
+
+GROUP_SIZE = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description: the fields of the reference's ModelConfig
+    that the LLaMA-family serve path reads."""
+
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    arch: str = "llama"  # "llama" | "opt" (OPT serving is a later slice)
+    act: str = "silu"  # llama: silu-glu; gemma: gelu (tanh) glu
+    sliding_window: Optional[int] = None  # Mistral: local attention window
+    # LLaMA-3.1 rope scaling: (factor, low_freq_factor, high_freq_factor,
+    # original_max_position_embeddings)
+    rope_scaling: Optional[Tuple[float, float, float, int]] = None
+    embed_scale: Optional[float] = None  # Gemma: embedding output scale
+
+    def __post_init__(self):
+        if isinstance(self.rope_scaling, list):
+            object.__setattr__(self, "rope_scaling", tuple(self.rope_scaling))
+        if self.sliding_window is not None and self.sliding_window < 1:
+            raise ValueError(f"sliding_window must be >= 1, got {self.sliding_window}")
+
+    @property
+    def num_kv_groups(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    @staticmethod
+    def llama(
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=11008,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=None,
+        max_seq_len=2048,
+        rope_theta=10000.0,
+        norm_eps=1e-5,
+        head_dim=None,
+        act="silu",
+        **kw,
+    ) -> "ModelConfig":
+        return ModelConfig(
+            vocab_size=vocab_size,
+            hidden_size=hidden_size,
+            intermediate_size=intermediate_size,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            num_kv_heads=num_kv_heads or num_heads,
+            head_dim=head_dim or hidden_size // num_heads,
+            max_seq_len=max_seq_len,
+            rope_theta=rope_theta,
+            norm_eps=norm_eps,
+            arch="llama",
+            act=act,
+            **kw,
+        )
+
+
+LLAMA_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantPolicy:
+    """Per-linear (weight_bits, act_bits) policy. Activations are always
+    quantized symmetric per 128-group by the fused producers."""
+
+    weight_bits: Dict[str, int]
+    act_bits: Dict[str, int]
+    w_group_size: Optional[int] = GROUP_SIZE
+    symmetric: bool = True
+
+    def weight_spec(self, name: str) -> QuantSpec:
+        return QuantSpec(
+            bits=self.weight_bits.get(name, 16),
+            symmetric=self.symmetric,
+            group_size=self.w_group_size,
+        )
+
+    @staticmethod
+    def llama_flex(wbits: int = 6, abits: int = 6, down_abits: int = 8) -> "QuantPolicy":
+        """All weights 6-bit; activations 6-bit except down_proj's 8-bit."""
+        return QuantPolicy(
+            weight_bits={n: wbits for n in LLAMA_LINEARS},
+            act_bits={
+                **{n: abits for n in LLAMA_LINEARS},
+                "down_proj": down_abits,
+            },
+        )
+
+    @property
+    def no_act_quant(self) -> bool:
+        """True when no linear quantizes its activations (W*A16 or fp16)."""
+        return all(b >= 16 for b in self.act_bits.values())

@@ -1,0 +1,29 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+Every wrapper launches its kernel for a CUDA tensor (or raises) and runs the
+plain PyTorch version for a CPU tensor; ``launch_counts()`` reads the
+per-wrapper launch counters and ``reset_launch_counts()`` zeroes them.
+"""
+
+from typing import Dict
+
+from flexq_tpu_torch.kernels.common import GROUP_SIZE
+from flexq_tpu_torch.kernels.flash_decode import flash_decode
+from flexq_tpu_torch.kernels.flash_prefill import flash_prefill
+from flexq_tpu_torch.kernels.fused_quant import glu_quant, quant_act, rmsnorm_quant
+from flexq_tpu_torch.kernels.w6_matmul import w6_matmul
+from flexq_tpu_torch.kernels.w6_stream import w6_matmul_stream
+
+WRAPPERS = (
+    rmsnorm_quant, w6_matmul, w6_matmul_stream, quant_act, glu_quant, flash_decode,
+    flash_prefill,
+)
+
+
+def launch_counts() -> Dict[str, int]:
+    return {fn.__name__: fn.launches for fn in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS:
+        fn.launches = 0

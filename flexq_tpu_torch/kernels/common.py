@@ -1,0 +1,46 @@
+"""Shared kernel utilities (port of flexq_tpu/kernels/common.py).
+
+Also the one place that decides what a device argument means: the port's
+entry points run on the card unless the caller asks for the CPU, and asking
+for the card on a machine without one is an error, never a silent fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+GROUP_SIZE = 128  # quant group along K; fixed, like the reference
+
+
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for an entry point's ``device=``; raises when CUDA is
+    asked for and no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:  # "cuda" means the current card
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` has the dtype, shape, device and contiguity a kernel
+    takes (``dtype`` may be a tuple of allowed dtypes)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -1,0 +1,73 @@
+"""LLaMA building blocks used by the serve path (port of the matching
+functions of flexq_tpu/models/llama.py).
+
+HF numeric conventions, as in the reference: RMSNorm stats in f32 and the
+normed row cast to the model dtype before the gamma multiply; RoPE cos/sin
+from an f32 inv_freq, applied in f32 with rotate_half.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flexq_tpu_torch.config import ModelConfig
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, scaling=None):
+    """positions [B, L] -> (cos, sin) [B, L, head_dim] (half-rotate layout).
+
+    ``scaling`` is the LLaMA-3.1 (factor, low_freq_factor, high_freq_factor,
+    original_max_position_embeddings) inv_freq remap."""
+    dev = positions.device
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim)
+    )
+    if scaling is not None:
+        factor, low, high, orig = scaling
+        wavelen = 2.0 * math.pi / inv_freq
+        smooth = (orig / wavelen - low) / (high - low)
+        blended = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+        inv_freq = torch.where(
+            wavelen > orig / low,
+            inv_freq / factor,
+            torch.where(wavelen < orig / high, inv_freq, blended),
+        )
+    freqs = positions[..., None].to(torch.float32) * inv_freq  # [B, L, D/2]
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def rope_for_cfg(positions: torch.Tensor, cfg: ModelConfig):
+    return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    """q [B, L, H, D], k [B, L, KVH, D]; cos/sin [B, L, D]."""
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    qf, kf = q.to(torch.float32), k.to(torch.float32)
+    q_out = qf * cos + _rotate_half(qf) * sin
+    k_out = kf * cos + _rotate_half(kf) * sin
+    return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:
+    """FFN gate activation by config name (silu, or tanh-approximate gelu)."""
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(f"unsupported activation {name!r}")
+
+
+def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
+    h = x.to(torch.float32)
+    var = (h * h).sum(dim=-1, keepdim=True) / h.shape[-1]
+    return (h * torch.rsqrt(var + eps)).to(x.dtype) * gamma

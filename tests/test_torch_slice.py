@@ -1,0 +1,116 @@
+"""The port's serve slice vs flexq_tpu on a tiny llama_flex LLaMA (2 layers,
+hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
+run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
+greedy Engine.generate tokens equal; the unsupported paths raise."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from flexq_tpu.config import ModelConfig as JModelConfig, QuantPolicy as JQuantPolicy
+from flexq_tpu.models.quantized import (
+    forward_serve as j_forward_serve,
+    quantize_params as j_quantize_params,
+)
+from flexq_tpu.serve import Engine as JEngine
+from flexq_tpu.train.trainer import init_params
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.convert import params_from_numpy
+from flexq_tpu_torch.models.quantized import forward_serve, quantize_params
+from flexq_tpu_torch.serve import Engine, SamplingParams
+
+KW = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
+          num_heads=2, num_kv_heads=1, max_seq_len=128)
+S = 128
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg, cfg = JModelConfig.llama(**KW), ModelConfig.llama(**KW)
+    dense = jax.tree_util.tree_map(np.asarray, init_params(jcfg, seed=0))
+    # scale the init so the tiny model's greedy choices are not near-ties
+    dense = jax.tree_util.tree_map(lambda a: a * 4.0 if a.ndim == 2 else a, dense)
+    jq = j_quantize_params(dense, jcfg, JQuantPolicy.llama_flex(), dtype=jnp.float32)
+    tq = params_from_numpy(jax.tree_util.tree_map(np.asarray, jq), device="cpu")
+    prompts = np.random.default_rng(0).integers(0, 256, (2, 8))
+    return jcfg, cfg, jq, tq, prompts
+
+
+def test_forward_serve_matches_jax(model):
+    jcfg, cfg, jq, tq, prompts = model
+    jpol, pol = JQuantPolicy.llama_flex(), QuantPolicy.llama_flex()
+    shape = (2, 2, 1, S, 128)
+    jk, jv = jnp.zeros(shape, jnp.float32), jnp.zeros(shape, jnp.float32)
+    tk, tv = torch.zeros(shape), torch.zeros(shape)
+    ids, pos = prompts, 0
+    for step in range(3):  # one 8-token prefill, then two decode steps
+        l = ids.shape[1]
+        positions = np.broadcast_to(np.arange(pos, pos + l), (2, l))
+        ref, (jk, jv) = j_forward_serve(jq, jcfg, jpol, jnp.asarray(ids), positions=jnp.asarray(positions),
+                                        kv_k=jk, kv_v=jv, cache_pos=jnp.int32(pos))
+        got, (tk, tv) = forward_serve(tq, cfg, pol, torch.from_numpy(ids), positions=torch.from_numpy(positions.copy()),
+                                      kv_k=tk, kv_v=tv, cache_pos=pos, device="cpu")
+        ref = np.asarray(ref)
+        assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max(), step
+        pos += l
+        ids = ref[:, -1].argmax(-1)[:, None]
+
+
+def test_generate_tokens_equal_jax(model):
+    jcfg, cfg, jq, tq, prompts = model
+    ref = JEngine(jq, jcfg, JQuantPolicy.llama_flex(), max_seq_len=S, kv_dtype=jnp.float32).generate(
+        prompts.tolist(), max_new_tokens=6, eos_id=-1)
+    eng = Engine(tq, cfg, QuantPolicy.llama_flex(), max_seq_len=S, kv_dtype=torch.float32, device="cpu")
+    assert eng.generate(prompts, max_new_tokens=6, eos_id=-1, mode="fused") == ref
+    assert eng.generate(prompts, max_new_tokens=6, eos_id=-1, mode="step") == ref
+    # stop handling: row 0 ends at its first stop token, row 1 runs on
+    stop = ref[0][2]
+    want = [r[: r.index(stop) + 1] if stop in r else r for r in ref]
+    for mode in ("fused", "step"):
+        out, stats = eng.generate(prompts, max_new_tokens=6, eos_id=stop, mode=mode, return_stats=True)
+        assert out == want
+        assert stats.generated_tokens == sum(map(len, want))
+
+
+def test_unsupported_paths_raise(model):
+    jcfg, cfg, jq, tq, prompts = model
+    pol = QuantPolicy.llama_flex()
+    eng = Engine(tq, cfg, pol, max_seq_len=S, kv_dtype=torch.float32, device="cpu")
+    with pytest.raises(NotImplementedError):  # W6A16 prefill (K7/K8)
+        eng.generate(np.zeros((1, 64), np.int64), max_new_tokens=2)
+    with pytest.raises(NotImplementedError):
+        eng.generate(prompts, max_new_tokens=2, sampling=SamplingParams(greedy=False))
+    with pytest.raises(NotImplementedError):
+        eng.generate(prompts, max_new_tokens=2, mode="spec")
+    with pytest.raises(NotImplementedError):
+        Engine(tq, cfg, pol, max_seq_len=S, kv_dtype=torch.int8, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
+    cache = eng.new_cache(2)
+    w16 = QuantPolicy(weight_bits=pol.weight_bits, act_bits={n: 16 for n in pol.act_bits})
+    calls = [
+        dict(policy=w16),
+        dict(kv_k_scale=torch.zeros(1)),
+        dict(page_table=torch.zeros((2, 1), dtype=torch.int32)),
+        dict(cache_pos=torch.zeros(2, dtype=torch.int32)),  # per-row positions
+    ]
+    for kw in calls:
+        args = dict(policy=pol, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
+        args.update(kw)
+        with pytest.raises(NotImplementedError):
+            forward_serve(tq, cfg, args.pop("policy"), torch.from_numpy(prompts), **args)
+    with pytest.raises(NotImplementedError):
+        quantize_params({"embed": np.zeros((4, 4), np.float32), "final_norm": np.ones(4, np.float32), "layers": []},
+                        cfg, pol, fuse=True, device="cpu")
+
+
+def test_engine_defaults_to_the_card(model):
+    _, cfg, _, tq, _ = model
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    with pytest.raises(RuntimeError):
+        Engine(tq, cfg, QuantPolicy.llama_flex(), max_seq_len=S)
