@@ -9,20 +9,31 @@ exits nonzero without the final line:
      (one nvcc per CUDA source, all started together);
   2. kernels: every kernel of the serve path against its plain PyTorch
      version at LLaMA-2-7B shapes (W6Ax at M = 4 and 128 for the three 7B
-     (K, N); the producers at K = 4096 and F = 11264; attention at Lq = 1
-     and 32, H = 32, D = 128, S = 2048, lengths 64), with the tolerance
+     (K, N); the producers at K = 4096 and F = 11264; attention at Lq = 1,
+     32 and 512 over a bf16 cache and at Lq = 1 and 512 over an int8 cache,
+     H = 32, D = 128, S = 2048; the W6A16 GEMM (K7) at M = 2048 with and
+     without the RoPE epilogue and at M = 4 (weight-only decode), the fused
+     GLU (K8) at M = 2048 with separate and fused planes), with the tolerance
      stated, and their device times from CUDA events (median, L2 flushed
-     before each launch) beside the plain version's, the least time the card could
-     take (bytes at 3.35 TB/s or operations at peak, H100 SXM data sheet)
-     and, where one PyTorch call computes the same function, that call's;
+     before each launch) beside the plain version's, the least time the card
+     could take (bytes at 3.35 TB/s or operations at peak, H100 SXM data
+     sheet) and, where one PyTorch call computes the same function, that
+     call's;
   3. slice parity: a 2-layer model at full 7B width, forward_serve on the
-     card against the same weights on the CPU (plain versions);
+     card against the same weights on the CPU (plain versions): a 16-token
+     prompt through the W6Ax layer, and a 128-token prompt through the W6A16
+     layer with an unfused tree, a fuse=True tree, an int8 cache and the
+     weight-only W6A16 policy, each followed by two decode steps (max
+     |dlogit| / max |logit| per step, argmax agreement per run);
   4. end to end: the 32-layer LLaMA-2-7B shape with random weights (seeded
      torch.Generator, generated and quantized layer by layer on the card),
-     greedy Engine.generate, B = 4, 32-token prompts, 32 new tokens, bf16
-     cache, max_seq_len 2048; the launch counts of every kernel in that run,
-     and a torch.profiler breakdown of a short run (device time by kernel,
-     device busy share of the wall time).
+     greedy Engine.generate, max_seq_len 2048: B = 4 with 32-token prompts
+     and 32 new tokens (bf16 cache; with a torch.profiler breakdown: device
+     time by kernel, device busy share of the wall time), and B = 4 with
+     512-token prompts (the W6A16 prefill) and 32 new tokens with a bf16
+     cache, an int8 cache, a fuse=True tree, and prefill_chunk=256 (whose
+     tokens must equal the whole-prompt run's). Each run's launch counts are
+     zeroed just before it and read just after; every kernel must launch.
 The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -47,7 +58,10 @@ from flexq_tpu_torch.kernels import (
     quant_act,
     reset_launch_counts,
     rmsnorm_quant,
+    w6_glu_fused_bf16,
+    w6_glu_matmul_bf16,
     w6_matmul,
+    w6_matmul_bf16,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.fused_quant import (
@@ -55,7 +69,9 @@ from flexq_tpu_torch.kernels.fused_quant import (
     quant_act_plain,
     rmsnorm_quant_plain,
 )
+from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
+from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.serve import Engine
@@ -75,6 +91,9 @@ KERNELS = {
     "glu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:287"),
     "flash_decode": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_decode.py:193"),
     "flash_prefill": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_prefill.py:181"),
+    "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
+    "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
+    "w6_glu_fused_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:524"),
 }
 # the shape whose times go into the JSON line (the main path's decode shape)
 REPORT_SHAPE = {
@@ -85,6 +104,10 @@ REPORT_SHAPE = {
     "glu_quant": "M=4 F=11264",
     "flash_decode": "B=4 Lq=1 H=32 D=128 S=2048 len=64",
     "flash_prefill": "B=4 Lq=32 H=32 D=128 S=2048 len=64",
+    # the 512-token prefill (M = 4 x 512): q / k projections with the RoPE epilogue, the FFN GLU
+    "w6_matmul_bf16": "M=2048 K=4096 N=4096 rope",
+    "w6_glu_matmul_bf16": "M=2048 K=4096 N=11264",
+    "w6_glu_fused_bf16": "M=2048 K=4096 N=11264 fused",
 }
 
 
@@ -208,44 +231,122 @@ def check_producers(results, dev, gen, timer):
 
 
 def check_attention(results, dev, gen, timer):
-    b, h, kvh, s, d, ln = 4, 32, 32, 2048, 128, 64
-    kc = torch.randn((2, b, kvh, s, d), generator=gen, device=dev).to(torch.bfloat16)
-    vc = torch.randn((2, b, kvh, s, d), generator=gen, device=dev).to(torch.bfloat16)
-    lengths = torch.full((b,), ln, dtype=torch.int32, device=dev)
-    k_valid = kc[1, :, :, :ln].contiguous()  # [B, KVH, len, D] for the library yardstick
-    v_valid = vc[1, :, :, :ln].contiguous()
+    """bf16 cache: Lq = 1 and 32 over 64 cached tokens (the 32-token path),
+    Lq = 1 and 512 over 512 (the 512-token path); int8 cache with f32
+    scales: Lq = 1 and 512 over 512."""
+    b, h, kvh, s, d = 4, 32, 32, 2048, 128
+    shape = (2, b, kvh, s, d)
+    kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    vc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    k8, v8 = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in "kv")
+    ks, vs = (torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3 for _ in "kv")
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for lq in (1, 32):
+    cases = ((1, 64, False), (32, 64, False), (1, 512, False), (512, 512, False), (1, 512, True), (512, 512, True))
+    for lq, ln, quant in cases:
+        lengths = torch.full((b,), ln, dtype=torch.int32, device=dev)
+        ck, cv, scales = (k8, v8, (ks, vs)) if quant else (kc, vc, ())
+        # [B, KVH, len, D] bf16 (dequantized for int8) for the library yardstick
+        if quant:
+            k_valid = (k8[1, :, :, :ln].float() * ks[1, :, :, :ln, None]).to(torch.bfloat16)
+            v_valid = (v8[1, :, :, :ln].float() * vs[1, :, :, :ln, None]).to(torch.bfloat16)
+        else:
+            k_valid, v_valid = kc[1, :, :, :ln].contiguous(), vc[1, :, :, :ln].contiguous()
         q = torch.randn((b, lq, h, d), generator=gen, device=dev).to(torch.bfloat16)
         pos = ln - lq + torch.arange(lq, device=dev)
         mask = torch.arange(ln, device=dev)[None, :] <= pos[:, None]  # [Lq, len]
         qt = q.transpose(1, 2).contiguous()
         if lq == 1:
             name = "flash_decode"
-            kern = lambda: flash_decode(q[:, 0], kc, vc, lengths, layer_idx=1)
+            kern = lambda: flash_decode(q[:, 0], ck, cv, lengths, *scales, layer_idx=1)
             lib = lambda: sdpa(qt, k_valid, v_valid)
         else:
             name = "flash_prefill"
-            kern = lambda: flash_prefill(q, kc, vc, lengths, layer_idx=1)
+            kern = lambda: flash_prefill(q, ck, cv, lengths, *scales, layer_idx=1)
             lib = lambda: sdpa(qt, k_valid, v_valid, attn_mask=mask)
-        plain = lambda: attend_cache_plain(q, kc, vc, lengths, 1, None, torch.bfloat16, lq == 1, torch.bfloat16)
+        plain = lambda: attend_cache_plain(q, ck, cv, lengths, 1, None, torch.bfloat16, lq == 1, torch.bfloat16,
+                                           *scales)
         got, want = kern().reshape(b, lq, h * d).float(), plain().float()
         err = (got - want).abs().max().item()
         if not err <= 2e-2 * want.abs().max().item():  # tolerance: 2e-2 of max |out| (bf16)
-            raise AssertionError(f"{name} Lq={lq}: max abs err {err}")
+            raise AssertionError(f"{name} Lq={lq} int8={quant}: max abs err {err}")
         lib_out = lib().transpose(1, 2).reshape(b, lq, h * d).float()
         lib_err = (lib_out - want).abs().max().item()
         ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
         keys = int((pos + 1).sum().item())  # keys attended over the Lq queries
-        nbytes = 2 * b * kvh * ln * d * 2 + 2 * b * lq * h * d * 2
-        record(results, name, f"B={b} Lq={lq} H={h} D={d} S={s} len={ln}", err, ms, plain_ms, nbytes,
-               4 * b * h * keys * d, PEAK_BF16, lib_ms,
+        kv_bytes = 2 * b * kvh * ln * (d + 4) if quant else 2 * b * kvh * ln * d * 2
+        nbytes = kv_bytes + 2 * b * lq * h * d * 2
+        record(results, name, f"B={b} Lq={lq} H={h} D={d} S={s} len={ln}" + (" int8" if quant else ""), err, ms,
+               plain_ms, nbytes, 4 * b * h * keys * d, PEAK_BF16, lib_ms,
                extra=f" sdpa_vs_plain_err={lib_err:.3g} (tolerance: 2e-2 of max|out|)")
 
 
-def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16):
+def _w6a16_err(name, shape, got, want) -> float:
+    """Tolerance: kernel and plain version differ only in the order of the
+    f32 sums; f32 output within 1e-4 of max |out|, bf16 output within one
+    bf16 ulp of the plain f32 result, 2^(floor(log2|v|) - 7), plus that 1e-4
+    for sums that cancel."""
+    err = (got.float() - want).abs()
+    tol = 1e-4 * want.abs().max().item()
+    if got.dtype == torch.bfloat16:
+        tol = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8) + tol
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name} {shape} {got.dtype}: max abs err {err.max().item()}")
+    return err.max().item()
+
+
+def check_w6a16(results, dev, gen, timer):
+    """K7 at the 512-token prefill (M = 4 x 512) for q / k (RoPE epilogue),
+    v / o (none) and down (K = 11264), and at M = 4 (weight-only decode);
+    K8 at M = 2048 with separate and fused gate / up planes. Each against
+    its plain version in f32 and in bf16 output; times of the bf16 output."""
+    def planes(k, n):
+        hi, lo = pack6(torch.randint(-32, 32, (k, n), generator=gen, device=dev, dtype=torch.int8))
+        return hi, lo, torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4
+
+    cases = []
+    for m, k, n, rope in ((2048, 4096, 4096, True), (2048, 4096, 4096, False), (2048, 11264, 4096, False),
+                          (4, 4096, 4096, True), (4, 11264, 4096, False)):
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = planes(k, n)
+        kw = {}
+        if rope:
+            pos = torch.arange(m, device=dev).reshape(1, m) % 512  # B x 512-token prompts
+            cos, sin = rope_cos_sin(pos, 128, 10000.0)
+            kw = dict(zip(("rope_cos", "rope_sin2"), rope_gemm_operands(cos, sin)))
+        nbytes = m * k * 2 + k * n * 3 // 4 + (k // 128) * n * 4 + m * n * 2 + (2 * m * 128 * 4 if rope else 0)
+        cases.append(("w6_matmul_bf16", f"M={m} K={k} N={n}" + (" rope" if rope else ""), x,
+                      lambda x=x, w=w, kw=kw, dt=None: w6_matmul_bf16(x, *w, out_dtype=dt, **kw),
+                      lambda x=x, w=w, kw=kw: w6_matmul_bf16_plain(x, *w, torch.float32, **kw),
+                      nbytes, 2 * m * n * k, (k, n)))
+    m, k, n = 2048, 4096, 11264
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    g, u = planes(k, n), planes(k, n)
+    gu = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
+    nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
+    cases.append(("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
+                  lambda dt=None: w6_glu_matmul_bf16(x, *g, *u, out_dtype=dt),
+                  lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k, (k, 2 * n)))
+    cases.append(("w6_glu_fused_bf16", f"M={m} K={k} N={n} fused", x,
+                  lambda dt=None: w6_glu_fused_bf16(x, *gu, out_dtype=dt),
+                  lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k, (k, 2 * n)))
+    for name, shape, x, kern, plain, nbytes, ops, (k, n) in cases:
+        want = plain()
+        err = max(_w6a16_err(name, shape, kern(dt=dt), want) for dt in (torch.float32, torch.bfloat16))
+        del want
+        xb = x[:, :k]
+        wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
+        ms = timer(lambda: kern(dt=torch.bfloat16))
+        plain_ms = timer(plain, iters=3, warmup=1)
+        dense_ms = timer(lambda: xb @ wb)
+        record(results, name, shape, err, ms, plain_ms, nbytes, ops, PEAK_BF16, None,
+               extra=f" bf16_dense_ms={dense_ms:.4f} (K x {n} dense bf16 matmul; tolerance: f32 1e-4 of max|out|,"
+                     f" bf16 1 ulp)")
+
+
+def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False):
     """Random LLaMA weights (N(0, 0.02), residual outputs scaled by
-    1/sqrt(2L)) generated and quantized layer by layer on the card."""
+    1/sqrt(2L)) generated and quantized layer by layer on the card
+    (``fuse=True``: the fused qkv_proj / gate_up tree)."""
     std = 0.02
     res_std = std / math.sqrt(2 * cfg.num_layers)
     h, f = cfg.hidden_size, cfg.intermediate_size
@@ -262,7 +363,7 @@ def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16):
             "o_proj": dense(nq, h, res_std), "gate_proj": dense(h, f, std), "up_proj": dense(h, f, std),
             "down_proj": dense(f, h, res_std),
         }
-        layers.append(quantize_layer(lp, cfg, policy, dtype, dev))
+        layers.append(quantize_layer(lp, cfg, policy, dtype, dev, fuse=fuse))
     return {
         "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * std).to(dtype),
         "final_norm": torch.ones(h, device=dev, dtype=dtype),
@@ -279,39 +380,109 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
-def slice_parity(dev, gen):
-    """2-layer model at 7B width: the card's kernels vs the CPU's plain
-    versions, prefill of 16 tokens then 2 decode steps (B = 2)."""
-    cfg = ModelConfig.llama(num_layers=2)
-    policy = QuantPolicy.llama_flex()
-    params = random_params(cfg, policy, gen, dev)
+def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat16) -> bool:
+    """forward_serve on the card vs the CPU plain versions (same weights):
+    an l-token prompt (the W6A16 layer from 64 tokens), then 2 decode
+    steps, B = 2."""
     cpu = torch.device("cpu")
-    params_cpu = to_device(params, cpu)
-    b, l, s = 2, 16, 128
+    b, s = 2, 256
     shape = (cfg.num_layers, b, cfg.num_kv_heads, s, cfg.head_dim)
-    caches = {d: tuple(torch.zeros(shape, dtype=torch.bfloat16, device=d) for _ in "kv") for d in (dev, cpu)}
+
+    def new_cache(d):
+        c = tuple(torch.zeros(shape, dtype=kv_dtype, device=d) for _ in "kv")
+        if kv_dtype == torch.int8:
+            c += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=d) for _ in "kv")
+        return c
+
+    caches = {d: new_cache(d) for d in (dev, cpu)}
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (b, l))
-    pos, worst, agree, total = 0, 0.0, 0, 0
+    pos, ok, agree, total = 0, True, 0, 0
     for step in range(3):
         n = ids.shape[1]
         positions = torch.as_tensor(np.broadcast_to(np.arange(pos, pos + n), (b, n)).copy())
         outs = {}
         for d, p in ((dev, params), (cpu, params_cpu)):
-            logits, caches[d] = forward_serve(p, cfg, policy, torch.as_tensor(ids), positions=positions,
-                                              kv_k=caches[d][0], kv_v=caches[d][1], cache_pos=pos, device=d)
+            c = caches[d]
+            logits, caches[d] = forward_serve(
+                p, cfg, policy, torch.as_tensor(ids), positions=positions, kv_k=c[0], kv_v=c[1], cache_pos=pos,
+                prefill_bf16=n >= 64, device=d, **dict(zip(("kv_k_scale", "kv_v_scale"), c[2:])))
             outs[d] = logits.float().cpu()
         ref = outs[cpu]
         if not torch.isfinite(outs[dev]).all():
-            raise AssertionError("non-finite logits on the card")
-        worst = max(worst, ((outs[dev] - ref).abs().max() / ref.abs().max()).item())
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        worst = ((outs[dev] - ref).abs().max() / ref.abs().max()).item()
         agree += int((outs[dev].argmax(-1) == ref.argmax(-1)).sum())
         total += ref.shape[0] * ref.shape[1]
+        # W6Ax decode steps over a cache that the W6A16 prefill wrote: K/V
+        # there differ by bf16 ulps between card and CPU, which flips some
+        # 6-bit activation codes downstream (a code is 1/32 of its group's
+        # range), so these logits get a wider bound
+        tol = 1e-1 if step > 0 and l >= 64 and not policy.no_act_quant else 2e-2
+        what = f"{n}-token prompt" if step == 0 else f"decode step {step}"
+        log(f"slice parity {label} (2 layers, 7B width, card vs CPU plain), {what}: "
+            f"max |dlogit|/max|logit| = {worst:.3g} (tolerance {tol:g})")
+        ok = ok and worst <= tol
         pos += n
         ids = ref[:, -1].argmax(-1).numpy()[:, None]
-    log(f"slice parity (2 layers, 7B width, card vs CPU plain): max |dlogit|/max|logit| = {worst:.3g} "
-        f"(tolerance 2e-2), argmax agreement {agree}/{total} (tolerance >= 95%)")
-    if worst > 2e-2 or agree < 0.95 * total:
-        raise AssertionError("slice parity failed")
+    log(f"slice parity {label}: argmax agreement {agree}/{total} over the prompt and decode steps "
+        f"(tolerance >= 95%)")
+    return ok and agree >= 0.95 * total
+
+
+def slice_parity(dev, gen):
+    """2-layer models at 7B width: the W6Ax path (16-token prompt), then the
+    W6A16 prefill (128-token prompt) over an unfused and a fuse=True tree,
+    with an int8 cache, and under the weight-only W6A16 policy."""
+    cfg = ModelConfig.llama(num_layers=2)
+    flex = QuantPolicy.llama_flex()
+    cpu = torch.device("cpu")
+    params = random_params(cfg, flex, gen, dev)
+    params_cpu = to_device(params, cpu)
+    fused = random_params(cfg, flex, gen, dev, fuse=True)
+    fused_cpu = to_device(fused, cpu)
+    ok = [
+        parity("W6Ax", params, params_cpu, cfg, flex, 16, dev),
+        parity("W6A16 unfused", params, params_cpu, cfg, flex, 128, dev),
+        parity("W6A16 fuse=True", fused, fused_cpu, cfg, flex, 128, dev),
+        parity("W6A16 int8 cache", params, params_cpu, cfg, flex, 128, dev, kv_dtype=torch.int8),
+        # the weight-only tree is the same planes (weights quantize alike under both policies)
+        parity("weight-only W6A16", params, params_cpu, cfg, QuantPolicy.weight_only(wbits=6), 128, dev),
+    ]
+    return all(ok)
+
+
+# the kernels each end-to-end run must launch
+PATH_KERNELS = {
+    "32-token": ("rmsnorm_quant", "w6_matmul", "w6_matmul_stream", "quant_act", "glu_quant", "flash_decode",
+                 "flash_prefill"),
+    "512-token": ("w6_matmul_bf16", "w6_glu_matmul_bf16", "flash_prefill", "flash_decode", "w6_matmul"),
+    "512-token fuse=True": ("w6_matmul_bf16", "w6_glu_fused_bf16", "flash_prefill", "flash_decode", "w6_matmul"),
+}
+
+
+def generate_run(label, path, eng, prompts, new, dev, mode="fused"):
+    """One greedy generate (after a short warm-up), its launch counts zeroed
+    just before and read just after; returns (tokens, counts, stats)."""
+    eng.generate(prompts, max_new_tokens=2, eos_id=-1, mode=mode)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out, stats = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True, mode=mode)
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    b, l = prompts.shape
+    if [len(r) for r in out] != [new] * b or not all(0 <= t < eng.cfg.vocab_size for r in out for t in r):
+        raise AssertionError(f"{label}: bad generate output shape/range: {[len(r) for r in out]}")
+    decode_s = stats.decode_s if mode == "fused" else sum(stats.step_times_s)
+    log(f"e2e {label} ({mode}) B={b} prompt={l} new={new}: ttft_ms={stats.ttft_s * 1e3:.2f} "
+        f"decode_ms_per_step={decode_s / (new - 1) * 1e3:.2f} "
+        f"tokens_per_s={b * new / (stats.ttft_s + stats.decode_s):.1f} "
+        f"decode_tokens_per_s={b * (new - 1) / decode_s:.1f} peak_mem_gib={peak_gib:.2f}")
+    log(f"e2e {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+    return out, counts, stats
 
 
 def end_to_end(dev, gen):
@@ -321,34 +492,51 @@ def end_to_end(dev, gen):
     params = random_params(cfg, policy, gen, dev)
     torch.cuda.synchronize()
     log(f"e2e: random 7B weights generated and quantized in {time.perf_counter() - t0:.1f}s")
+    b, new = 4, 32
+    rng = np.random.default_rng(SEED)
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the 32-token path: prefill and decode through the W6Ax layer
     eng = Engine(params, cfg, policy, max_seq_len=2048)
-    b, l, new = 4, 32, 32
-    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (b, l))
-    eng.generate(prompts, max_new_tokens=4, eos_id=-1)  # warm-up
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
-    out, stats = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True)
-    counts = launch_counts()
-    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
-    step_out, step_stats = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True, mode="step")
+    prompts = rng.integers(0, cfg.vocab_size, (b, 32))
+    out, counts, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev)
+    add(counts)
+    step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step")
     if out != step_out:
         raise AssertionError("fused and step decode loops disagree")
-    if [len(r) for r in out] != [new] * b or not all(0 <= t < cfg.vocab_size for r in out for t in r):
-        raise AssertionError(f"bad generate output shape/range: {[len(r) for r in out]}")
-    decode_ms = stats.decode_s / (new - 1) * 1e3
-    log(f"e2e Engine.generate (fused) B={b} prompt={l} new={new}: ttft_ms={stats.ttft_s * 1e3:.2f} "
-        f"decode_ms_per_step={decode_ms:.2f} tokens_per_s={b * new / (stats.ttft_s + stats.decode_s):.1f} "
-        f"decode_tokens_per_s={b * (new - 1) / stats.decode_s:.1f} peak_mem_gib={peak_gib:.2f}")
-    log(f"e2e Engine.generate (step): ttft_ms={step_stats.ttft_s * 1e3:.2f} "
-        f"p50_step_ms={step_stats.p50_step_ms:.2f}; tokens equal to fused: True")
-    log(f"e2e first row tokens: {out[0][:8]}")
-    for name, n in counts.items():
-        log(f"launches {name}: {n}")
+    log(f"e2e 32-token first row tokens: {out[0][:8]}; fused and step loops equal: True")
     profile_decode(eng, prompts)
-    missing = [n for n, c in counts.items() if c == 0]
+
+    # 512-token prompts: the W6A16 prefill, then W6Ax decode
+    prompts = rng.integers(0, cfg.vocab_size, (b, 512))
+    whole, counts, _ = generate_run("bf16 cache", "512-token", eng, prompts, new, dev)
+    add(counts)
+    profile_decode(eng, prompts, new=2)
+    eng8 = Engine(params, cfg, policy, max_seq_len=2048, kv_dtype=torch.int8)
+    out8, counts, _ = generate_run("int8 cache", "512-token", eng8, prompts, new, dev)
+    add(counts)
+    log(f"e2e 512-token int8 vs bf16 cache: first row {out8[0][:8]} vs {whole[0][:8]}")
+    del eng8
+    engc = Engine(params, cfg, policy, max_seq_len=2048, prefill_chunk=256)
+    chunked, counts, _ = generate_run("bf16 cache, prefill_chunk=256", "512-token", engc, prompts, new, dev)
+    add(counts)
+    if chunked != whole:
+        raise AssertionError("prefill_chunk=256 tokens differ from the whole-prompt prefill's")
+    log("e2e 512-token prefill_chunk=256 tokens equal to the whole-prompt run: True")
+    del engc, eng, params
+    torch.cuda.empty_cache()
+    fused = random_params(cfg, policy, gen, dev, fuse=True)
+    engf = Engine(fused, cfg, policy, max_seq_len=2048)
+    _, counts, _ = generate_run("bf16 cache, fuse=True tree", "512-token fuse=True", engf, prompts, new, dev)
+    add(counts)
+    missing = [n for n, c in totals.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
-    return counts
+    return totals
 
 
 def profile_decode(eng, prompts, new: int = 8) -> None:
@@ -356,6 +544,7 @@ def profile_decode(eng, prompts, new: int = 8) -> None:
     decode steps) from torch.profiler, and the device's busy share: that
     device time over the wall time of the same generate run without the
     profiler (the profiler itself slows the host several-fold)."""
+    log(f"profile: B={prompts.shape[0]} prompt={prompts.shape[1]} new={new}")
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -398,13 +587,18 @@ def main() -> int:
     t0 = time.perf_counter()
     check_producers(results, dev, gen, timer)  # first: includes the Triton JIT
     check_w6(results, dev, gen, timer)
+    check_w6a16(results, dev, gen, timer)
     check_attention(results, dev, gen, timer)
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
     del timer  # free its 1 GiB buffer before the model phases measure peak memory
     torch.cuda.empty_cache()
 
-    slice_parity(dev, gen)
-    counts = end_to_end(dev, gen)
+    # each model phase draws its weights from its own seeded generator, so
+    # adding a kernel check above never changes the models below
+    parity_ok = slice_parity(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
+    counts = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    if not parity_ok:
+        raise AssertionError("slice parity failed (see the slice parity lines)")
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -111,6 +111,17 @@ class QuantPolicy:
             },
         )
 
+    @staticmethod
+    def weight_only(arch: str = "llama", wbits: int = 4) -> "QuantPolicy":
+        """W*A16 weight-only policy: every linear's weights at ``wbits``,
+        activations unquantized (served by the W6A16 layer at decode too)."""
+        if arch != "llama":
+            raise NotImplementedError("OPT serving is a later slice")
+        return QuantPolicy(
+            weight_bits={n: wbits for n in LLAMA_LINEARS},
+            act_bits={n: 16 for n in LLAMA_LINEARS},
+        )
+
     @property
     def no_act_quant(self) -> bool:
         """True when no linear quantizes its activations (W*A16 or fp16)."""

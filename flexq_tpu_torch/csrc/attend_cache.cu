@@ -1,32 +1,38 @@
-// Causal attention of Lq >= 1 queries over the dense bf16 KV cache, for
-// Hopper (sm_90a), plain C interface.
+// Causal attention of Lq >= 1 queries over the dense KV cache (bf16, or int8
+// with per-(token, head) f32 scales), for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels flexq_tpu/kernels/flash_decode.py::flash_decode
 // (_flash_decode_kernel, the Lq == 1 case) and
 // flexq_tpu/kernels/flash_prefill.py::flash_prefill (_flash_prefill_kernel)
-// for a bf16 cache: on such a cache the two compute the same function.
+// for a bf16 or an int8 cache: on such a cache the two compute the same
+// function.
 //
-//   cache  k, v: [L, B, KVH, S, D] bf16, read at `layer`
+//   cache  k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
+//   scales ks, vs: [L, B, KVH, S] f32 (int8 cache only)
 //   q: [B, Lq, H, D] bf16; out: [B, Lq, H, D] bf16; lengths: int32 [B]
 //   query i of row b sits at pos = lengths[b] - Lq + i (decode clips
 //   lengths[b] to [1, S] first) and attends keys in (pos - window, pos],
 //   from kv head h / (H / KVH).
 //
-// Numerics follow the TPU kernels: q, K and p are bf16 before their dots,
-// the dots and the softmax statistics are f32, and keys are taken in blocks
-// of `bs` (the TPU kernel's block) with the online-softmax update
-//   m' = max(m, max s), alpha = exp(m - m'), p = exp(s - m'),
-//   l' = l * alpha + sum p, acc' = acc * alpha + bf16(p) . V
-// per block; the output is acc / max(l, 1e-30).
+// Numerics follow the TPU kernels: q, K and p are bf16 before their dots
+// (int8 K and V upcast exactly), the dots and the softmax statistics are
+// f32, and keys are taken in blocks of `bs` (the TPU kernel's block) with the
+// online-softmax update
+//   s = (q . K) * (1/sqrt(D)) [* ks],  m' = max(m, max s),
+//   alpha = exp(m - m'), p = exp(s - m'), l' = l * alpha + sum p,
+//   acc' = acc * alpha + bf16(p [* vs]) . V
+// per block (the int8 scales folded into the math: never a dequantized copy
+// of the cache); the output is acc / max(l, 1e-30).
 //
-// Bound on this card: bytes (the K and V rows of the keys attended; the
-// work per byte is a few flops). Design, simple first: one warp per
-// (b, h, query); each lane holds D/32 dims of q and of the accumulator, so
-// a K or V row is one coalesced warp-wide read; the warp reduces each score
-// with shuffles, keeps a block's scores in shared memory, and reads only the
-// key blocks in the query's window (blocks past the diagonal or before the
-// window start are never read). GQA heads re-read their kv head's rows
-// (from L2); sharing them across a block's warps is later work.
+// Bound on this card: bytes (the K and V rows of the keys attended, and
+// their scales; the work per byte is a few flops). Design, simple first: one
+// warp per (b, h, query); each lane holds D/32 dims of q and of the
+// accumulator, so a K or V row is one coalesced warp-wide read; the warp
+// reduces each score with shuffles, keeps a block's scores in shared memory,
+// and reads only the key blocks in the query's window (blocks past the
+// diagonal or before the window start are never read). GQA heads re-read
+// their kv head's rows (from L2); sharing them across a block's warps is
+// later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -47,13 +53,27 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* v) {
   }
 }
 
-template <int DPL, int WARPS>
+// int8 row: exact in f32 (and in bf16, the TPU kernels' upcast)
+template <int DPL>
+__device__ __forceinline__ void load_row(const int8_t* p, float* v) {
+#pragma unroll
+  for (int i = 0; i < DPL; i += 2) {
+    const char2 two = *reinterpret_cast<const char2*>(p + i);
+    v[i] = (float)two.x;
+    v[i + 1] = (float)two.y;
+  }
+}
+
+// T: cache element type (__nv_bfloat16, or int8_t with scales ks / vs)
+template <typename T, int DPL, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
-attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-                    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ lengths,
+attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc, const float* __restrict__ ks,
+                    const float* __restrict__ vs, const int* __restrict__ lengths,
                     __nv_bfloat16* __restrict__ out, int Lq, int H, int KVH, int S,
                     int window, int bs, float scale, int clip_len) {
   constexpr int D = DPL * 32;
+  constexpr bool QUANT = sizeof(T) == 1;
   extern __shared__ float sc_all[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -66,9 +86,9 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   if (clip_len) len = min(max(len, 1), S);
   const int pos = len - Lq + qi;
   const int kvh = h / (H / KVH);
-  const size_t head = ((size_t)b * KVH + kvh) * S * D + lane * DPL;
-  const __nv_bfloat16* kb = kc + head;
-  const __nv_bfloat16* vb = vc + head;
+  const size_t row0 = ((size_t)b * KVH + kvh) * S;  // this (b, kv head)'s first key
+  const T* kb = kc + row0 * D + lane * DPL;
+  const T* vb = vc + row0 * D + lane * DPL;
 
   float qv[DPL];
   load_row<DPL>(q + (((size_t)b * Lq + qi) * H + h) * D + lane * DPL, qv);
@@ -92,7 +112,11 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int d = 0; d < DPL; ++d) part = fmaf(qv[d], kv[d], part);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
-      if (lane == (j & 31)) sc[j] = (k0 + j < lo_k) ? NEG : part * scale;
+      if (lane == (j & 31)) {
+        float s = part * scale;
+        if (QUANT) s = s * ks[row0 + k0 + j];  // K dequant after the dot: (q.K8)*ks
+        sc[j] = (k0 + j < lo_k) ? NEG : s;
+      }
     }
     __syncwarp();
     float mx = NEG;
@@ -103,8 +127,9 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     const float alpha = expf(m - m_new);
     float ps = 0.f;
     for (int j = lane; j < nk; j += 32) {
-      const float p = expf(sc[j] - m_new);
+      float p = expf(sc[j] - m_new);
       ps += p;
+      if (QUANT) p = p * vs[row0 + k0 + j];  // V dequant folded into p: (p*vs).V8
       sc[j] = __bfloat162float(__float2bfloat16_rn(p));
     }
 #pragma unroll
@@ -133,51 +158,60 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   for (int d = 0; d < DPL; ++d) op[d] = __float2bfloat16_rn(acc[d] / lsafe);
 }
 
-template <int DPL, int WARPS>
-int launch(const void* q, const void* kc, const void* vc, const void* lengths, void* out, int B,
-           int Lq, int H, int KVH, int S, int window, int bs, float scale, int clip_len,
-           cudaStream_t s) {
-  dim3 grid(B * H, (Lq + WARPS - 1) / WARPS);
-  const size_t smem = (size_t)WARPS * bs * sizeof(float);
-  attend_cache_kernel<DPL, WARPS><<<grid, WARPS * 32, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kc, (const __nv_bfloat16*)vc,
-      (const int*)lengths, (__nv_bfloat16*)out, Lq, H, KVH, S, window, bs, scale, clip_len);
+struct Args {
+  const void *q, *kc, *vc, *ks, *vs, *lengths;
+  void* out;
+  int B, Lq, H, KVH, S, window, bs;
+  float scale;
+  int clip_len;
+};
+
+template <typename T, int DPL, int WARPS>
+int launch(const Args& a, cudaStream_t s) {
+  dim3 grid(a.B * a.H, (a.Lq + WARPS - 1) / WARPS);
+  const size_t smem = (size_t)WARPS * a.bs * sizeof(float);
+  attend_cache_kernel<T, DPL, WARPS><<<grid, WARPS * 32, smem, s>>>(
+      (const __nv_bfloat16*)a.q, (const T*)a.kc, (const T*)a.vc, (const float*)a.ks,
+      (const float*)a.vs, (const int*)a.lengths, (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S,
+      a.window, a.bs, a.scale, a.clip_len);
   return (int)cudaGetLastError();
 }
 
-template <int DPL>
-int launch_d(const void* q, const void* kc, const void* vc, const void* lengths, void* out,
-             int B, int Lq, int H, int KVH, int S, int window, int bs, float scale,
-             int clip_len, cudaStream_t s) {
-  if (Lq == 1)
-    return launch<DPL, 1>(q, kc, vc, lengths, out, B, Lq, H, KVH, S, window, bs, scale,
-                          clip_len, s);
-  return launch<DPL, 4>(q, kc, vc, lengths, out, B, Lq, H, KVH, S, window, bs, scale, clip_len,
-                        s);
+template <typename T, int DPL>
+int launch_d(const Args& a, cudaStream_t s) {
+  return a.Lq == 1 ? launch<T, DPL, 1>(a, s) : launch<T, DPL, 4>(a, s);
+}
+
+template <typename T>
+int launch_t(const Args& a, int D, cudaStream_t s) {
+  switch (D) {
+    case 64:
+      return launch_d<T, 2>(a, s);
+    case 128:
+      return launch_d<T, 4>(a, s);
+    case 256:
+      return launch_d<T, 8>(a, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// k_layer / v_layer point at cache[layer] ([B, KVH, S, D]); window <= 0 means
+// k_layer / v_layer point at cache[layer] ([B, KVH, S, D]); quant = 1 means
+// an int8 cache with ks_layer / vs_layer at scales[layer] ([B, KVH, S] f32),
+// quant = 0 a bf16 cache (the scale pointers are ignored); window <= 0 means
 // none; clip_len = 1 clips lengths to [1, S] (decode). Returns
 // cudaGetLastError() after the launch.
 extern "C" int flexq_attend_cache(const void* q, const void* k_layer, const void* v_layer,
+                                  const void* ks_layer, const void* vs_layer,
                                   const void* lengths, void* out, int B, int Lq, int H,
                                   int KVH, int S, int D, int window, int bs, float scale,
-                                  int clip_len, void* stream) {
+                                  int clip_len, int quant, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KVH != 0 || S % bs != 0 || bs > 512) return (int)cudaErrorInvalidValue;
-  switch (D) {
-    case 64:
-      return launch_d<2>(q, k_layer, v_layer, lengths, out, B, Lq, H, KVH, S, window, bs, scale,
-                         clip_len, s);
-    case 128:
-      return launch_d<4>(q, k_layer, v_layer, lengths, out, B, Lq, H, KVH, S, window, bs, scale,
-                         clip_len, s);
-    case 256:
-      return launch_d<8>(q, k_layer, v_layer, lengths, out, B, Lq, H, KVH, S, window, bs, scale,
-                         clip_len, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (quant && (ks_layer == nullptr || vs_layer == nullptr)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, out,
+               B, Lq, H, KVH, S, window, bs, scale, clip_len};
+  return quant ? launch_t<int8_t>(a, D, s) : launch_t<__nv_bfloat16>(a, D, s);
 }

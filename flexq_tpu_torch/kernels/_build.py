@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on first
 use into ``flexq_tpu_torch/build/lib<name>-<hash>.so`` (the hash is of the
-source, so an edited source never loads a stale library):
+source together with every ``csrc/*.cuh`` header and the nvcc flags, so an
+edited source or header never loads a stale library):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so csrc/<name>.cu
@@ -23,7 +24,7 @@ from typing import Callable, Dict, List, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("w6_matmul", "attend_cache")
+SOURCES = ("w6_matmul", "attend_cache", "w6_bf16")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,9 +46,13 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        h.update(fname.encode())
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

@@ -2,11 +2,14 @@
 ``flash_decode`` (Lq == 1) and ``flash_prefill`` (Lq >= 1), and its plain
 PyTorch version.
 
-Kernel: csrc/attend_cache.cu (CUDA C++ for sm_90a, bf16 cache; see its
-header for the design and its bound). ``attend_cache_plain`` computes the
+Kernel: csrc/attend_cache.cu (CUDA C++ for sm_90a, bf16 or int8 cache; see
+its header for the design and its bound). ``attend_cache_plain`` computes the
 same function the way the TPU kernels do: keys in blocks of ``pick_bs(S)``,
 the online-softmax update per block, and q, K, V and p rounded to
-``compute_dtype`` before their dots (f32 sums). Processing a block in which
+``compute_dtype`` before their dots (f32 sums). With an int8 cache the f32
+scales fold into the math as in the TPU kernels: the score is
+``(q . K8) * (1/sqrt(D)) * ks`` and ``p * vs`` (f32) is rounded before the PV
+dot; int8 K and V upcast to bf16 exactly. Processing a block in which
 a query has no valid key leaves that query's state unchanged in the TPU
 kernels (or is wiped by the first valid block's alpha == 0), so the plain
 version updates a query only on the blocks between its window start and its
@@ -26,7 +29,7 @@ from flexq_tpu_torch.kernels.common import check_tensor
 
 NEG = -1e30  # finite -inf stand-in, as in the TPU kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 
 
 def pick_bs(s: int, cap: int = 512) -> int:
@@ -48,11 +51,15 @@ def attend_cache_plain(
     compute_dtype,
     clip_len: bool,
     out_dtype,
+    k_scale: Optional[torch.Tensor] = None,  # f32 [L, B, KVH, S] (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[B, Lq, H*D]: query i of row b at lengths[b] - Lq + i attends keys in
     (pos - window, pos]; ``clip_len`` clips lengths to [1, S] first."""
     b, lq, h, d = q.shape
     kc, vc = k_cache[layer_idx], v_cache[layer_idx]
+    ks = k_scale[layer_idx].to(torch.float32)[:, :, None] if k_scale is not None else None
+    vs = v_scale[layer_idx].to(torch.float32)[:, :, None] if v_scale is not None else None
     kvh, s = kc.shape[1], kc.shape[2]
     g = h // kvh
     bs = pick_bs(s)
@@ -82,6 +89,8 @@ def attend_cache_plain(
             kb = kc[:, :, k0 : k0 + bs].to(compute_dtype).to(torch.float32)
             vb = vc[:, :, k0 : k0 + bs].to(compute_dtype).to(torch.float32)
             sco = torch.matmul(qf, kb.transpose(-1, -2)) * scale  # [B, KVH, R, bs]
+            if ks is not None:  # K dequant after the dot: (q . K8) * ks
+                sco = sco * ks[..., k0 : k0 + bs]
             pos_k = k0 + torch.arange(bs, device=dev)
             ok = (pos_k <= pos_r) & (pos_k >= lo_r)
             sco = torch.where(ok, sco, torch.full_like(sco, NEG))
@@ -89,6 +98,8 @@ def attend_cache_plain(
             alpha = torch.exp(m - m_new)
             p = torch.exp(sco - m_new)
             l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+            if vs is not None:  # V dequant folded into p: (p * vs) . V8
+                p = p * vs[..., k0 : k0 + bs]
             pv = torch.matmul(p.to(compute_dtype).to(torch.float32), vb)
             acc_new = acc * alpha + pv
             active = ok_r & (blk >= first_r) & (blk <= last_r)
@@ -101,16 +112,26 @@ def attend_cache_plain(
 
 
 def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int],
-           clip_len: bool) -> torch.Tensor:
-    """Launch csrc/attend_cache.cu: q bf16 [B, Lq, H, D] over the bf16 cache
-    at ``layer_idx``; returns bf16 [B, Lq, H*D]."""
+           clip_len: bool, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Launch csrc/attend_cache.cu: q bf16 [B, Lq, H, D] over the bf16 cache,
+    or the int8 cache with its f32 scales [L, B, KVH, S], at ``layer_idx``;
+    returns bf16 [B, Lq, H*D]."""
     b, lq, h, d = q.shape
     nl, cb, kvh, s, cd = k_cache.shape
     dev = q.device
+    quant = k_scale is not None
+    cache_dtype = torch.int8 if quant else torch.bfloat16
     check_tensor(q, "q", torch.bfloat16, (b, lq, h, d), dev)
-    check_tensor(k_cache, "k_cache", torch.bfloat16, (nl, b, kvh, s, d), dev)
-    check_tensor(v_cache, "v_cache", torch.bfloat16, (nl, b, kvh, s, d), dev)
+    check_tensor(k_cache, "k_cache", cache_dtype, (nl, b, kvh, s, d), dev)
+    check_tensor(v_cache, "v_cache", cache_dtype, (nl, b, kvh, s, d), dev)
     check_tensor(lengths, "lengths", torch.int32, (b,), dev)
+    scale_ptrs = [None, None]
+    if quant:
+        for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
+            check_tensor(t, name, torch.float32, (nl, b, kvh, s), dev)
+        per_layer_s = b * kvh * s * 4
+        scale_ptrs = [k_scale.data_ptr() + layer_idx * per_layer_s,
+                      v_scale.data_ptr() + layer_idx * per_layer_s]
     if d not in (64, 128, 256) or h % kvh:
         raise ValueError(f"attend_cache kernel takes D in (64, 128, 256) and H % KVH == 0, got D={d}, H={h}, KVH={kvh}")
     if not 0 <= layer_idx < nl:
@@ -120,9 +141,9 @@ def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int],
     fn = _build.function("attend_cache", "flexq_attend_cache", _ARGS)
     rc = fn(
         q.data_ptr(), k_cache.data_ptr() + layer_idx * per_layer,
-        v_cache.data_ptr() + layer_idx * per_layer, lengths.data_ptr(), out.data_ptr(),
+        v_cache.data_ptr() + layer_idx * per_layer, *scale_ptrs, lengths.data_ptr(), out.data_ptr(),
         b, lq, h, kvh, s, d, window if window is not None else 0, pick_bs(s),
-        1.0 / math.sqrt(d), int(clip_len), torch.cuda.current_stream(dev).cuda_stream,
+        1.0 / math.sqrt(d), int(clip_len), int(quant), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"attend_cache kernel launch failed: CUDA error {rc}")

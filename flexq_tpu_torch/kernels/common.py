@@ -32,6 +32,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def on_card(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (plain version); anything else is refused."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"unsupported device {x.device}")
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
     """Raise unless ``t`` has the dtype, shape, device and contiguity a kernel
     takes (``dtype`` may be a tuple of allowed dtypes)."""

@@ -34,7 +34,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor
+from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
 from flexq_tpu_torch.quant.quantizer import CLIPMAX, CLIPMIN
 
 _MODE_IDENT, _MODE_RMS, _MODE_RMS_RES, _MODE_GLU = 0, 1, 2, 3
@@ -124,16 +124,6 @@ def _check_rows(x: torch.Tensor, name: str) -> None:
     check_tensor(x, name, (torch.bfloat16, torch.float32), x.shape, x.device)
 
 
-def _on_card(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (plain version); anything else is refused."""
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {x.device}")
-
-
 # ---- plain PyTorch versions (the same arithmetic, used on the CPU) -------
 
 
@@ -211,7 +201,7 @@ def rmsnorm_quant(
     check_tensor(gamma, "gamma", (torch.bfloat16, torch.float32), (x.shape[1],), x.device)
     if residual is not None:
         check_tensor(residual, "residual", x.dtype, x.shape, x.device)
-    if not _on_card(x):
+    if not on_card(x):
         return rmsnorm_quant_plain(x, gamma, bits, residual=residual, eps=eps)
     mode = _MODE_RMS if residual is None else _MODE_RMS_RES
     q, s, ro = _launch(mode, x, residual, gamma, bits, eps, "silu", residual is not None)
@@ -222,7 +212,7 @@ def rmsnorm_quant(
 def quant_act(x: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic per-group symmetric quant of activations [M, K]."""
     _check_rows(x, "x")
-    if not _on_card(x):
+    if not on_card(x):
         return quant_act_plain(x, bits)
     q, s, _ = _launch(_MODE_IDENT, x, None, None, bits, 0.0, "silu", False)
     quant_act.launches += 1
@@ -237,7 +227,7 @@ def glu_quant(
     check_tensor(up, "up", gate.dtype, gate.shape, gate.device)
     if act not in _ACTS:
         raise ValueError(f"unsupported activation {act!r}")
-    if not _on_card(gate):
+    if not on_card(gate):
         return glu_quant_plain(gate, up, bits, act=act)
     q, s, _ = _launch(_MODE_GLU, gate, up, None, bits, 0.0, act, False)
     glu_quant.launches += 1

@@ -35,8 +35,11 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, scaling=N
             torch.where(wavelen < orig / high, inv_freq, blended),
         )
     freqs = positions[..., None].to(torch.float32) * inv_freq  # [B, L, D/2]
-    emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    emb = torch.cat([freqs, freqs], dim=-1).to(torch.float64)
+    # cos/sin of the f32 angle, taken in f64 and rounded once: as accurate
+    # as the reference's f32 cos/sin; torch's f32 CPU cos loses up to 1.5e-4
+    # at angles near 80 rad on some runs
+    return torch.cos(emb).to(torch.float32), torch.sin(emb).to(torch.float32)
 
 
 def rope_for_cfg(positions: torch.Tensor, cfg: ModelConfig):
@@ -56,6 +59,20 @@ def apply_rope(q, k, cos, sin):
     q_out = qf * cos + _rotate_half(qf) * sin
     k_out = kf * cos + _rotate_half(kf) * sin
     return q_out.to(q.dtype), k_out.to(k.dtype)
+
+
+def rope_gemm_operands(cos: torch.Tensor, sin: torch.Tensor):
+    """(cos, sin) [B, L, D] -> (cos_f, sin2_f) [B*L, D] f32 operands of the
+    in-GEMM RoPE epilogue (kernels.w6_bf16.w6_matmul_bf16): with P the roll
+    by D/2 within a head, rotate_half(t) * sin == P(t) * sin2, where
+    sin2 = (-sin_half | sin_half)."""
+    b, l, d = cos.shape
+    half = d // 2
+    sin2 = torch.cat([-sin[..., :half], sin[..., half:]], dim=-1)
+    return (
+        cos.reshape(b * l, d).to(torch.float32).contiguous(),
+        sin2.reshape(b * l, d).to(torch.float32).contiguous(),
+    )
 
 
 def act_fn(name: str, x: torch.Tensor) -> torch.Tensor:

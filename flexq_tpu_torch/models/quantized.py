@@ -1,20 +1,28 @@
-"""Quantized serve-path LLaMA (port of flexq_tpu/models/quantized.py, the
-W6Ax decode layer over a dense bf16 KV cache).
+"""Quantized serve-path LLaMA (port of flexq_tpu/models/quantized.py: the
+W6Ax decode layer, the W6A16 prefill layer and forward_serve over a dense
+bf16 or int8 KV cache).
 
-Every linear runs the W6Ax kernel from 6-bit packed planes, activations are
-quantized in the producer's epilogue (fused norm / activation kernels), and
-attention reads the cache through the attention kernel. Prompts shorter than
-the engine's ``prefill_bf16_threshold`` go through this same layer, so short
-prompt serving and decode share one path.
+Two layers, chosen as the reference chooses them:
+  * ``llama_layer_serve`` (W6Ax, exact integer): every linear runs the W6Ax
+    kernel on 6-bit packed planes, with activations quantized in the
+    producer's epilogue (fused norm / activation kernels). Decode, and
+    prompts shorter than the engine's ``prefill_bf16_threshold``.
+  * ``llama_layer_serve_prefill`` (W6A16): the weights are dequantized to
+    bf16 inside the GEMM kernel and the activations stay unquantized; q and
+    k take the fused RoPE epilogue, gate and up the fused GLU kernel. Long
+    prompts (``prefill_bf16``), and every step under a no-act-quant policy
+    (``QuantPolicy.weight_only``).
+Attention reads the cache through the attention kernel.
 
 Not in this slice (each raises NotImplementedError naming its slice): the
-W6A16 prefill layer (kernels K7/K8), no-act-quant policies, the int8 and
-paged KV caches, per-row cache positions, fused qkv/gate_up trees, other
-weight formats and the quantized lm_head, OPT, and the cache-less forward.
+paged KV cache, per-row cache positions, W4 and W8 weights (kernels
+K10-K12) and the quantized lm_head, 16-bit linears under a W6Ax policy, OPT,
+and the cache-less forward.
 
-Cache layout: [L, B, KVH, S, D] (sequence second-minor), updated in place:
-the port's tensors are mutable, so writing the step's K/V into the caller's
-cache replaces the reference's functional cache update.
+Cache layout: [L, B, KVH, S, D] (sequence second-minor), with f32 scales
+[L, B, KVH, S] for the int8 cache, updated in place: the port's tensors are
+mutable, so writing the step's K/V into the caller's cache replaces the
+reference's functional cache update.
 """
 
 from __future__ import annotations
@@ -33,10 +41,14 @@ from flexq_tpu_torch.kernels import (
     glu_quant,
     quant_act,
     rmsnorm_quant,
+    w6_glu_fused_bf16,
+    w6_glu_matmul_bf16,
     w6_matmul,
+    w6_matmul_bf16,
 )
 from flexq_tpu_torch.kernels.common import resolve_device
-from flexq_tpu_torch.models.llama import apply_rope, rmsnorm, rope_for_cfg
+from flexq_tpu_torch.kernels.fused_quant import f32_reciprocal
+from flexq_tpu_torch.models.llama import act_fn, apply_rope, rmsnorm, rope_for_cfg, rope_gemm_operands
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import QuantSpec, quantize
 
@@ -80,24 +92,71 @@ def quantize_linear(
     return {"hi": hi, "lo": lo, "scale": s.to(torch.float32).contiguous()}
 
 
+def _pad128(n: int) -> int:
+    return n + (-n) % 128
+
+
+# fused matrices take the weight spec of a representative member
+_FUSED_SPEC = {"qkv_proj": "q_proj", "gate_up": "gate_proj"}
+
+
+def _fuse_layer(lp: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, device) -> Dict[str, Any]:
+    """The reference's ``fuse=True`` layout of one dense layer: q|k|v as one
+    "qkv_proj" matrix (each member padded to a multiple of 128 columns, biases
+    at the padded offsets) and gate|up as one "gate_up" matrix (each padded to
+    the padded FFN width)."""
+    ab = policy.act_bits
+    if not (ab.get("q_proj") == ab.get("k_proj") == ab.get("v_proj") and ab.get("gate_proj") == ab.get("up_proj")):
+        raise ValueError("fuse=True needs one act-bit width for q/k/v and one for gate/up")
+    lp = dict(lp)
+    ffn_pad = _padded_width(cfg.intermediate_size)
+
+    def w(m):
+        return _as_tensor(m["w"], device)
+
+    def pad_cols(t, to):
+        return F.pad(t, (0, to - t.shape[1]))
+
+    qp, kp, vp = lp.pop("q_proj"), lp.pop("k_proj"), lp.pop("v_proj")
+    nq_p, nkv_p = _pad128(w(qp).shape[1]), _pad128(w(kp).shape[1])
+    qkv = {"w": torch.cat([pad_cols(w(qp), nq_p), pad_cols(w(kp), nkv_p), pad_cols(w(vp), nkv_p)], dim=1)}
+    if any(m.get("b") is not None for m in (qp, kp, vp)):
+
+        def pad_b(m, to):
+            b = m.get("b")
+            b = torch.zeros(to, dtype=w(m).dtype, device=device) if b is None else _as_tensor(b, device)
+            return F.pad(b, (0, to - b.shape[0]))
+
+        qkv["b"] = torch.cat([pad_b(qp, nq_p), pad_b(kp, nkv_p), pad_b(vp, nkv_p)])
+    lp["qkv_proj"] = qkv
+    gate, up = w(lp.pop("gate_proj")), w(lp.pop("up_proj"))
+    lp["gate_up"] = {"w": torch.cat([pad_cols(gate, ffn_pad), pad_cols(up, ffn_pad)], dim=1)}
+    return lp
+
+
 def quantize_layer(
-    lp: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, dtype, device
+    lp: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, dtype, device, fuse: bool = False
 ) -> Dict[str, Any]:
-    """One decoder layer's dense params -> its serve params on ``device``."""
+    """One decoder layer's dense params -> its serve params on ``device``
+    (``fuse=True``: the fused qkv_proj / gate_up layout)."""
+    if fuse and "q_proj" in lp and "gate_proj" in lp:
+        lp = _fuse_layer(lp, cfg, policy, device)
     ffn_pad = _padded_width(cfg.intermediate_size)
     out: Dict[str, Any] = {}
     for name, val in lp.items():
         if isinstance(val, dict) and "w" in val:
             w = _as_tensor(val["w"], device)
-            spec = policy.weight_spec(name)
-            if not spec.enabled:
-                raise NotImplementedError(f"16-bit {name} under a mixed policy is a later slice")
-            k_pad = ffn_pad if name == "down_proj" else None
-            out[name] = quantize_linear(w, spec, k_pad_to=k_pad)
+            spec = policy.weight_spec(_FUSED_SPEC.get(name, name))
+            if spec.enabled:
+                k_pad = ffn_pad if name == "down_proj" else None
+                out[name] = quantize_linear(w, spec, k_pad_to=k_pad)
+                n_plane = out[name]["scale"].shape[1]
+            else:  # a 16-bit linear keeps its dense weight
+                out[name] = {"w": w.to(dtype)}
+                n_plane = w.shape[1]
             if val.get("b") is not None:
                 # biases ride padded to the plane width (added pre-slice)
                 b = _as_tensor(val["b"], device)
-                n_plane = out[name]["scale"].shape[1]
                 out[name]["b"] = F.pad(b, (0, n_plane - b.shape[0])).to(dtype)
         else:
             out[name] = _as_tensor(val, device).to(dtype)
@@ -114,14 +173,13 @@ def quantize_params(
 ) -> Dict[str, Any]:
     """Dense param tree (numpy arrays or tensors) -> serve tree on ``device``
     (packed linears, ``dtype`` for the rest), the same tree the reference's
-    ``quantize_params`` builds."""
-    if fuse:
-        raise NotImplementedError("fuse=True (fused qkv_proj/gate_up trees) is a later slice")
+    ``quantize_params`` builds. ``fuse=True`` packs q/k/v into one
+    "qkv_proj" matrix and gate/up into one "gate_up" matrix."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {
         "embed": _as_tensor(params["embed"], dev).to(dtype),
         "final_norm": _as_tensor(params["final_norm"], dev).to(dtype),
-        "layers": [quantize_layer(lp, cfg, policy, dtype, dev) for lp in params["layers"]],
+        "layers": [quantize_layer(lp, cfg, policy, dtype, dev, fuse) for lp in params["layers"]],
     }
     if "lm_head" in params:
         if policy.weight_spec("lm_head").enabled:
@@ -138,35 +196,92 @@ def _cache_update(ck, cv, k, v, li: int, cache_pos: int) -> None:
     cv[li, :, :, cache_pos : cache_pos + l] = v.transpose(1, 2).to(cv.dtype)
 
 
-def _kv_write_read(kv, k, v, cache_pos):
-    """kv = (ck, cv, li), the dense cache: write, then view it for attention."""
-    if len(kv) != 3 or isinstance(kv[0], str):
-        raise NotImplementedError("int8 and paged KV caches are later slices")
-    ck, cv, li = kv
-    _cache_update(ck, cv, k, v, li, cache_pos)
-    return (ck, cv), ("cache", ck, cv, li)
+KV_QMAX = 127
+
+
+def _kv_quant(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quant over head_dim: [B, L, KVH, D]
+    -> (int8 values, f32 scales [B, L, KVH]). ``absmax / 127`` is a multiply
+    by the f32 reciprocal, as XLA compiles the reference's division by a
+    constant inside the jitted engine; ``x / scale`` is a true division."""
+    xf = x.to(torch.float32)
+    scale = (xf.abs().amax(dim=-1) * f32_reciprocal(KV_QMAX)).clamp(1e-8, 1e4)
+    q = torch.round(xf / scale[..., None]).clamp(-KV_QMAX - 1, KV_QMAX)
+    return q.to(torch.int8), scale
+
+
+def _kv_write_read(kv, k, v, cache_pos: int):
+    """Write step K/V into the cache, in place, and return the view the
+    attention kernel reads, (ck, cv, cks, cvs, li).
+
+    kv = (ck, cv, li)                bf16 (or f32) cache [L, B, KVH, S, D]
+       | (ck, cv, cks, cvs, li)      int8 cache + f32 scales [L, B, KVH, S]
+    The int8 view is consumed with the scales folded into the math."""
+    if isinstance(kv[0], str):
+        raise NotImplementedError("the paged KV cache is a later slice")
+    if len(kv) == 3:
+        ck, cv, li = kv
+        _cache_update(ck, cv, k, v, li, cache_pos)
+        return ck, cv, None, None, li
+    ck, cv, cks, cvs, li = kv
+    kq, ks = _kv_quant(k)
+    vq, vs = _kv_quant(v)
+    _cache_update(ck, cv, kq, vq, li, cache_pos)
+    l = k.shape[1]
+    cks[li, :, :, cache_pos : cache_pos + l] = ks.transpose(1, 2)
+    cvs[li, :, :, cache_pos : cache_pos + l] = vs.transpose(1, 2)
+    return ck, cv, cks, cvs, li
 
 
 def _attend(q, kv_view, lengths, window=None):
     """The attention kernel over the cache: flash_decode for one query per
     row, flash_prefill otherwise. Causality comes from ``lengths``."""
-    _, ck, cv, li = kv_view
+    ck, cv, cks, cvs, li = kv_view
     b, l, h, d = q.shape
     if l == 1:
-        out = flash_decode(q[:, 0], ck, cv, lengths, layer_idx=li, window=window)
+        out = flash_decode(q[:, 0], ck, cv, lengths, cks, cvs, layer_idx=li, window=window)
         return out.to(q.dtype).reshape(b, 1, h * d)
-    return flash_prefill(q, ck, cv, lengths, layer_idx=li, out_dtype=q.dtype, window=window)
+    return flash_prefill(q, ck, cv, lengths, cks, cvs, layer_idx=li, out_dtype=q.dtype, window=window)
 
 
-def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
-    if "hi" not in wq:
-        raise NotImplementedError("16-bit, W4 and W8 linears are later slices")
-    y = w6_matmul(xq, xs, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
+def _finish_linear(wq, y, n_out: Optional[int]) -> torch.Tensor:
     if "b" in wq:  # stored at the padded plane width: add before the slice
         y = y + wq["b"].to(y.dtype)
     if n_out is not None and y.shape[-1] != n_out:
         y = y[:, :n_out].contiguous()
     return y
+
+
+def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
+    if "hi" not in wq:
+        raise NotImplementedError(
+            "W4/W8 linears (kernels K10-K12) and 16-bit linears under a W6Ax policy are later slices"
+        )
+    y = w6_matmul(xq, xs, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
+    return _finish_linear(wq, y, n_out)
+
+
+def _qlinear_bf16(wq, x, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
+    """W6A16 linear (kernel K7); a 16-bit weight is a plain product, left to
+    torch.matmul as the reference left it to XLA."""
+    if "hi" in wq:
+        y = w6_matmul_bf16(x, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
+    elif "q4" in wq or "q8" in wq:
+        raise NotImplementedError("W4A16 / W8A16 linears (kernels K10-K12) are a later slice")
+    else:
+        y = x @ wq["w"].to(x.dtype)
+    return _finish_linear(wq, y, n_out)
+
+
+def _split_qkv(qkv, cfg: ModelConfig):
+    """q, k, v of a fused qkv_proj output: members sit at 128-padded offsets."""
+    nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    nq_p, nkv_p = _pad128(nq), _pad128(nkv)
+    return qkv[:, :nq], qkv[:, nq_p : nq_p + nkv], qkv[:, nq_p + nkv_p : nq_p + nkv_p + nkv]
+
+
+def _ffn_width(lp) -> int:
+    return lp["down_proj"]["hi"].shape[0] * 2 if "hi" in lp["down_proj"] else lp["down_proj"]["w"].shape[0]
 
 
 def llama_layer_serve(
@@ -181,11 +296,10 @@ def llama_layer_serve(
     lengths: torch.Tensor,
     window: Optional[int] = None,
 ):
-    """One quantized decoder layer: fused norm->quant, W6Ax q/k/v, rope,
-    cache write + attention, quant + o_proj, fused residual-add + norm ->
-    quant, W6Ax gate/up, fused GLU -> quant, W6Ax down, residual add."""
-    if "qkv_proj" in lp or "gate_up" in lp:
-        raise NotImplementedError("fused qkv_proj/gate_up trees are a later slice")
+    """One quantized decoder layer: fused norm->quant, W6Ax q/k/v (or the
+    fused qkv_proj), rope, cache write + attention, quant + o_proj, fused
+    residual-add + norm -> quant, W6Ax gate/up (or gate_up), fused GLU ->
+    quant, W6Ax down, residual add."""
     b, l, hidden = x.shape
     dtype = x.dtype
     x2 = x.reshape(b * l, hidden)
@@ -193,12 +307,18 @@ def llama_layer_serve(
     qx, qs = rmsnorm_quant(x2, lp["input_norm"], bits=policy.act_bits.get("q_proj", 6), eps=cfg.norm_eps)
     nq = cfg.num_heads * cfg.head_dim
     nkv = cfg.num_kv_heads * cfg.head_dim
-    q = _qlinear(lp["q_proj"], qx, qs, dtype, nq).reshape(b, l, cfg.num_heads, cfg.head_dim)
-    k = _qlinear(lp["k_proj"], qx, qs, dtype, nkv).reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
-    v = _qlinear(lp["v_proj"], qx, qs, dtype, nkv).reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    if "qkv_proj" in lp:
+        q, k, v = _split_qkv(_qlinear(lp["qkv_proj"], qx, qs, dtype), cfg)
+    else:
+        q = _qlinear(lp["q_proj"], qx, qs, dtype, nq)
+        k = _qlinear(lp["k_proj"], qx, qs, dtype, nkv)
+        v = _qlinear(lp["v_proj"], qx, qs, dtype, nkv)
+    q = q.reshape(b, l, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
-    new_kv, kv_view = _kv_write_read(kv, k, v, cache_pos)
+    kv_view = _kv_write_read(kv, k, v, cache_pos)
     attn = _attend(q, kv_view, lengths, window)
     oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
     o = _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
@@ -206,13 +326,99 @@ def llama_layer_serve(
     fq, fs, x2 = rmsnorm_quant(
         o, lp["post_norm"], bits=policy.act_bits.get("gate_proj", 6), residual=x2, eps=cfg.norm_eps
     )
-    ffn_pad = lp["down_proj"]["hi"].shape[0] * 2  # padded FFN width = down_proj's K
-    gate = _qlinear(lp["gate_proj"], fq, fs, dtype, ffn_pad)
-    up = _qlinear(lp["up_proj"], fq, fs, dtype, ffn_pad)
+    ffn_pad = _ffn_width(lp)  # gate/up stay at the padded FFN width = down_proj's K
+    if "gate_up" in lp:
+        gu = _qlinear(lp["gate_up"], fq, fs, dtype)
+        gate, up = gu[:, :ffn_pad].contiguous(), gu[:, ffn_pad : 2 * ffn_pad].contiguous()
+    else:
+        gate = _qlinear(lp["gate_proj"], fq, fs, dtype, ffn_pad)
+        up = _qlinear(lp["up_proj"], fq, fs, dtype, ffn_pad)
     dq, ds = glu_quant(gate, up, bits=policy.act_bits.get("down_proj", 8), act=cfg.act)
     down = _qlinear(lp["down_proj"], dq, ds, dtype, hidden)
     x2 = x2 + down
-    return x2.reshape(b, l, hidden), new_kv
+    return x2.reshape(b, l, hidden)
+
+
+def llama_layer_serve_prefill(
+    lp: Dict[str, Any],
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, L, H]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    kv,
+    cache_pos,
+    lengths: torch.Tensor,
+    window: Optional[int] = None,
+):
+    """The W6A16 layer (large M): weights dequantized to bf16 inside the
+    GEMM kernel, activations unquantized. Its branches are the reference's:
+    a fused qkv_proj is one GEMM and apply_rope; unbiased packed q/k with
+    head_dim 128 take the RoPE epilogue on the f32 accumulator (which rounds
+    differently from apply_rope on the rounded output); otherwise three
+    GEMMs and apply_rope. A gate_up plane or unbiased packed gate/up take
+    the fused GLU kernel; otherwise two GEMMs and act(gate) * up."""
+    b, l, hidden = x.shape
+    dtype = x.dtype
+    x2 = x.reshape(b * l, hidden)
+
+    h = rmsnorm(x2, lp["input_norm"], cfg.norm_eps)
+    nq = cfg.num_heads * cfg.head_dim
+    nkv = cfg.num_kv_heads * cfg.head_dim
+
+    def rope_ok(wq):
+        return "hi" in wq and "b" not in wq
+
+    fused_rope = (
+        cfg.head_dim == 128 and "qkv_proj" not in lp and rope_ok(lp["q_proj"]) and rope_ok(lp["k_proj"])
+    )
+    if "qkv_proj" in lp:
+        q, k, v = _split_qkv(_qlinear_bf16(lp["qkv_proj"], h, dtype), cfg)
+    elif fused_rope:
+        cos_f, sin2_f = rope_gemm_operands(cos, sin)
+
+        def rope_proj(wq, n_out):
+            y = w6_matmul_bf16(h, wq["hi"], wq["lo"], wq["scale"], out_dtype=dtype,
+                               rope_cos=cos_f, rope_sin2=sin2_f)
+            return _finish_linear(wq, y, n_out)
+
+        q = rope_proj(lp["q_proj"], nq)
+        k = rope_proj(lp["k_proj"], nkv)
+        v = _qlinear_bf16(lp["v_proj"], h, dtype, nkv)
+    else:
+        q = _qlinear_bf16(lp["q_proj"], h, dtype, nq)
+        k = _qlinear_bf16(lp["k_proj"], h, dtype, nkv)
+        v = _qlinear_bf16(lp["v_proj"], h, dtype, nkv)
+    q = q.reshape(b, l, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    if not fused_rope:
+        q, k = apply_rope(q, k, cos, sin)
+
+    kv_view = _kv_write_read(kv, k, v, cache_pos)
+    attn = _attend(q, kv_view, lengths, window)
+    o = _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
+    x2 = x2 + o
+
+    h = rmsnorm(x2, lp["post_norm"], cfg.norm_eps)
+    if "gate_up" in lp and "hi" in lp["gate_up"]:
+        gu = lp["gate_up"]
+        act = w6_glu_fused_bf16(h, gu["hi"], gu["lo"], gu["scale"], act=cfg.act, out_dtype=dtype)
+    elif "gate_up" not in lp and all("hi" in lp[n] and "b" not in lp[n] for n in ("gate_proj", "up_proj")):
+        gq, uq = lp["gate_proj"], lp["up_proj"]
+        act = w6_glu_matmul_bf16(h, gq["hi"], gq["lo"], gq["scale"], uq["hi"], uq["lo"], uq["scale"],
+                                 act=cfg.act, out_dtype=dtype)
+    else:
+        ffn_pad = _ffn_width(lp)
+        if "gate_up" in lp:
+            gu = _qlinear_bf16(lp["gate_up"], h, dtype)
+            gate, up = gu[:, :ffn_pad], gu[:, ffn_pad : 2 * ffn_pad]
+        else:
+            gate = _qlinear_bf16(lp["gate_proj"], h, dtype, ffn_pad)
+            up = _qlinear_bf16(lp["up_proj"], h, dtype, ffn_pad)
+        act = (act_fn(cfg.act, gate.to(torch.float32)) * up.to(torch.float32)).to(dtype)
+    down = _qlinear_bf16(lp["down_proj"], act, dtype, hidden)
+    x2 = x2 + down
+    return x2.reshape(b, l, hidden)
 
 
 def apply_lm_head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
@@ -233,28 +439,32 @@ def forward_serve(
     policy: QuantPolicy,
     ids,  # [B, L]
     positions: Optional[torch.Tensor] = None,
-    kv_k: Optional[torch.Tensor] = None,  # [layers, B, KVH, max, D]
+    kv_k: Optional[torch.Tensor] = None,  # [layers, B, KVH, max, D] bf16 | int8
     kv_v: Optional[torch.Tensor] = None,
     cache_pos=None,
     prefill_bf16: bool = False,
-    kv_k_scale: Optional[torch.Tensor] = None,
-    kv_v_scale: Optional[torch.Tensor] = None,
+    kv_k_scale: Optional[torch.Tensor] = None,  # [layers, B, KVH, max] f32
+    kv_v_scale: Optional[torch.Tensor] = None,  # (present => int8 KV cache)
     page_table: Optional[torch.Tensor] = None,
     last_only: bool = False,
     device="cuda",
 ):
     """Quantized forward over the cache: writes K/V at ``cache_pos`` (in
-    place) and attends over the cache. Returns (logits [B, L, V] — [B, 1, V]
-    with ``last_only`` — and (kv_k, kv_v))."""
+    place) and attends over the cache. ``prefill_bf16`` selects the W6A16
+    layer (always taken under a no-act-quant policy); passing the scale
+    tensors selects the int8 cache. Returns (logits [B, L, V] — [B, 1, V]
+    with ``last_only`` — and the cache state (kv_k, kv_v) or (kv_k, kv_v,
+    kv_k_scale, kv_v_scale))."""
     dev = resolve_device(device)
     if cfg.arch != "llama":
         raise NotImplementedError("OPT serving is a later slice")
-    if prefill_bf16 or policy.no_act_quant:
-        raise NotImplementedError(
-            "the W6A16 prefill layer (kernels K7/K8: w6_matmul_bf16, w6_glu_*_bf16) is the next slice"
-        )
-    if kv_k_scale is not None or kv_v_scale is not None:
-        raise NotImplementedError("the int8 KV cache is a later slice")
+    if policy.no_act_quant:
+        # W*A16: activations stay unquantized at decode too (an int8
+        # container cannot hold them), so every step takes the W6A16 layer
+        prefill_bf16 = True
+    quant_cache = kv_k_scale is not None
+    if quant_cache != (kv_v_scale is not None):
+        raise ValueError("the int8 cache needs both kv_k_scale and kv_v_scale")
     if page_table is not None:
         raise NotImplementedError("the paged KV cache is a later slice")
     if kv_k is None or kv_v is None:
@@ -276,11 +486,13 @@ def forward_serve(
     cache_pos = 0 if cache_pos is None else int(cache_pos)
     lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
     for i, lp in enumerate(params["layers"]):
-        x, (kv_k, kv_v) = llama_layer_serve(
-            lp, cfg, policy, x, cos, sin, (kv_k, kv_v, i), cache_pos, lengths,
-            window=cfg.sliding_window,
-        )
+        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i) if quant_cache else (kv_k, kv_v, i)
+        if prefill_bf16:
+            x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
+        else:
+            x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    return apply_lm_head(params, x), (kv_k, kv_v)
+    cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v)
+    return apply_lm_head(params, x), cache

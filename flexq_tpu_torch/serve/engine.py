@@ -1,9 +1,14 @@
 """Single-device serving engine (port of flexq_tpu/serve/engine.py: Engine
-with prefill, decode step and greedy generate, dense KV cache).
+with prefill, chunked prefill, decode step and greedy generate, dense bf16
+or int8 KV cache).
 
 Prefill fills the cache and emits the first token's logits; decode then
 runs one forward per token over the same cache, updated in place. The cache
-is [layers, B, kv_heads, max_len, head_dim].
+is [layers, B, kv_heads, max_len, head_dim]; ``kv_dtype=torch.int8`` adds
+f32 scales [layers, B, kv_heads, max_len] (per token and head). Prompts of
+``prefill_bf16_threshold`` tokens or more prefill through the W6A16 layer;
+with ``prefill_chunk`` set, longer prompts prefill in chunks of that many
+tokens (each chunk attends over the cache written so far).
 
 Two decode loops, as in the reference, returning the same tokens:
   * ``mode="fused"`` keeps the tokens, the stop test and the bookkeeping on
@@ -13,15 +18,13 @@ Two decode loops, as in the reference, returning the same tokens:
   * ``mode="step"`` reads each token back to the host, as the reference's
     stepwise loop does.
 
-Not in this slice (NotImplementedError): prompts of ``prefill_bf16_threshold``
-tokens or more (W6A16 prefill, kernels K7/K8), chunked prefill, the int8 KV
-cache, meshes (tensor / pipeline parallel), speculative decoding, logprobs
-and non-default sampling.
+Not in this slice (NotImplementedError): meshes (tensor / pipeline
+parallel), speculative decoding, logprobs and non-default sampling.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +54,7 @@ class Engine:
         max_seq_len: int = 2048,
         kv_dtype=torch.bfloat16,
         prefill_bf16_threshold: int = 64,
+        prefill_chunk: Optional[int] = None,
         mesh=None,
         pp_mesh=None,
         device="cuda",
@@ -58,8 +62,6 @@ class Engine:
         self.device = resolve_device(device)
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("tensor- and pipeline-parallel serving are a later slice")
-        if kv_dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is a later slice")
         if max_seq_len % 128:
             raise ValueError(f"max_seq_len={max_seq_len} must be a multiple of 128")
         if params["embed"].device != self.device:
@@ -69,37 +71,64 @@ class Engine:
         self.policy = policy
         self.max_seq_len = max_seq_len
         self.kv_dtype = kv_dtype
+        # prompts longer than this prefill in chunks (None: one pass)
+        self.prefill_chunk = prefill_chunk
+        # prompts at/above this many tokens take the W6A16 prefill layer
         self.prefill_bf16_threshold = prefill_bf16_threshold
 
     def _kv_shape(self, batch: int) -> Tuple[int, ...]:
         c = self.cfg
         return (c.num_layers, batch, c.num_kv_heads, self.max_seq_len, c.head_dim)
 
-    def new_cache(self, batch: int):
-        shape = self._kv_shape(batch)
-        return (
-            torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
-            torch.zeros(shape, dtype=self.kv_dtype, device=self.device),
-        )
+    @property
+    def quantized_cache(self) -> bool:
+        return self.kv_dtype == torch.int8
 
-    def _fwd(self, ids, cache, positions, cache_pos, last_only: bool = False):
+    def new_cache(self, batch: int):
+        """(k, v), or (k, v, k_scale, v_scale) for the int8 cache."""
+        shape = self._kv_shape(batch)
+        cache = tuple(torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in "kv")
+        if self.quantized_cache:
+            cache += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=self.device) for _ in "kv")
+        return cache
+
+    def _fwd(self, ids, cache, positions, cache_pos, prefill_bf16: bool = False, last_only: bool = False):
+        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
         return forward_serve(
             self.params, self.cfg, self.policy, ids, positions=positions,
-            kv_k=cache[0], kv_v=cache[1], cache_pos=cache_pos, last_only=last_only,
-            device=self.device,
+            kv_k=cache[0], kv_v=cache[1], cache_pos=cache_pos, prefill_bf16=prefill_bf16,
+            last_only=last_only, device=self.device, **scales,
         )
 
     def _prefill(self, ids, cache, prompt_len: int):
         b, l = ids.shape
-        if l >= self.prefill_bf16_threshold:
-            raise NotImplementedError(
-                f"prompts of {self.prefill_bf16_threshold} tokens or more take the W6A16 "
-                "prefill path (kernels K7/K8), the next slice"
-            )
         positions = torch.arange(l, device=self.device).expand(b, l)
         last = prompt_len == l
-        logits, kv = self._fwd(ids, cache, positions, 0, last_only=last)
+        logits, kv = self._fwd(
+            ids, cache, positions, 0, prefill_bf16=l >= self.prefill_bf16_threshold, last_only=last
+        )
         return logits[:, -1 if last else prompt_len - 1], kv
+
+    def _prefill_chunk(self, ids, cache, start: int):
+        """One chunk of a chunked prefill: queries at positions
+        start..start+C-1 attend over cache[0 : start+C]."""
+        b, c = ids.shape
+        positions = start + torch.arange(c, device=self.device).expand(b, c)
+        logits, kv = self._fwd(
+            ids, cache, positions, start, prefill_bf16=c >= self.prefill_bf16_threshold, last_only=True
+        )
+        return logits[:, -1], kv
+
+    def prefill_chunked(self, ids: torch.Tensor, cache, chunk: int = 512):
+        """Prefill ``ids`` [B, L] into the cache in chunks of ``chunk``
+        tokens (the last may be shorter). Returns (last-token logits, cache)."""
+        l = ids.shape[1]
+        logits, start = None, 0
+        while start < l:
+            c = min(chunk, l - start)
+            logits, cache = self._prefill_chunk(ids[:, start : start + c], cache, start)
+            start += c
+        return logits, cache
 
     def _decode_step(self, ids, cache, pos: int):
         b = ids.shape[0]
@@ -138,7 +167,10 @@ class Engine:
         timer = StepTimer(self.device)
         ids = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
         cache = self.new_cache(b)
-        logits, cache = self._prefill(ids, cache, prompt_len=l)
+        if self.prefill_chunk and l > self.prefill_chunk:
+            logits, cache = self.prefill_chunked(ids, cache, self.prefill_chunk)
+        else:
+            logits, cache = self._prefill(ids, cache, prompt_len=l)
         stop = torch.as_tensor(sorted(set(stop_ids) | {eos_id}), dtype=torch.int32, device=self.device)
         if mode == "fused":
             out = self._fused_loop(logits, cache, l, stop, sampling, max_new_tokens, stats, timer)

@@ -156,3 +156,19 @@ def test_port_imports_no_jax():
         for name in _imports(f):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "flexq_tpu"), f"{f} imports {name}"
+
+
+def test_build_hash_covers_sources_and_headers(tmp_path, monkeypatch):
+    from flexq_tpu_torch.kernels import _build
+
+    # every CUDA source is built by build_all()
+    assert set(_build.SOURCES) == {p.stem for p in (ROOT / "flexq_tpu_torch" / "csrc").glob("*.cu")}
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    paths = [_build.lib_path("k")]
+    (tmp_path / "h.cuh").write_text("// v2\n")  # an edited header names a new library
+    paths.append(_build.lib_path("k"))
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    paths.append(_build.lib_path("k"))
+    assert len(set(paths)) == 3

@@ -5,8 +5,12 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Tolerances: the W6Ax kernel is bit-exact; the producers may move a quantized
-value by 1 on at most 0.1 % of entries (the RMS sum order differs); attention
-sums in another order (2e-2 of max |out|, bf16 output).
+value by 1 on at most 0.1 % of entries (the RMS sum order differs); the
+W6A16 kernels (K7, K8) differ from their plain versions only in the order of
+f32 sums: f32 output within 1e-4 of max |out|, bf16 output within one bf16
+ulp of the plain f32 result (plus that 1e-4 for sums that cancel); attention
+sums in another order (2e-2 of max |out|, bf16 output), over a bf16 or an
+int8 cache.
 """
 
 import numpy as np
@@ -21,7 +25,10 @@ from flexq_tpu_torch.kernels import (
     quant_act,
     reset_launch_counts,
     rmsnorm_quant,
+    w6_glu_fused_bf16,
+    w6_glu_matmul_bf16,
     w6_matmul,
+    w6_matmul_bf16,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.fused_quant import (
@@ -29,6 +36,7 @@ from flexq_tpu_torch.kernels.fused_quant import (
     quant_act_plain,
     rmsnorm_quant_plain,
 )
+from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.packing.pack6 import pack6
 
@@ -104,3 +112,65 @@ def test_attend_cache_kernel(gen, lq, window):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item()
     assert np.isfinite(err)
+
+
+def w6_planes(gen, k, n):
+    hi, lo = pack6(torch.randint(-32, 32, (k, n), generator=gen, device="cuda", dtype=torch.int8))
+    return hi, lo, torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4
+
+
+def assert_w6a16_close(got, want):
+    """want: the plain version's f32 result."""
+    err = (got.float() - want).abs()
+    tol = 1e-4 * want.abs().max().item()
+    if got.dtype == torch.bfloat16:  # one bf16 ulp of the f32 value, 2^(floor(log2|v|) - 7)
+        tol = torch.ldexp(torch.ones_like(want), torch.frexp(want).exponent - 8) + tol
+    assert bool((err <= tol).all())
+
+
+@pytest.mark.parametrize("m,k,n,rope", [(40, 256, 384, False), (130, 512, 256, True), (4, 512, 256, True)])
+def test_w6_matmul_bf16_kernel(gen, m, k, n, rope):
+    x = randn(gen, m, k)
+    hi, lo, ws = w6_planes(gen, k, n)
+    kw = {}
+    if rope:
+        kw = dict(rope_cos=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1,
+                  rope_sin2=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1)
+    want = w6_matmul_bf16_plain(x, hi, lo, ws, torch.float32, **kw)
+    for dt in (torch.float32, torch.bfloat16):
+        assert_w6a16_close(w6_matmul_bf16(x, hi, lo, ws, out_dtype=dt, **kw), want)
+    assert launch_counts()["w6_matmul_bf16"] == 2
+
+
+@pytest.mark.parametrize("fused,act", [(False, "silu"), (True, "gelu")])
+def test_w6_glu_bf16_kernel(gen, fused, act):
+    m, k, n = 70, 512, 256
+    x = randn(gen, m, k)
+    g, u = w6_planes(gen, k, n), w6_planes(gen, k, n)
+    want = w6_glu_bf16_plain(x, *g, *u, act, torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        if fused:
+            w = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
+            got = w6_glu_fused_bf16(x, *w, act=act, out_dtype=dt)
+        else:
+            got = w6_glu_matmul_bf16(x, *g, *u, act=act, out_dtype=dt)
+        assert_w6a16_close(got, want)
+    assert launch_counts()["w6_glu_fused_bf16" if fused else "w6_glu_matmul_bf16"] == 2
+
+
+@pytest.mark.parametrize("lq", [1, 5])
+def test_attend_cache_int8_kernel(gen, lq):
+    b, h, kvh, s, d = 2, 4, 2, 256, 128
+    kc, vc = (torch.randint(-128, 128, (2, b, kvh, s, d), generator=gen, device="cuda", dtype=torch.int8)
+              for _ in "kv")
+    ks, vs = (torch.rand((2, b, kvh, s), generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv")
+    q = randn(gen, b, lq, h, d)
+    lengths = torch.tensor([37, 200], dtype=torch.int32, device="cuda")
+    if lq == 1:
+        got = flash_decode(q[:, 0], kc, vc, lengths, ks, vs, layer_idx=1).reshape(b, 1, h * d)
+    else:
+        got = flash_prefill(q, kc, vc, lengths, ks, vs, layer_idx=1)
+    want = attend_cache_plain(q, kc, vc, lengths, 1, None, torch.bfloat16, lq == 1, torch.bfloat16, ks, vs)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item()
+    assert launch_counts()["flash_decode" if lq == 1 else "flash_prefill"] == 1

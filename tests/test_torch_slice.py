@@ -1,7 +1,7 @@
 """The port's serve slice vs flexq_tpu on a tiny llama_flex LLaMA (2 layers,
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
-greedy Engine.generate tokens equal; the unsupported paths raise."""
+greedy Engine.generate tokens equal; the paths still to port raise."""
 
 import jax
 import jax.numpy as jnp
@@ -78,34 +78,33 @@ def test_unsupported_paths_raise(model):
     jcfg, cfg, jq, tq, prompts = model
     pol = QuantPolicy.llama_flex()
     eng = Engine(tq, cfg, pol, max_seq_len=S, kv_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):  # W6A16 prefill (K7/K8)
-        eng.generate(np.zeros((1, 64), np.int64), max_new_tokens=2)
     with pytest.raises(NotImplementedError):
         eng.generate(prompts, max_new_tokens=2, sampling=SamplingParams(greedy=False))
     with pytest.raises(NotImplementedError):
         eng.generate(prompts, max_new_tokens=2, mode="spec")
     with pytest.raises(NotImplementedError):
-        Engine(tq, cfg, pol, max_seq_len=S, kv_dtype=torch.int8, device="cpu")
-    with pytest.raises(NotImplementedError):
         Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
     cache = eng.new_cache(2)
-    w16 = QuantPolicy(weight_bits=pol.weight_bits, act_bits={n: 16 for n in pol.act_bits})
+    # q4 weights (W4A16, kernel K11) in a layer the W6A16 prefill reaches
+    q4 = dict(tq, layers=[dict(tq["layers"][0], q_proj={"q4": torch.zeros((128, 256), dtype=torch.int8),
+                                                        "scale": torch.ones((2, 256))})] + tq["layers"][1:])
     calls = [
-        dict(policy=w16),
-        dict(kv_k_scale=torch.zeros(1)),
-        dict(page_table=torch.zeros((2, 1), dtype=torch.int32)),
+        dict(params=q4, prefill_bf16=True),
+        dict(page_table=torch.zeros((2, 1), dtype=torch.int32)),  # paged cache
         dict(cache_pos=torch.zeros(2, dtype=torch.int32)),  # per-row positions
     ]
     for kw in calls:
-        args = dict(policy=pol, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
+        args = dict(params=tq, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
         args.update(kw)
         with pytest.raises(NotImplementedError):
-            forward_serve(tq, cfg, args.pop("policy"), torch.from_numpy(prompts), **args)
-    with pytest.raises(NotImplementedError):
-        quantize_params({"embed": np.zeros((4, 4), np.float32), "final_norm": np.ones(4, np.float32), "layers": []},
-                        cfg, pol, fuse=True, device="cpu")
+            forward_serve(args.pop("params"), cfg, pol, torch.from_numpy(prompts), **args)
+    w4 = QuantPolicy(weight_bits={n: 4 for n in pol.weight_bits}, act_bits=pol.act_bits)
+    with pytest.raises(NotImplementedError):  # W4 packing (K10-K12 formats)
+        quantize_params({"embed": np.zeros((4, 128), np.float32), "final_norm": np.ones(128, np.float32),
+                         "layers": [{"q_proj": {"w": np.zeros((128, 128), np.float32)}}]},
+                        cfg, w4, device="cpu")
 
 
 def test_engine_defaults_to_the_card(model):
