@@ -8,33 +8,39 @@ exits nonzero without the final line:
   1. device: the card's name and power limit (nvidia-smi), the kernel build
      (one nvcc per CUDA source, all started together);
   2. kernels: every kernel of the serve path against its plain PyTorch
-     version at LLaMA-2-7B shapes (W6Ax at M = 4 and 128 for the three 7B
-     (K, N); the producers at K = 4096 and F = 11264; attention at Lq = 1,
-     32 and 512 over a bf16 cache and at Lq = 1 and 512 over an int8 cache,
-     H = 32, D = 128, S = 2048; the W6A16 GEMM (K7) at M = 2048 with and
-     without the RoPE epilogue and at M = 4 (weight-only decode), the fused
-     GLU (K8) at M = 2048 with separate and fused planes), with the tolerance
-     stated, and their device times from CUDA events (median, L2 flushed
-     before each launch) beside the plain version's, the least time the card
-     could take (bytes at 3.35 TB/s or operations at peak, H100 SXM data
-     sheet) and, where one PyTorch call computes the same function, that
-     call's;
+     version at LLaMA-2-7B shapes (the exact W6Ax, W4A8 and W8A8 GEMMs at
+     M = 4 and 128 for the three 7B (K, N) and at M = 4 for the packed
+     head's 4096 x 32768; the producers at K = 4096 and F = 11264; attention
+     at Lq = 1, 32 and 512 over a bf16 cache and at Lq = 1 and 512 over an
+     int8 cache, H = 32, D = 128, S = 2048; the W6A16 and W4A16 GEMMs (K7,
+     K11) at M = 2048 with and without the RoPE epilogue and at M = 4
+     (weight-only decode; K11 also at the head), the fused GLU (K8) at
+     M = 2048 with separate and fused planes), with the tolerance stated,
+     and their device times from CUDA events (median, L2 flushed before
+     each launch) beside the plain version's, the least time the card could
+     take (bytes at 3.35 TB/s or operations at peak, H100 SXM data sheet)
+     and, where one PyTorch call computes the same function, that call's
+     (for the GEMMs, a dense bf16 matmul of the same shape as a yardstick);
   3. slice parity: a 2-layer model at full 7B width, forward_serve on the
      card against the same weights on the CPU (plain versions): a 16-token
-     prompt through the W6Ax layer, and a 128-token prompt through the W6A16
-     layer with an unfused tree, a fuse=True tree, an int8 cache and the
-     weight-only W6A16 policy, each followed by two decode steps (max
-     |dlogit| / max |logit| per step, argmax agreement per run);
+     prompt through the W*Ax layer, and a 128-token prompt through the W*A16
+     layer, each followed by two decode steps (max |dlogit| / max |logit|
+     per step, argmax agreement per run): llama_flex (unfused, fuse=True,
+     int8 cache, 16 tokens with a W6A8 head), weight-only W6A16, W4A8 and
+     W8A8 (16 and 128 tokens), weight-only W4A16;
   4. end to end: the 32-layer LLaMA-2-7B shape with random weights (seeded
      torch.Generator, generated and quantized layer by layer on the card),
-     greedy Engine.generate, max_seq_len 2048: B = 4 with 32-token prompts
-     and 32 new tokens (bf16 cache; with a torch.profiler breakdown: device
-     time by kernel, device busy share of the wall time), and B = 4 with
-     512-token prompts (the W6A16 prefill) and 32 new tokens with a bf16
-     cache, an int8 cache, a fuse=True tree, and prefill_chunk=256 (whose
-     tokens must equal the whole-prompt run's). Each run's launch counts are
-     zeroed just before it and read just after; every kernel must launch.
-The line before the last is the kernels' JSON; the last is
+     greedy Engine.generate, max_seq_len 2048, B = 4, 32 new tokens:
+     llama_flex with 32-token prompts (bf16 cache; with a torch.profiler
+     breakdown: device time by kernel, device busy share of the wall time;
+     and with a W6A8 lm_head), with 512-token prompts (the W6A16 prefill)
+     over a bf16 cache, an int8 cache, a fuse=True tree, and
+     prefill_chunk=256 (whose tokens must equal the whole-prompt run's);
+     W4A8 with a W4A8 head (32- and 512-token prompts), the same tree
+     weight-only (W4A16 with a W4A16 head, 512-token prompts), and W8A8
+     (32-token prompts). Each run's launch counts are zeroed just before it
+     and read just after; every kernel of its path must launch.
+Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
@@ -58,10 +64,13 @@ from flexq_tpu_torch.kernels import (
     quant_act,
     reset_launch_counts,
     rmsnorm_quant,
+    w4_matmul,
+    w4_matmul_bf16,
     w6_glu_fused_bf16,
     w6_glu_matmul_bf16,
     w6_matmul,
     w6_matmul_bf16,
+    w8_matmul,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.fused_quant import (
@@ -69,10 +78,13 @@ from flexq_tpu_torch.kernels.fused_quant import (
     quant_act_plain,
     rmsnorm_quant_plain,
 )
+from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_plain
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
+from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
-from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer
+from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear
+from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.serve import Engine
 
@@ -94,6 +106,9 @@ KERNELS = {
     "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
     "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
     "w6_glu_fused_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:524"),
+    "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
+    "w4_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w4_matmul.py:220"),
+    "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
 }
 # the shape whose times go into the JSON line (the main path's decode shape)
 REPORT_SHAPE = {
@@ -108,6 +123,10 @@ REPORT_SHAPE = {
     "w6_matmul_bf16": "M=2048 K=4096 N=4096 rope",
     "w6_glu_matmul_bf16": "M=2048 K=4096 N=11264",
     "w6_glu_fused_bf16": "M=2048 K=4096 N=11264 fused",
+    # W4A8 / W8A8 decode; the W4A16 prefill's q / k projections
+    "w4_matmul": "M=4 K=4096 N=11264",
+    "w8_matmul": "M=4 K=4096 N=11264",
+    "w4_matmul_bf16": "M=2048 K=4096 N=4096 rope",
 }
 
 
@@ -148,39 +167,62 @@ def bound(nbytes: float, ops: float, peak: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def record(results, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms, extra=""):
+def record(results, name, shape, err, ms, plain_ms, nbytes, ops, peak, library_ms, dense_ms=None, extra=""):
+    """Log one kernel check. ``dense_ms``: for a GEMM, which no single
+    PyTorch call computes (per-group scales), a dense bf16 torch.matmul of
+    the same shape as the yardstick."""
     bms, by = bound(nbytes, ops, peak)
+    dense = "" if dense_ms is None else f" bf16_dense_ms={dense_ms:.4f}"
     log(f"kernel {name:17s} {shape:36s} max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-        f"bound_ms={bms:.4f} ({by}) library_ms={library_ms if library_ms is None else round(library_ms, 4)}{extra}")
+        f"bound_ms={bms:.4f} ({by}) library_ms={library_ms if library_ms is None else round(library_ms, 4)}"
+        f"{dense}{extra}")
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if shape == REPORT_SHAPE[name]:
-        r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        r.update(shape=shape, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=library_ms,
+                 bf16_dense_ms=dense_ms)
 
 
-def check_w6(results, dev, gen, timer):
-    for m in (4, 128):
-        for k, n in ((4096, 4096), (4096, 11264), (11264, 4096)):
-            bits = 8 if k > n else 6  # down_proj takes the 8-bit activations
+def int_weight(fmt, k, n, gen, dev):
+    """Random packed weight planes of format ``fmt`` (6, 4 or 8 bits)."""
+    lim = 2 ** (fmt - 1)
+    w = torch.randint(-lim, lim, (k, n), generator=gen, device=dev, dtype=torch.int8)
+    return pack6(w) if fmt == 6 else (pack4(w),) if fmt == 4 else (w,)
+
+
+# format -> (wrapper, plain version); K-tall decode shapes of W6 go to K3
+INT_GEMMS = {6: (w6_matmul, w6_matmul_plain), 4: (w4_matmul, w4_matmul_plain), 8: (w8_matmul, w8_matmul_plain)}
+SHAPES_7B = ((4096, 4096), (4096, 11264), (11264, 4096))  # (K, N) of q/k/v/o, gate/up, down
+HEAD_7B = (4096, 32768)  # the packed lm_head: vocab 32000 padded to 32768
+
+
+def check_int_gemms(results, dev, gen, timer):
+    """The exact integer GEMMs: W6Ax (K2/K3), W4A8 (K10) and W8A8 (K12) at
+    M = 4 and 128 for the three 7B (K, N), and at the packed head's shape
+    at M = 4; each bit-exact against its plain version."""
+    for fmt, (fn, plain) in INT_GEMMS.items():
+        for m, k, n in [(m, k, n) for m in (4, 128) for k, n in SHAPES_7B] + [(4, *HEAD_7B)]:
+            bits = 6 if fmt == 6 and (k, n) in SHAPES_7B[:2] else 8  # down_proj and the head take 8 bits
             lim = 2 ** (bits - 1)
             xq = torch.randint(-lim, lim, (m, k), generator=gen, device=dev, dtype=torch.int8)
             xs = torch.rand((m, k // 128), generator=gen, device=dev) * 0.05 + 1e-3
-            hi, lo = pack6(torch.randint(-32, 32, (k, n), generator=gen, device=dev, dtype=torch.int8))
+            w = int_weight(fmt, k, n, gen, dev)
             ws = torch.rand((k // 128, n), generator=gen, device=dev) * 0.01 + 1e-4
-            name = "w6_matmul_stream" if m <= 32 and k > n else "w6_matmul"
-            out = w6_matmul(xq, xs, hi, lo, ws, out_dtype=torch.bfloat16)
-            ref = w6_matmul_plain(xq, xs, hi, lo, ws, torch.bfloat16)
+            name = "w6_matmul_stream" if fmt == 6 and m <= 32 and k > n else fn.__name__
+            out = fn(xq, xs, *w, ws, out_dtype=torch.bfloat16)
+            ref = plain(xq, xs, *w, ws, torch.bfloat16)
             err = (out.float() - ref.float()).abs().max().item()
             if not torch.equal(out, ref):  # tolerance: bit-exact
                 raise AssertionError(f"{name} M={m} K={k} N={n}: differs from plain (max {err})")
+            del ref
             xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
             wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
-            ms = timer(lambda: w6_matmul(xq, xs, hi, lo, ws, out_dtype=torch.bfloat16))
-            plain_ms = timer(lambda: w6_matmul_plain(xq, xs, hi, lo, ws, torch.bfloat16), iters=3, warmup=1)
+            ms = timer(lambda: fn(xq, xs, *w, ws, out_dtype=torch.bfloat16))
+            plain_ms = timer(lambda: plain(xq, xs, *w, ws, torch.bfloat16), iters=3, warmup=1)
             dense_ms = timer(lambda: xb @ wb)
-            nbytes = m * k + m * (k // 128) * 4 + k * n * 3 // 4 + (k // 128) * n * 4 + m * n * 2
+            nbytes = m * k + m * (k // 128) * 4 + k * n * fmt // 8 + (k // 128) * n * 4 + m * n * 2
             record(results, name, f"M={m} K={k} N={n}", err, ms, plain_ms, nbytes, 2 * m * n * k,
-                   PEAK_INT8, None, extra=f" bf16_dense_ms={dense_ms:.4f} (tolerance: bit-exact)")
+                   PEAK_INT8, None, dense_ms=dense_ms, extra=" (tolerance: bit-exact)")
 
 
 def _quant_err(name, shape, got, want):
@@ -280,7 +322,7 @@ def check_attention(results, dev, gen, timer):
                extra=f" sdpa_vs_plain_err={lib_err:.3g} (tolerance: 2e-2 of max|out|)")
 
 
-def _w6a16_err(name, shape, got, want) -> float:
+def _wa16_err(name, shape, got, want) -> float:
     """Tolerance: kernel and plain version differ only in the order of the
     f32 sums; f32 output within 1e-4 of max |out|, bf16 output within one
     bf16 ulp of the plain f32 result, 2^(floor(log2|v|) - 7), plus that 1e-4
@@ -294,33 +336,44 @@ def _w6a16_err(name, shape, got, want) -> float:
     return err.max().item()
 
 
-def check_w6a16(results, dev, gen, timer):
-    """K7 at the 512-token prefill (M = 4 x 512) for q / k (RoPE epilogue),
-    v / o (none) and down (K = 11264), and at M = 4 (weight-only decode);
-    K8 at M = 2048 with separate and fused gate / up planes. Each against
-    its plain version in f32 and in bf16 output; times of the bf16 output."""
-    def planes(k, n):
-        hi, lo = pack6(torch.randint(-32, 32, (k, n), generator=gen, device=dev, dtype=torch.int8))
-        return hi, lo, torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4
+# format -> (wrapper, plain version) of the W*A16 GEMM
+BF16_GEMMS = {6: (w6_matmul_bf16, w6_matmul_bf16_plain), 4: (w4_matmul_bf16, w4_matmul_bf16_plain)}
+
+
+def check_wa16(results, dev, gen, timer):
+    """K7 (W6A16) and K11 (W4A16) at the 512-token prefill (M = 4 x 512)
+    for q / k (RoPE epilogue), v / o (none) and down (K = 11264), and at
+    M = 4 (weight-only decode; K11 also at gate / up, which W4 runs as two
+    GEMMs, and at the packed head's shape); K8 at
+    M = 2048 with separate and fused gate / up planes. Each against its
+    plain version in f32 and in bf16 output; times of the bf16 output."""
+    def planes(fmt, k, n):
+        return (*int_weight(fmt, k, n, gen, dev), torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4)
 
     cases = []
-    for m, k, n, rope in ((2048, 4096, 4096, True), (2048, 4096, 4096, False), (2048, 11264, 4096, False),
-                          (4, 4096, 4096, True), (4, 11264, 4096, False)):
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        w = planes(k, n)
-        kw = {}
-        if rope:
-            pos = torch.arange(m, device=dev).reshape(1, m) % 512  # B x 512-token prompts
-            cos, sin = rope_cos_sin(pos, 128, 10000.0)
-            kw = dict(zip(("rope_cos", "rope_sin2"), rope_gemm_operands(cos, sin)))
-        nbytes = m * k * 2 + k * n * 3 // 4 + (k // 128) * n * 4 + m * n * 2 + (2 * m * 128 * 4 if rope else 0)
-        cases.append(("w6_matmul_bf16", f"M={m} K={k} N={n}" + (" rope" if rope else ""), x,
-                      lambda x=x, w=w, kw=kw, dt=None: w6_matmul_bf16(x, *w, out_dtype=dt, **kw),
-                      lambda x=x, w=w, kw=kw: w6_matmul_bf16_plain(x, *w, torch.float32, **kw),
-                      nbytes, 2 * m * n * k, (k, n)))
-    m, k, n = 2048, 4096, 11264
+    (kq, nq), (kg, ng), (kd, nd) = SHAPES_7B
+    shapes = ((2048, kq, nq, True), (2048, kq, nq, False), (2048, kd, nd, False), (4, kq, nq, True),
+              (4, kd, nd, False))
+    # W4 has no fused GLU: K11 also runs gate / up (K = 4096, N = 11264) and the head
+    w4_only = ((2048, kg, ng, False), (4, kg, ng, False), (4, *HEAD_7B, False))
+    for fmt, (fn, plain) in BF16_GEMMS.items():
+        for m, k, n, rope in shapes + (w4_only if fmt == 4 else ()):
+            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+            w = planes(fmt, k, n)
+            kw = {}
+            if rope:
+                pos = torch.arange(m, device=dev).reshape(1, m) % 512  # B x 512-token prompts
+                cos, sin = rope_cos_sin(pos, 128, 10000.0)
+                kw = dict(zip(("rope_cos", "rope_sin2"), rope_gemm_operands(cos, sin)))
+            nbytes = m * k * 2 + k * n * fmt // 8 + (k // 128) * n * 4 + m * n * 2 + (2 * m * 128 * 4 if rope else 0)
+            cases.append((fn.__name__, f"M={m} K={k} N={n}" + (" rope" if rope else ""), x,
+                          lambda fn=fn, x=x, w=w, kw=kw, dt=None: fn(x, *w, out_dtype=dt, **kw),
+                          lambda plain=plain, x=x, w=w, kw=kw: plain(x, *w, torch.float32, **kw),
+                          nbytes, 2 * m * n * k, (k, n)))
+
+    m, k, n = 2048, kg, ng
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-    g, u = planes(k, n), planes(k, n)
+    g, u = planes(6, k, n), planes(6, k, n)
     gu = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
     nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
     cases.append(("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
@@ -331,22 +384,22 @@ def check_w6a16(results, dev, gen, timer):
                   lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k, (k, 2 * n)))
     for name, shape, x, kern, plain, nbytes, ops, (k, n) in cases:
         want = plain()
-        err = max(_w6a16_err(name, shape, kern(dt=dt), want) for dt in (torch.float32, torch.bfloat16))
+        err = max(_wa16_err(name, shape, kern(dt=dt), want) for dt in (torch.float32, torch.bfloat16))
         del want
         xb = x[:, :k]
         wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
         ms = timer(lambda: kern(dt=torch.bfloat16))
         plain_ms = timer(plain, iters=3, warmup=1)
         dense_ms = timer(lambda: xb @ wb)
-        record(results, name, shape, err, ms, plain_ms, nbytes, ops, PEAK_BF16, None,
-               extra=f" bf16_dense_ms={dense_ms:.4f} (K x {n} dense bf16 matmul; tolerance: f32 1e-4 of max|out|,"
-                     f" bf16 1 ulp)")
+        record(results, name, shape, err, ms, plain_ms, nbytes, ops, PEAK_BF16, None, dense_ms=dense_ms,
+               extra=f" (K x {n} dense bf16 matmul; tolerance: f32 1e-4 of max|out|, bf16 1 ulp)")
 
 
 def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False):
     """Random LLaMA weights (N(0, 0.02), residual outputs scaled by
     1/sqrt(2L)) generated and quantized layer by layer on the card
-    (``fuse=True``: the fused qkv_proj / gate_up tree)."""
+    (``fuse=True``: the fused qkv_proj / gate_up tree; a policy with a
+    quantized head packs the lm_head too)."""
     std = 0.02
     res_std = std / math.sqrt(2 * cfg.num_layers)
     h, f = cfg.hidden_size, cfg.intermediate_size
@@ -368,8 +421,16 @@ def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse
         "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * std).to(dtype),
         "final_norm": torch.ones(h, device=dev, dtype=dtype),
         "layers": layers,
-        "lm_head": (torch.randn((h, cfg.vocab_size), generator=gen, device=dev) * std).to(dtype),
+        "lm_head": quantize_head((torch.randn((h, cfg.vocab_size), generator=gen, device=dev) * std).to(dtype),
+                                 policy),
     }
+
+
+def quantize_head(head, policy):
+    """The dense lm_head [H, V] as ``policy`` serves it: packed (vocab padded
+    to the plane width) under a policy with a quantized head."""
+    spec = policy.weight_spec("lm_head")
+    return quantize_linear(head.float(), spec) if spec.enabled else head
 
 
 def to_device(tree, dev):
@@ -432,7 +493,10 @@ def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat
 def slice_parity(dev, gen):
     """2-layer models at 7B width: the W6Ax path (16-token prompt), then the
     W6A16 prefill (128-token prompt) over an unfused and a fuse=True tree,
-    with an int8 cache, and under the weight-only W6A16 policy."""
+    with an int8 cache, and under the weight-only W6A16 policy; then the
+    other formats: W4A8 (16- and 128-token prompts: the W4A8 layer, the W4A16
+    prefill), weight-only W4A16, W8A8 (16 and 128 tokens: the W8A8 layer,
+    the dequantized W8A16 prefill), and llama_flex with a W6A8 lm_head."""
     cfg = ModelConfig.llama(num_layers=2)
     flex = QuantPolicy.llama_flex()
     cpu = torch.device("cpu")
@@ -448,15 +512,37 @@ def slice_parity(dev, gen):
         # the weight-only tree is the same planes (weights quantize alike under both policies)
         parity("weight-only W6A16", params, params_cpu, cfg, QuantPolicy.weight_only(wbits=6), 128, dev),
     ]
+    flex_head = QuantPolicy.llama_flex().with_head(6, 8)
+    head = quantize_head(params["lm_head"], flex_head)
+    ok.append(parity("W6Ax + W6A8 head", dict(params, lm_head=head), dict(params_cpu, lm_head=to_device(head, cpu)),
+                     cfg, flex_head, 16, dev))
+    del params, params_cpu, fused, fused_cpu
+    for bits, lengths in ((4, (16, 128)), (8, (16, 128))):
+        policy = QuantPolicy.uniform(wbits=bits, abits=8)
+        params = random_params(cfg, policy, gen, dev)
+        params_cpu = to_device(params, cpu)
+        ok += [parity(f"W{bits}A8", params, params_cpu, cfg, policy, l, dev) for l in lengths]
+        if bits == 4:  # the same planes: weights quantize alike under both policies
+            ok.append(parity("weight-only W4A16", params, params_cpu, cfg, QuantPolicy.weight_only(wbits=4), 128, dev))
     return all(ok)
 
 
 # the kernels each end-to-end run must launch
+PRODUCERS = ("rmsnorm_quant", "quant_act", "glu_quant")
+W6AX = PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode", "flash_prefill")
 PATH_KERNELS = {
-    "32-token": ("rmsnorm_quant", "w6_matmul", "w6_matmul_stream", "quant_act", "glu_quant", "flash_decode",
-                 "flash_prefill"),
+    "32-token": W6AX,
     "512-token": ("w6_matmul_bf16", "w6_glu_matmul_bf16", "flash_prefill", "flash_decode", "w6_matmul"),
     "512-token fuse=True": ("w6_matmul_bf16", "w6_glu_fused_bf16", "flash_prefill", "flash_decode", "w6_matmul"),
+    # the W4A8 layer at every linear and the packed head (K4 + K10)
+    "W4A8 32-token": PRODUCERS + ("w4_matmul", "flash_decode", "flash_prefill"),
+    # the W4A16 prefill (K11 with the RoPE epilogue), then W4A8 decode
+    "W4A8 512-token": PRODUCERS + ("w4_matmul_bf16", "w4_matmul", "flash_prefill", "flash_decode"),
+    # K11 at every step, the head too (no activation quant: no producer)
+    "W4A16 512-token": ("w4_matmul_bf16", "flash_prefill", "flash_decode"),
+    "W8A8 32-token": PRODUCERS + ("w8_matmul", "flash_decode", "flash_prefill"),
+    # llama_flex with a W6A8 head: K4 + K2 at the head
+    "W6Ax+head 32-token": W6AX,
 }
 
 
@@ -510,6 +596,13 @@ def end_to_end(dev, gen):
         raise AssertionError("fused and step decode loops disagree")
     log(f"e2e 32-token first row tokens: {out[0][:8]}; fused and step loops equal: True")
     profile_decode(eng, prompts)
+    # (e) the same tree with its lm_head packed W6 and served W6A8 (K4 + K2)
+    flex_head = policy.with_head(6, 8)
+    engh = Engine(dict(params, lm_head=quantize_head(params["lm_head"], flex_head)), cfg, flex_head,
+                  max_seq_len=2048)
+    _, counts, _ = generate_run("bf16 cache, W6A8 lm_head", "W6Ax+head 32-token", engh, prompts, new, dev)
+    add(counts)
+    del engh
 
     # 512-token prompts: the W6A16 prefill, then W6Ax decode
     prompts = rng.integers(0, cfg.vocab_size, (b, 512))
@@ -533,6 +626,36 @@ def end_to_end(dev, gen):
     engf = Engine(fused, cfg, policy, max_seq_len=2048)
     _, counts, _ = generate_run("bf16 cache, fuse=True tree", "512-token fuse=True", engf, prompts, new, dev)
     add(counts)
+    del engf, fused
+    torch.cuda.empty_cache()
+
+    # the other formats. (a) W4A8 with a W4A8 head, 32-token prompts: K10 at
+    # every linear and at the head; (b) the same engine, 512-token prompts:
+    # K11 with RoPE at prefill, then K10; (c) the same W4 tree served
+    # weight-only (W4A16): K11 at every step and at the head
+    w4a8 = QuantPolicy.uniform(wbits=4, abits=8).with_head(4, 8)
+    w4 = random_params(cfg, w4a8, gen, dev)
+    eng4 = Engine(w4, cfg, w4a8, max_seq_len=2048)
+    short = rng.integers(0, cfg.vocab_size, (b, 32))
+    _, counts, _ = generate_run("W4A8 + W4A8 head", "W4A8 32-token", eng4, short, new, dev)
+    add(counts)
+    profile_decode(eng4, short)
+    _, counts, _ = generate_run("W4A8 + W4A8 head", "W4A8 512-token", eng4, prompts, new, dev)
+    add(counts)
+    w4a16 = QuantPolicy.weight_only(wbits=4).with_head(4, 16)
+    eng4w = Engine(w4, cfg, w4a16, max_seq_len=2048)
+    _, counts, _ = generate_run("weight-only W4A16 + W4A16 head", "W4A16 512-token", eng4w, prompts, new, dev)
+    add(counts)
+    profile_decode(eng4w, prompts)
+    del eng4, eng4w, w4
+    torch.cuda.empty_cache()
+    # (d) W8A8 (the SmoothQuant baseline), 32-token prompts: K12
+    w8a8 = QuantPolicy.uniform(wbits=8, abits=8)
+    w8 = random_params(cfg, w8a8, gen, dev)
+    _, counts, _ = generate_run("W8A8", "W8A8 32-token", Engine(w8, cfg, w8a8, max_seq_len=2048), short, new, dev)
+    add(counts)
+    del w8
+    torch.cuda.empty_cache()
     missing = [n for n, c in totals.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -584,10 +707,10 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     timer = Timer(dev)
     results = {}
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     check_producers(results, dev, gen, timer)  # first: includes the Triton JIT
-    check_w6(results, dev, gen, timer)
-    check_w6a16(results, dev, gen, timer)
+    check_int_gemms(results, dev, gen, timer)
+    check_wa16(results, dev, gen, timer)
     check_attention(results, dev, gen, timer)
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
     del timer  # free its 1 GiB buffer before the model phases measure peak memory
@@ -595,8 +718,13 @@ def main() -> int:
 
     # each model phase draws its weights from its own seeded generator, so
     # adding a kernel check above never changes the models below
+    t0 = time.perf_counter()
     parity_ok = slice_parity(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
+    log(f"phase 3 slice parity: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
     counts = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    log(f"phase 4 end to end: {time.perf_counter() - t0:.1f}s; whole script after the build "
+        f"{time.perf_counter() - t_start:.1f}s")
     if not parity_ok:
         raise AssertionError("slice parity failed (see the slice parity lines)")
 
@@ -607,7 +735,7 @@ def main() -> int:
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": counts[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
+            "library_ms": r["library_ms"], "bf16_dense_ms": r["bf16_dense_ms"], "shape": r["shape"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -7,7 +7,9 @@ or ``flexq_tpu``. Kernels are hand-written for Hopper (``csrc/*.cu`` built
 with nvcc, and one Triton kernel) and are built the first time they are
 launched, so importing the package needs neither a GPU nor a compiler.
 
-Slice 1 serves a ``QuantPolicy.llama_flex()`` LLaMA (W6 weights, A6
-activations, A8 into down_proj) with a dense bf16 KV cache through greedy
-``Engine.generate``.
+It serves a LLaMA through greedy ``Engine.generate`` with a dense bf16 or
+int8 KV cache, under ``QuantPolicy.llama_flex()`` (W6 weights, A6
+activations, A8 into down_proj), ``QuantPolicy.uniform`` (W4A8, W8A8) or
+``QuantPolicy.weight_only`` (W4/W6/W8 A16), optionally with a packed
+lm_head (``with_head``).
 """

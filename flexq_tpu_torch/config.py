@@ -112,17 +112,54 @@ class QuantPolicy:
         )
 
     @staticmethod
+    def uniform(arch: str = "llama", wbits: int = 6, abits: int = 6) -> "QuantPolicy":
+        """Every linear at ``wbits`` weights and ``abits`` activations
+        (W4A8, W8A8: the reference's SmoothQuant baseline)."""
+        return QuantPolicy(
+            weight_bits={n: wbits for n in _linears(arch)},
+            act_bits={n: abits for n in _linears(arch)},
+        )
+
+    def with_head(self, wbits: int = 6, abits: int = 8) -> "QuantPolicy":
+        """This policy with a quantized lm_head: packed ``wbits`` weights;
+        ``abits`` < 16 quantizes the final-norm output (the W*Ax head),
+        16 keeps it (the W*A16 head)."""
+        return dataclasses.replace(
+            self,
+            weight_bits={**self.weight_bits, "lm_head": wbits},
+            act_bits={**self.act_bits, "lm_head": abits},
+        )
+
+    @staticmethod
     def weight_only(arch: str = "llama", wbits: int = 4) -> "QuantPolicy":
         """W*A16 weight-only policy: every linear's weights at ``wbits``,
-        activations unquantized (served by the W6A16 layer at decode too)."""
-        if arch != "llama":
-            raise NotImplementedError("OPT serving is a later slice")
+        activations unquantized (served by the W*A16 layer at decode too)."""
         return QuantPolicy(
-            weight_bits={n: wbits for n in LLAMA_LINEARS},
-            act_bits={n: 16 for n in LLAMA_LINEARS},
+            weight_bits={n: wbits for n in _linears(arch)},
+            act_bits={n: 16 for n in _linears(arch)},
+        )
+
+    @staticmethod
+    def fp16(arch: str = "llama") -> "QuantPolicy":
+        """No quantization: every linear keeps its 16-bit weight."""
+        return QuantPolicy(
+            weight_bits={n: 16 for n in _linears(arch)},
+            act_bits={n: 16 for n in _linears(arch)},
         )
 
     @property
     def no_act_quant(self) -> bool:
         """True when no linear quantizes its activations (W*A16 or fp16)."""
         return all(b >= 16 for b in self.act_bits.values())
+
+    @property
+    def is_weight_only(self) -> bool:
+        """True for W*A16 policies: quantized weights, full-precision
+        activations."""
+        return self.no_act_quant and any(b < 16 for b in self.weight_bits.values())
+
+
+def _linears(arch: str):
+    if arch != "llama":
+        raise NotImplementedError("OPT serving is a later slice")
+    return LLAMA_LINEARS

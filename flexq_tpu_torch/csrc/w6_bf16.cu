@@ -1,14 +1,17 @@
-// W6A16 GEMMs for Hopper (sm_90a), plain C interface: the 6-bit weights are
-// dequantized to bf16 in the kernel and multiplied with bf16 activations on
-// the tensor cores, f32 accumulation.
+// W6A16 and W4A16 GEMMs for Hopper (sm_90a), plain C interface: the 6- or
+// 4-bit weights are dequantized to bf16 in the kernel and multiplied with
+// bf16 activations on the tensor cores, f32 accumulation.
 //
 // Replaces the TPU kernels
 //   flexq_tpu/kernels/w6_matmul.py::w6_matmul_bf16      (_w6_bf16_kernel, K7),
 //     with the optional RoPE epilogue flexq_tpu/kernels/common.py::rope_epilogue;
 //   flexq_tpu/kernels/w6_matmul.py::w6_glu_matmul_bf16  (_w6_glu_bf16_kernel, K8)
-//   flexq_tpu/kernels/w6_matmul.py::w6_glu_fused_bf16   (the same body, K8).
+//   flexq_tpu/kernels/w6_matmul.py::w6_glu_fused_bf16   (the same body, K8);
+//   flexq_tpu/kernels/w4_matmul.py::w4_matmul_bf16      (_w4_bf16_kernel, K11),
+//     K7 over the 4-bit nibble plane (FMT = 4), with the same RoPE epilogue.
 //
 //   K7:  out[m, n] = sum_k x[m, k] * bf16((u[k, n] - 32) * ws[k / 128, n])
+//   K11: the same with u the biased 4-bit weight of the nibble plane, bias 8
 //        with RoPE: out = t * cos + t[(c + 64) mod 128] * sin2 on the f32
 //        accumulator t, c the column within its 128-wide head, before the cast.
 //   K8:  out = act(g) * u for two such products g (gate) and u (up) of the
@@ -16,14 +19,15 @@
 //        The fused-plane variant passes the up pointers as the gate pointers
 //        offset by nh columns, with the plane's row stride: nothing is copied.
 //
-// Numerics: the dequantized weight is bf16((u - 32) * ws), one f32 multiply
+// Numerics: the dequantized weight is bf16((u - BIAS) * ws), one f32 multiply
 // rounded to nearest-even, as the TPU kernel rounds it; bf16 x bf16 products
 // are exact in f32, so the kernel and its plain version (an f32 product of the
 // same bf16 operands) differ only in the order of the f32 sums.
 //
 // Bound on this card: operations at prefill (M = 2048, K = 4096, N = 11264:
 // 189 GFLOP, 0.19 ms at 989 TFLOP/s, against about 0.03 ms of bytes), bytes at
-// weight-only decode (M = 4: the 6-bit planes, 0.75 B per weight). Design,
+// weight-only decode (M = 4: the planes, 0.75 B per weight for W6, 0.5 B for
+// W4: 8.4 MB and 2.5 us for a 4096 x 4096 W4 matrix). Design,
 // simple first: a block computes a BM x 128 output tile (one head, so the
 // RoPE partner column is in the block) with 8 warps; per 128-deep K step (one
 // pack K-tile = one quant group = one scale row) it copies the x tile into
@@ -34,13 +38,16 @@
 // global loads, not one per copy. The epilogue stages the f32 accumulators
 // through shared memory (the RoPE partner column sits in another thread's
 // fragment) and writes coalesced rows. No wgmma/TMA and no shared-memory
-// ring yet: that is later work.
+// ring yet: that is later work. The W4 format (FMT = 4) loads only the
+// nibble plane and dequantizes each nibble alone; K8 has no W4 counterpart
+// in the reference (its W4 layers run two K11 GEMMs and the GLU apart).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "pack4.cuh"
 #include "pack6.cuh"
 
 using namespace nvcuda;
@@ -62,21 +69,22 @@ constexpr size_t smem_bytes() {
 }
 
 // One K step's global data for this thread, loaded into registers a step
-// ahead of its use. Weight item j of a thread is hi row r = threadIdx.x / 32
-// + 8 j (rows r and r + 64 of the K-tile) of four adjacent columns; rows r
-// and r + 32 share their lo row, so four lo words serve the eight items.
+// ahead of its use. Weight item j of a thread is nibble (hi) row r =
+// threadIdx.x / 32 + 8 j (rows r and r + 64 of the K-tile) of four adjacent
+// columns; for FMT 6 rows r and r + 32 share their lo row, so four lo words
+// serve the eight items.
 constexpr int WITEMS = 64 * (BN / 4) / THREADS;
 
-template <int BM, int NB>
+template <int BM, int NB, int FMT>
 struct Stage {
   uint4 x[BM * (BK / 8) / THREADS];  // the x tile, 16 B per copy
   uint32_t h[NB][WITEMS];
-  uint32_t l[NB][WITEMS / 2];
+  uint32_t l[NB][FMT == 6 ? WITEMS / 2 : 1];
   float4 s[NB];  // the step's scales of the thread's four columns
 };
 
-template <int BM, int NB>
-__device__ __forceinline__ void load_stage(Stage<BM, NB>& st, const __nv_bfloat16* __restrict__ x,
+template <int BM, int NB, int FMT>
+__device__ __forceinline__ void load_stage(Stage<BM, NB, FMT>& st, const __nv_bfloat16* __restrict__ x,
                                            const uint8_t* const (&hi)[2],
                                            const uint8_t* const (&lo)[2],
                                            const float* const (&ws)[2], int M, int K, int ldw,
@@ -95,17 +103,19 @@ __device__ __forceinline__ void load_stage(Stage<BM, NB>& st, const __nv_bfloat1
 #pragma unroll
     for (int j = 0; j < WITEMS; ++j)
       st.h[w][j] = *reinterpret_cast<const uint32_t*>(hi[w] + (size_t)(t * 64 + wr + 8 * j) * ldw + wc);
+    if constexpr (FMT == 6) {
 #pragma unroll
-    for (int j = 0; j < WITEMS / 2; ++j)
-      st.l[w][j] = *reinterpret_cast<const uint32_t*>(lo[w] + (size_t)(t * 32 + wr + 8 * j) * ldw + wc);
+      for (int j = 0; j < WITEMS / 2; ++j)
+        st.l[w][j] = *reinterpret_cast<const uint32_t*>(lo[w] + (size_t)(t * 32 + wr + 8 * j) * ldw + wc);
+    }
     st.s[w] = *reinterpret_cast<const float4*>(ws[w] + (size_t)t * ldw + wc);
   }
 }
 
 // Write a loaded step into shared memory: the x tile as is, each weight
 // dequantized to bf16 into its [BK][LDB] tile (row = k).
-template <int BM, int NB>
-__device__ __forceinline__ void store_stage(const Stage<BM, NB>& st, __nv_bfloat16* As,
+template <int BM, int NB, int FMT>
+__device__ __forceinline__ void store_stage(const Stage<BM, NB, FMT>& st, __nv_bfloat16* As,
                                             __nv_bfloat16* Bs) {
   const int xr = threadIdx.x / (BK / 8), xc = (threadIdx.x % (BK / 8)) * 8;
 #pragma unroll
@@ -119,16 +129,23 @@ __device__ __forceinline__ void store_stage(const Stage<BM, NB>& st, __nv_bfloat
 #pragma unroll
     for (int j = 0; j < WITEMS; ++j) {
       const int r = wr + 8 * j;
-      const uint32_t h = st.h[w][j], l = st.l[w][j % (WITEMS / 2)];
+      const uint32_t h = st.h[w][j];
       uint32_t va[2] = {0u, 0u}, vb[2] = {0u, 0u};  // four bf16 each, column wc in the low half
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        int ua, ub;
-        pack6::unpack_pair((h >> (8 * q)) & 0xFFu, (l >> (8 * q)) & 0xFFu, r, ua, ub);
+        int ua, ub, bias;
+        if constexpr (FMT == 6) {
+          const uint32_t l = st.l[w][j % (WITEMS / 2)];
+          pack6::unpack_pair((h >> (8 * q)) & 0xFFu, (l >> (8 * q)) & 0xFFu, r, ua, ub);
+          bias = pack6::BIAS;
+        } else {
+          pack4::unpack_pair((h >> (8 * q)) & 0xFFu, ua, ub);
+          bias = pack4::BIAS;
+        }
         const uint32_t ba = __bfloat16_as_ushort(
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ua - pack6::BIAS), s[q])));
+            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ua - bias), s[q])));
         const uint32_t bb = __bfloat16_as_ushort(
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ub - pack6::BIAS), s[q])));
+            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ub - bias), s[q])));
         va[q >> 1] |= ba << (16 * (q & 1));
         vb[q >> 1] |= bb << (16 * (q & 1));
       }
@@ -146,8 +163,9 @@ __device__ __forceinline__ float act_f32(float g, int act) {
   return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// NB = 1: K7 (ROPE optional); NB = 2: K8 (weight 0 = gate, weight 1 = up).
-template <int BM, int NB, bool ROPE>
+// NB = 1: K7 / K11 (ROPE optional); NB = 2: K8 (weight 0 = gate, weight 1 = up).
+// FMT: 6 (hi + lo planes) or 4 (the nibble plane in the hi pointer).
+template <int BM, int NB, bool ROPE, int FMT>
 __global__ void __launch_bounds__(THREADS)
 w6_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ hi0,
                const uint8_t* __restrict__ lo0, const float* __restrict__ ws0,
@@ -180,7 +198,7 @@ w6_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   const uint8_t* const los[2] = {lo0, lo1};
   const float* const wss[2] = {ws0, ws1};
   const int nt = K / BK;
-  Stage<BM, NB> st;
+  Stage<BM, NB, FMT> st;
   load_stage(st, x, his, los, wss, M, K, ldw, m0, n0, 0);
   for (int t = 0; t < nt; ++t) {
     store_stage(st, As, Bs);
@@ -236,54 +254,72 @@ w6_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ 
   }
 }
 
-template <int BM, int NB, bool ROPE>
+template <int BM, int NB, bool ROPE, int FMT>
 int launch(const void* x, const void* hi0, const void* lo0, const void* ws0, const void* hi1,
            const void* lo1, const void* ws1, const void* cosv, const void* sin2, void* out,
            int M, int N, int K, int ldw, int out_bf16, int act, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<BM, NB>();
-  cudaError_t e = cudaFuncSetAttribute(w6_bf16_kernel<BM, NB, ROPE>,
+  cudaError_t e = cudaFuncSetAttribute(w6_bf16_kernel<BM, NB, ROPE, FMT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(N / BN, (M + BM - 1) / BM);
-  w6_bf16_kernel<BM, NB, ROPE><<<grid, THREADS, smem, s>>>(
+  w6_bf16_kernel<BM, NB, ROPE, FMT><<<grid, THREADS, smem, s>>>(
       (const __nv_bfloat16*)x, (const uint8_t*)hi0, (const uint8_t*)lo0, (const float*)ws0,
       (const uint8_t*)hi1, (const uint8_t*)lo1, (const float*)ws1, (const float*)cosv,
       (const float*)sin2, out, M, N, K, ldw, out_bf16, act);
   return (int)cudaGetLastError();
 }
 
+// One launch of the format's kernel; glu (K8) is W6 only.
+template <int FMT>
+int dispatch(const void* x, const void* hi0, const void* lo0, const void* ws0, const void* hi1,
+             const void* lo1, const void* ws1, const void* cosv, const void* sin2, void* out, int M,
+             int N, int K, int ldw, int out_bf16, int glu, int act, int bm, cudaStream_t s) {
+  const bool rope = cosv != nullptr;
+  if (glu) {
+    if constexpr (FMT == 6) {
+      if (bm != 64 || rope || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
+      return launch<64, 2, false, FMT>(x, hi0, lo0, ws0, hi1, lo1, ws1, nullptr, nullptr, out, M, N,
+                                       K, ldw, out_bf16, act, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (bm == 64 && rope)
+    return launch<64, 1, true, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out, M,
+                                    N, K, ldw, out_bf16, 0, s);
+  if (bm == 64)
+    return launch<64, 1, false, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                     out, M, N, K, ldw, out_bf16, 0, s);
+  if (bm == 128 && rope)
+    return launch<128, 1, true, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out,
+                                     M, N, K, ldw, out_bf16, 0, s);
+  if (bm == 128)
+    return launch<128, 1, false, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                      out, M, N, K, ldw, out_bf16, 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// x: bf16 [M, K]; weight j: hi [K/2, ldw], lo [K/4, ldw], ws f32 [K/128, ldw]
-// (pointers at the weight's first column); out: [M, N] bf16 or f32.
-// glu = 0: K7 over weight 0, with RoPE when cos / sin2 (f32 [M, 128]) are not
-// null; glu = 1: K8, weight 0 = gate, weight 1 = up, act 0 = silu, 1 = gelu.
-// bm: rows per block, 64 or 128 (K8: 64). Returns cudaGetLastError() after
-// the launch.
+// fmt 6 (K7 / K8): weight j is hi [K/2, ldw], lo [K/4, ldw], ws f32
+// [K/128, ldw]; fmt 4 (K11): the nibble plane [K/2, ldw] in hi, lo null.
+// Pointers at the weight's first column; x: bf16 [M, K]; out: [M, N] bf16
+// or f32. glu = 0: K7 / K11 over weight 0, with RoPE when cos / sin2 (f32
+// [M, 128]) are not null; glu = 1 (fmt 6 only): K8, weight 0 = gate, weight
+// 1 = up, act 0 = silu, 1 = gelu. bm: rows per block, 64 or 128 (K8: 64).
+// Returns cudaGetLastError() after the launch.
 extern "C" int flexq_w6_bf16(const void* x, const void* hi0, const void* lo0, const void* ws0,
                              const void* hi1, const void* lo1, const void* ws1,
                              const void* cosv, const void* sin2, void* out, int M, int N, int K,
-                             int ldw, int out_bf16, int glu, int act, int bm, void* stream) {
+                             int ldw, int out_bf16, int glu, int act, int bm, int fmt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= 0 || N <= 0 || K % BK != 0 || N % BN != 0 || ldw % 4 != 0 || ldw < N)
     return (int)cudaErrorInvalidValue;
-  const bool rope = cosv != nullptr;
-  if (glu) {
-    if (bm != 64 || rope || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
-    return launch<64, 2, false>(x, hi0, lo0, ws0, hi1, lo1, ws1, nullptr, nullptr, out, M, N, K,
-                                ldw, out_bf16, act, s);
-  }
-  if (bm == 64 && rope)
-    return launch<64, 1, true>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out, M,
-                               N, K, ldw, out_bf16, 0, s);
-  if (bm == 64)
-    return launch<64, 1, false>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                out, M, N, K, ldw, out_bf16, 0, s);
-  if (bm == 128 && rope)
-    return launch<128, 1, true>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out, M,
-                                N, K, ldw, out_bf16, 0, s);
-  if (bm == 128)
-    return launch<128, 1, false>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 out, M, N, K, ldw, out_bf16, 0, s);
+  if (fmt == 6)
+    return dispatch<6>(x, hi0, lo0, ws0, hi1, lo1, ws1, cosv, sin2, out, M, N, K, ldw, out_bf16, glu,
+                       act, bm, s);
+  if (fmt == 4)
+    return dispatch<4>(x, hi0, lo0, ws0, hi1, lo1, ws1, cosv, sin2, out, M, N, K, ldw, out_bf16, glu,
+                       act, bm, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,7 @@ from flexq_tpu_torch.kernels.fused_quant import glu_act_plain
 from flexq_tpu_torch.packing.pack6 import unpack6
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 10 + [_I] * 8 + [_P]
+_ARGS = [_P] * 10 + [_I] * 9 + [_P]
 _ACTS = {"silu": 0, "gelu": 1}
 ROPE_HEAD = 128  # the epilogue rotates 128-wide heads (head_dim == 128)
 
@@ -36,17 +36,22 @@ ROPE_HEAD = 128  # the epilogue rotates 128-wide heads (head_dim == 128)
 # ---- plain PyTorch versions (the same arithmetic, used on the CPU) -------
 
 
-def dequant_bf16(w_hi, w_lo, w_scale) -> torch.Tensor:
-    """bf16 [K, N] weight: bf16((u - 32) * scale), an f32 multiply rounded
-    to nearest-even, as the TPU kernel dequantizes."""
-    w = unpack6(w_hi, w_lo).to(torch.float32)
+def dequant_int(w_int, w_scale, dtype=torch.bfloat16) -> torch.Tensor:
+    """[K, N] weight in ``dtype`` from a signed integer weight: ``dtype``
+    of the f32 product w * scale (per 128-group along K), rounded to
+    nearest-even. With bf16 this is the TPU kernels' dequant,
+    bf16((u - bias) * scale)."""
     ws = w_scale.to(torch.float32).repeat_interleave(GROUP_SIZE, dim=0)
-    return (w * ws).to(torch.bfloat16)
+    return (w_int.to(torch.float32) * ws).to(dtype)
+
+
+def acc_plain(x, w_bf16) -> torch.Tensor:
+    """f32 x @ W of the bf16 operands (the products are exact in f32)."""
+    return x.to(torch.bfloat16).to(torch.float32) @ w_bf16.to(torch.float32)
 
 
 def _acc_plain(x, w_hi, w_lo, w_scale) -> torch.Tensor:
-    """f32 x @ W of the bf16 operands (the products are exact in f32)."""
-    return x.to(torch.bfloat16).to(torch.float32) @ dequant_bf16(w_hi, w_lo, w_scale).to(torch.float32)
+    return acc_plain(x, dequant_int(unpack6(w_hi, w_lo), w_scale))
 
 
 def rope_epilogue_plain(t, cos, sin2) -> torch.Tensor:
@@ -71,6 +76,17 @@ def w6_glu_bf16_plain(x, g_hi, g_lo, g_scale, u_hi, u_lo, u_scale, act="silu", o
     return glu_act_plain(g, u, act).to(out_dtype)
 
 
+def check_rope(rope_cos, rope_sin2, m: int, n: int, dev) -> None:
+    """Raise unless the RoPE operands are absent or both f32 [M, 128] with
+    N a multiple of the 128-wide head."""
+    if rope_cos is None:
+        return
+    if rope_sin2 is None or n % ROPE_HEAD:
+        raise ValueError("the RoPE epilogue needs rope_sin2 and N a multiple of 128")
+    for t, name in ((rope_cos, "rope_cos"), (rope_sin2, "rope_sin2")):
+        check_tensor(t, name, torch.float32, (m, ROPE_HEAD), dev)
+
+
 def _halves(t: torch.Tensor):
     nh = t.shape[1] // 2
     return t[:, :nh], t[:, nh:]
@@ -87,9 +103,11 @@ def _check_weight(hi, lo, scale, k: int, n: int, ldw: int, dev, name: str) -> No
         raise ValueError(f"{name}: N={n} must be a multiple of 128 for the kernel")
 
 
-def _launch(x, w0, w1, col1: int, n: int, out_dtype, act: Optional[str], rope_cos, rope_sin2) -> torch.Tensor:
+def launch_bf16(x, w0, w1, col1: int, n: int, out_dtype, act: Optional[str], rope_cos, rope_sin2,
+                fmt: int = 6) -> torch.Tensor:
     """csrc/w6_bf16.cu over weight w0 = (hi, lo, scale) (and, for the GLU,
-    w1, whose first column is ``col1`` of its planes); ``n`` output columns."""
+    w1, whose first column is ``col1`` of its planes); ``n`` output columns.
+    ``fmt`` 4: w0 = (nibble plane, None, scale), no GLU."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} not supported by the kernel")
     xb = x.to(torch.bfloat16).contiguous()
@@ -99,7 +117,7 @@ def _launch(x, w0, w1, col1: int, n: int, out_dtype, act: Optional[str], rope_co
     dev = xb.device
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     ldw = w0[0].shape[1]
-    ptrs = [t.data_ptr() for t in w0]
+    ptrs = [t.data_ptr() if t is not None else None for t in w0]
     if w1 is not None:
         ptrs += [w1[0].data_ptr() + col1, w1[1].data_ptr() + col1, w1[2].data_ptr() + 4 * col1]
     else:
@@ -110,7 +128,7 @@ def _launch(x, w0, w1, col1: int, n: int, out_dtype, act: Optional[str], rope_co
     fn = _build.function("w6_bf16", "flexq_w6_bf16", _ARGS)
     rc = fn(
         xb.data_ptr(), *ptrs, *rope, out.data_ptr(), m, n, k, ldw,
-        int(out_dtype == torch.bfloat16), int(glu), _ACTS.get(act, 0), bm,
+        int(out_dtype == torch.bfloat16), int(glu), _ACTS.get(act, 0), bm, fmt,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -138,16 +156,11 @@ def w6_matmul_bf16(
     n = w_hi.shape[1]
     if k % GROUP_SIZE:
         raise ValueError(f"K={k} must be a multiple of {GROUP_SIZE}")
-    rope = rope_cos is not None
-    if rope:
-        if rope_sin2 is None or n % ROPE_HEAD:
-            raise ValueError("the RoPE epilogue needs rope_sin2 and N a multiple of 128")
-        for t, name in ((rope_cos, "rope_cos"), (rope_sin2, "rope_sin2")):
-            check_tensor(t, name, torch.float32, (m, ROPE_HEAD), x.device)
+    check_rope(rope_cos, rope_sin2, m, n, x.device)
     if not on_card(x):
         return w6_matmul_bf16_plain(x, w_hi, w_lo, w_scale, out_dtype, rope_cos, rope_sin2)
     _check_weight(w_hi, w_lo, w_scale, k, n, n, x.device, "w")
-    out = _launch(x, (w_hi, w_lo, w_scale), None, 0, n, out_dtype, None, rope_cos, rope_sin2)
+    out = launch_bf16(x, (w_hi, w_lo, w_scale), None, 0, n, out_dtype, None, rope_cos, rope_sin2)
     w6_matmul_bf16.launches += 1
     return out
 
@@ -163,7 +176,7 @@ def w6_glu_matmul_bf16(x, g_hi, g_lo, g_scale, u_hi, u_lo, u_scale, *, act="silu
         return w6_glu_bf16_plain(x, g_hi, g_lo, g_scale, u_hi, u_lo, u_scale, act, out_dtype)
     _check_weight(g_hi, g_lo, g_scale, k, n, n, x.device, "gate")
     _check_weight(u_hi, u_lo, u_scale, k, n, n, x.device, "up")
-    out = _launch(x, (g_hi, g_lo, g_scale), (u_hi, u_lo, u_scale), 0, n, out_dtype, act, None, None)
+    out = launch_bf16(x, (g_hi, g_lo, g_scale), (u_hi, u_lo, u_scale), 0, n, out_dtype, act, None, None)
     w6_glu_matmul_bf16.launches += 1
     return out
 
@@ -185,7 +198,7 @@ def w6_glu_fused_bf16(x, hi, lo, scale, *, act="silu", out_dtype=torch.bfloat16)
         return w6_glu_bf16_plain(x, gh, gl, gs, uh, ul, us, act, out_dtype)
     _check_weight(hi, lo, scale, k, nh, n2, x.device, "gate_up")
     w = (hi, lo, scale)
-    out = _launch(x, w, w, nh, nh, out_dtype, act, None, None)
+    out = launch_bf16(x, w, w, nh, nh, out_dtype, act, None, None)
     w6_glu_fused_bf16.launches += 1
     return out
 

@@ -25,7 +25,7 @@ def w6_matmul_stream(x_q, x_scale, w_hi, w_lo, w_scale, *, out_dtype=torch.bfloa
         return w6_matmul_plain(x_q, x_scale, w_hi, w_lo, w_scale, out_dtype)
     if x_q.device.type != "cuda":
         raise ValueError(f"unsupported device {x_q.device}")
-    out = launch(x_q, x_scale, w_hi, w_lo, w_scale, out_dtype, ks=16)
+    out = launch(6, x_q, x_scale, w_hi, w_lo, w_scale, out_dtype, ks=16)
     w6_matmul_stream.launches += 1
     return out
 

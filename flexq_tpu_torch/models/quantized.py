@@ -1,23 +1,27 @@
 """Quantized serve-path LLaMA (port of flexq_tpu/models/quantized.py: the
-W6Ax decode layer, the W6A16 prefill layer and forward_serve over a dense
+W*Ax decode layer, the W*A16 prefill layer and forward_serve over a dense
 bf16 or int8 KV cache).
 
+Three weight formats, as the reference packs them (``quantize_linear``):
+6-bit planes ("hi"/"lo", the FlexQ format), a 4-bit nibble plane ("q4")
+and dense int8 ("q8"); 16-bit linears keep their weight ("w").
+
 Two layers, chosen as the reference chooses them:
-  * ``llama_layer_serve`` (W6Ax, exact integer): every linear runs the W6Ax
-    kernel on 6-bit packed planes, with activations quantized in the
-    producer's epilogue (fused norm / activation kernels). Decode, and
-    prompts shorter than the engine's ``prefill_bf16_threshold``.
-  * ``llama_layer_serve_prefill`` (W6A16): the weights are dequantized to
-    bf16 inside the GEMM kernel and the activations stay unquantized; q and
-    k take the fused RoPE epilogue, gate and up the fused GLU kernel. Long
-    prompts (``prefill_bf16``), and every step under a no-act-quant policy
-    (``QuantPolicy.weight_only``).
-Attention reads the cache through the attention kernel.
+  * ``llama_layer_serve`` (W*Ax, exact integer): every linear runs the
+    exact integer kernel of its format (W6Ax, W4A8, W8A8), with activations
+    quantized in the producer's epilogue (fused norm / activation kernels).
+    Decode, and prompts shorter than the engine's ``prefill_bf16_threshold``.
+  * ``llama_layer_serve_prefill`` (W*A16): the weights are dequantized to
+    bf16 inside the GEMM kernel (W6, W4; W8 is dequantized before a plain
+    product, as the reference leaves it to XLA) and the activations stay
+    unquantized; packed q and k take the fused RoPE epilogue, W6 gate and
+    up the fused GLU kernel. Long prompts (``prefill_bf16``), and every step
+    under a no-act-quant policy (``QuantPolicy.weight_only``).
+Attention reads the cache through the attention kernel. The lm_head may be
+packed too (``QuantPolicy.with_head``).
 
 Not in this slice (each raises NotImplementedError naming its slice): the
-paged KV cache, per-row cache positions, W4 and W8 weights (kernels
-K10-K12) and the quantized lm_head, 16-bit linears under a W6Ax policy, OPT,
-and the cache-less forward.
+paged KV cache, per-row cache positions, OPT, and the cache-less forward.
 
 Cache layout: [L, B, KVH, S, D] (sequence second-minor), with f32 scales
 [L, B, KVH, S] for the int8 cache, updated in place: the port's tensors are
@@ -41,14 +45,19 @@ from flexq_tpu_torch.kernels import (
     glu_quant,
     quant_act,
     rmsnorm_quant,
+    w4_matmul,
+    w4_matmul_bf16,
     w6_glu_fused_bf16,
     w6_glu_matmul_bf16,
     w6_matmul,
     w6_matmul_bf16,
+    w8_matmul,
 )
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.kernels.fused_quant import f32_reciprocal
+from flexq_tpu_torch.kernels.w6_bf16 import dequant_int
 from flexq_tpu_torch.models.llama import act_fn, apply_rope, rmsnorm, rope_for_cfg, rope_gemm_operands
+from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import QuantSpec, quantize
 
@@ -67,14 +76,12 @@ def _padded_width(n: int) -> int:
 def quantize_linear(
     w: torch.Tensor, spec: QuantSpec, k_pad_to: Optional[int] = None
 ) -> Dict[str, torch.Tensor]:
-    """Dense [K, N] -> packed planes + f32 scales (groups along K).
+    """Dense [K, N] -> packed weight + f32 scales (groups along K):
+    {"hi", "lo", "scale"} (6-bit), {"q4", "scale"} (4-bit nibble plane) or
+    {"q8", "scale"} (dense int8).
 
     N is zero-padded to the plane width; ``k_pad_to`` zero-pads K (exact:
     zero rows quantize to 0) so down_proj matches the padded FFN width."""
-    if spec.bits in (4, 8):
-        raise NotImplementedError(
-            f"{spec.bits}-bit weights (W4/W8 formats, kernels K10-K12) are a later slice"
-        )
     k, n = w.shape
     if k_pad_to is not None and k_pad_to != k:
         w = F.pad(w, (0, 0, 0, k_pad_to - k))
@@ -88,8 +95,13 @@ def quantize_linear(
     if n_pad:
         q = F.pad(q, (0, n_pad))
         s = F.pad(s, (0, n_pad))
+    s = s.to(torch.float32).contiguous()
+    if spec.bits == 8:
+        return {"q8": q.contiguous(), "scale": s}
+    if spec.bits == 4:
+        return {"q4": pack4(q), "scale": s}
     hi, lo = pack6(q)
-    return {"hi": hi, "lo": lo, "scale": s.to(torch.float32).contiguous()}
+    return {"hi": hi, "lo": lo, "scale": s}
 
 
 def _pad128(n: int) -> int:
@@ -182,9 +194,9 @@ def quantize_params(
         "layers": [quantize_layer(lp, cfg, policy, dtype, dev, fuse) for lp in params["layers"]],
     }
     if "lm_head" in params:
-        if policy.weight_spec("lm_head").enabled:
-            raise NotImplementedError("the quantized lm_head (QuantPolicy.with_head) is a later slice")
-        out["lm_head"] = _as_tensor(params["lm_head"], dev).to(dtype)
+        head = _as_tensor(params["lm_head"], dev)
+        head_spec = policy.weight_spec("lm_head")
+        out["lm_head"] = quantize_linear(head, head_spec) if head_spec.enabled else head.to(dtype)
     return out
 
 
@@ -253,21 +265,33 @@ def _finish_linear(wq, y, n_out: Optional[int]) -> torch.Tensor:
 
 
 def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
-    if "hi" not in wq:
-        raise NotImplementedError(
-            "W4/W8 linears (kernels K10-K12) and 16-bit linears under a W6Ax policy are later slices"
-        )
-    y = w6_matmul(xq, xs, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
+    """Exact W*Ax linear of quantized activations: W6Ax (K2/K3), W4A8 (K10)
+    or W8A8 (K12). A 16-bit weight under a quantized-activation policy
+    dequantizes the input per group and runs a plain product, as the
+    reference does."""
+    if "hi" in wq:
+        y = w6_matmul(xq, xs, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
+    elif "q4" in wq:
+        y = w4_matmul(xq, xs, wq["q4"], wq["scale"], out_dtype=out_dtype)
+    elif "q8" in wq:
+        y = w8_matmul(xq, xs, wq["q8"], wq["scale"], out_dtype=out_dtype)
+    else:
+        m, k = xq.shape
+        xf = xq.to(torch.float32).reshape(m, k // GROUP_SIZE, GROUP_SIZE) * xs[:, :, None]
+        y = xf.reshape(m, k).to(out_dtype) @ wq["w"].to(out_dtype)
     return _finish_linear(wq, y, n_out)
 
 
 def _qlinear_bf16(wq, x, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
-    """W6A16 linear (kernel K7); a 16-bit weight is a plain product, left to
-    torch.matmul as the reference left it to XLA."""
+    """W*A16 linear: W6A16 (K7) or W4A16 (K11). A W8 weight is dequantized
+    per group to x's dtype and a 16-bit weight used as it is, each in a
+    plain product, left to torch.matmul as the reference left it to XLA."""
     if "hi" in wq:
         y = w6_matmul_bf16(x, wq["hi"], wq["lo"], wq["scale"], out_dtype=out_dtype)
-    elif "q4" in wq or "q8" in wq:
-        raise NotImplementedError("W4A16 / W8A16 linears (kernels K10-K12) are a later slice")
+    elif "q4" in wq:
+        y = w4_matmul_bf16(x, wq["q4"], wq["scale"], out_dtype=out_dtype)
+    elif "q8" in wq:
+        y = x @ dequant_int(wq["q8"], wq["scale"], x.dtype)
     else:
         y = x @ wq["w"].to(x.dtype)
     return _finish_linear(wq, y, n_out)
@@ -280,8 +304,15 @@ def _split_qkv(qkv, cfg: ModelConfig):
     return qkv[:, :nq], qkv[:, nq_p : nq_p + nkv], qkv[:, nq_p + nkv_p : nq_p + nkv_p + nkv]
 
 
-def _ffn_width(lp) -> int:
-    return lp["down_proj"]["hi"].shape[0] * 2 if "hi" in lp["down_proj"] else lp["down_proj"]["w"].shape[0]
+def _ffn_width(wq, cfg: ModelConfig) -> int:
+    """Padded FFN width implied by a packed down_proj weight's K."""
+    if "hi" in wq:
+        return wq["hi"].shape[0] * 2
+    if "q4" in wq:
+        return wq["q4"].shape[0] * 2
+    if "q8" in wq:
+        return wq["q8"].shape[0]
+    return cfg.intermediate_size
 
 
 def llama_layer_serve(
@@ -326,7 +357,7 @@ def llama_layer_serve(
     fq, fs, x2 = rmsnorm_quant(
         o, lp["post_norm"], bits=policy.act_bits.get("gate_proj", 6), residual=x2, eps=cfg.norm_eps
     )
-    ffn_pad = _ffn_width(lp)  # gate/up stay at the padded FFN width = down_proj's K
+    ffn_pad = _ffn_width(lp["down_proj"], cfg)  # gate/up stay at the padded FFN width = down_proj's K
     if "gate_up" in lp:
         gu = _qlinear(lp["gate_up"], fq, fs, dtype)
         gate, up = gu[:, :ffn_pad].contiguous(), gu[:, ffn_pad : 2 * ffn_pad].contiguous()
@@ -350,12 +381,12 @@ def llama_layer_serve_prefill(
     lengths: torch.Tensor,
     window: Optional[int] = None,
 ):
-    """The W6A16 layer (large M): weights dequantized to bf16 inside the
+    """The W*A16 layer (large M): weights dequantized to bf16 inside the
     GEMM kernel, activations unquantized. Its branches are the reference's:
-    a fused qkv_proj is one GEMM and apply_rope; unbiased packed q/k with
+    a fused qkv_proj is one GEMM and apply_rope; unbiased W6 or W4 q/k with
     head_dim 128 take the RoPE epilogue on the f32 accumulator (which rounds
     differently from apply_rope on the rounded output); otherwise three
-    GEMMs and apply_rope. A gate_up plane or unbiased packed gate/up take
+    GEMMs and apply_rope. A W6 gate_up plane or unbiased W6 gate/up take
     the fused GLU kernel; otherwise two GEMMs and act(gate) * up."""
     b, l, hidden = x.shape
     dtype = x.dtype
@@ -366,7 +397,7 @@ def llama_layer_serve_prefill(
     nkv = cfg.num_kv_heads * cfg.head_dim
 
     def rope_ok(wq):
-        return "hi" in wq and "b" not in wq
+        return ("hi" in wq or "q4" in wq) and "b" not in wq
 
     fused_rope = (
         cfg.head_dim == 128 and "qkv_proj" not in lp and rope_ok(lp["q_proj"]) and rope_ok(lp["k_proj"])
@@ -377,8 +408,11 @@ def llama_layer_serve_prefill(
         cos_f, sin2_f = rope_gemm_operands(cos, sin)
 
         def rope_proj(wq, n_out):
-            y = w6_matmul_bf16(h, wq["hi"], wq["lo"], wq["scale"], out_dtype=dtype,
-                               rope_cos=cos_f, rope_sin2=sin2_f)
+            rope = dict(out_dtype=dtype, rope_cos=cos_f, rope_sin2=sin2_f)
+            if "hi" in wq:
+                y = w6_matmul_bf16(h, wq["hi"], wq["lo"], wq["scale"], **rope)
+            else:
+                y = w4_matmul_bf16(h, wq["q4"], wq["scale"], **rope)
             return _finish_linear(wq, y, n_out)
 
         q = rope_proj(lp["q_proj"], nq)
@@ -408,7 +442,7 @@ def llama_layer_serve_prefill(
         act = w6_glu_matmul_bf16(h, gq["hi"], gq["lo"], gq["scale"], uq["hi"], uq["lo"], uq["scale"],
                                  act=cfg.act, out_dtype=dtype)
     else:
-        ffn_pad = _ffn_width(lp)
+        ffn_pad = _ffn_width(lp["down_proj"], cfg)
         if "gate_up" in lp:
             gu = _qlinear_bf16(lp["gate_up"], h, dtype)
             gate, up = gu[:, :ffn_pad], gu[:, ffn_pad : 2 * ffn_pad]
@@ -421,16 +455,30 @@ def llama_layer_serve_prefill(
     return x2.reshape(b, l, hidden)
 
 
-def apply_lm_head(params: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-    """Vocab projection [B, L, H] -> logits [B, L, V] (bf16 or tied head; a
+def apply_lm_head(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor) -> torch.Tensor:
+    """Vocab projection [B, L, H] -> logits [B, L, V].
+
+    A packed head (``QuantPolicy.with_head``) with quantized activations
+    runs the activation quant (K4) and the exact W*Ax GEMM of its format;
+    with 16-bit activations it runs the W*A16 GEMM. Its output is sliced
+    back from the padded vocab to ``cfg.vocab_size``: pad logits read 0.0
+    and could out-argmax real negative logits. A bf16 or tied head is a
     plain large product, left to torch.matmul as the reference left it to
-    XLA)."""
+    XLA."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    if isinstance(head, dict):
-        raise NotImplementedError("the quantized lm_head is a later slice")
-    return x @ head.to(x.dtype)
+    if not isinstance(head, dict):
+        return x @ head.to(x.dtype)
+    b, l, _ = x.shape
+    xm = x.reshape(b * l, -1).contiguous()  # x may be the last_only slice
+    abits = policy.act_bits.get("lm_head", 16)
+    if abits >= 16:
+        logits = _qlinear_bf16(head, xm, x.dtype, n_out=cfg.vocab_size)
+    else:
+        xq, xs = quant_act(xm, bits=abits)
+        logits = _qlinear(head, xq, xs, x.dtype, n_out=cfg.vocab_size)
+    return logits.reshape(b, l, cfg.vocab_size)
 
 
 def forward_serve(
@@ -495,4 +543,4 @@ def forward_serve(
     if last_only:
         x = x[:, -1:]
     cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v)
-    return apply_lm_head(params, x), cache
+    return apply_lm_head(params, cfg, policy, x), cache

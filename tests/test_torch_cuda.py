@@ -4,11 +4,12 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerances: the W6Ax kernel is bit-exact; the producers may move a quantized
-value by 1 on at most 0.1 % of entries (the RMS sum order differs); the
-W6A16 kernels (K7, K8) differ from their plain versions only in the order of
-f32 sums: f32 output within 1e-4 of max |out|, bf16 output within one bf16
-ulp of the plain f32 result (plus that 1e-4 for sums that cancel); attention
+Tolerances: the exact integer kernels (W6Ax, W4A8, W8A8) are bit-exact; the
+producers may move a quantized value by 1 on at most 0.1 % of entries (the
+RMS sum order differs); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
+their plain versions only in the order of f32 sums: f32 output within 1e-4
+of max |out|, bf16 output within one bf16 ulp of the plain f32 result (plus
+that 1e-4 for sums that cancel); attention
 sums in another order (2e-2 of max |out|, bf16 output), over a bf16 or an
 int8 cache.
 """
@@ -25,10 +26,13 @@ from flexq_tpu_torch.kernels import (
     quant_act,
     reset_launch_counts,
     rmsnorm_quant,
+    w4_matmul,
+    w4_matmul_bf16,
     w6_glu_fused_bf16,
     w6_glu_matmul_bf16,
     w6_matmul,
     w6_matmul_bf16,
+    w8_matmul,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.fused_quant import (
@@ -37,7 +41,10 @@ from flexq_tpu_torch.kernels.fused_quant import (
     rmsnorm_quant_plain,
 )
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
+from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
+from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
+from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +104,22 @@ def test_w6_matmul_kernel_bit_exact(gen, m, k, n):
     assert launch_counts()["w6_matmul_stream" if stream else "w6_matmul"] == 2
 
 
+@pytest.mark.parametrize("fmt", [4, 8])
+@pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (40, 512, 1024), (4, 1024, 512)])
+def test_w4_w8_matmul_kernel_bit_exact(gen, fmt, m, k, n):
+    # (4, 1024, 512) is K-tall: the 16-warp launch of the same kernel
+    xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    xs = torch.rand((m, k // 128), generator=gen, device="cuda") * 0.05 + 1e-3
+    lim = 2 ** (fmt - 1)
+    w = torch.randint(-lim, lim, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    ws = torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4
+    fn, plain = (w4_matmul, w4_matmul_plain) if fmt == 4 else (w8_matmul, w8_matmul_plain)
+    w = pack4(w) if fmt == 4 else w
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(fn(xq, xs, w, ws, out_dtype=dt), plain(xq, xs, w, ws, dt))
+    assert launch_counts()[fn.__name__] == 2
+
+
 @pytest.mark.parametrize("lq", [1, 5])
 @pytest.mark.parametrize("window", [None, 50])
 def test_attend_cache_kernel(gen, lq, window):
@@ -140,6 +163,21 @@ def test_w6_matmul_bf16_kernel(gen, m, k, n, rope):
     for dt in (torch.float32, torch.bfloat16):
         assert_w6a16_close(w6_matmul_bf16(x, hi, lo, ws, out_dtype=dt, **kw), want)
     assert launch_counts()["w6_matmul_bf16"] == 2
+
+
+@pytest.mark.parametrize("m,k,n,rope", [(40, 256, 384, False), (130, 512, 256, True), (4, 512, 256, True)])
+def test_w4_matmul_bf16_kernel(gen, m, k, n, rope):
+    x = randn(gen, m, k)
+    q4 = pack4(torch.randint(-8, 8, (k, n), generator=gen, device="cuda", dtype=torch.int8))
+    ws = torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4
+    kw = {}
+    if rope:
+        kw = dict(rope_cos=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1,
+                  rope_sin2=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1)
+    want = w4_matmul_bf16_plain(x, q4, ws, torch.float32, **kw)
+    for dt in (torch.float32, torch.bfloat16):
+        assert_w6a16_close(w4_matmul_bf16(x, q4, ws, out_dtype=dt, **kw), want)
+    assert launch_counts()["w4_matmul_bf16"] == 2
 
 
 @pytest.mark.parametrize("fused,act", [(False, "silu"), (True, "gelu")])

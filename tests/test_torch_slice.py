@@ -3,6 +3,8 @@ hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal; the paths still to port raise."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,7 @@ from flexq_tpu.serve import Engine as JEngine
 from flexq_tpu.train.trainer import init_params
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.convert import params_from_numpy
-from flexq_tpu_torch.models.quantized import forward_serve, quantize_params
+from flexq_tpu_torch.models.quantized import forward_serve
 from flexq_tpu_torch.serve import Engine, SamplingParams
 
 KW = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
@@ -87,24 +89,21 @@ def test_unsupported_paths_raise(model):
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
     cache = eng.new_cache(2)
-    # q4 weights (W4A16, kernel K11) in a layer the W6A16 prefill reaches
-    q4 = dict(tq, layers=[dict(tq["layers"][0], q_proj={"q4": torch.zeros((128, 256), dtype=torch.int8),
-                                                        "scale": torch.ones((2, 256))})] + tq["layers"][1:])
+    opt_cfg = dataclasses.replace(cfg, arch="opt")
     calls = [
-        dict(params=q4, prefill_bf16=True),
         dict(page_table=torch.zeros((2, 1), dtype=torch.int32)),  # paged cache
         dict(cache_pos=torch.zeros(2, dtype=torch.int32)),  # per-row positions
+        dict(cfg=opt_cfg),  # OPT serving (K14-K15)
+        dict(kv_k=None, kv_v=None),  # the cache-less forward
     ]
     for kw in calls:
-        args = dict(params=tq, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
+        args = dict(cfg=cfg, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
         args.update(kw)
         with pytest.raises(NotImplementedError):
-            forward_serve(args.pop("params"), cfg, pol, torch.from_numpy(prompts), **args)
-    w4 = QuantPolicy(weight_bits={n: 4 for n in pol.weight_bits}, act_bits=pol.act_bits)
-    with pytest.raises(NotImplementedError):  # W4 packing (K10-K12 formats)
-        quantize_params({"embed": np.zeros((4, 128), np.float32), "final_norm": np.ones(128, np.float32),
-                         "layers": [{"q_proj": {"w": np.zeros((128, 128), np.float32)}}]},
-                        cfg, w4, device="cpu")
+            forward_serve(tq, args.pop("cfg"), pol, torch.from_numpy(prompts), **args)
+    for preset in (QuantPolicy.uniform, QuantPolicy.weight_only, QuantPolicy.fp16):  # OPT policies
+        with pytest.raises(NotImplementedError):
+            preset(arch="opt")
 
 
 def test_engine_defaults_to_the_card(model):
