@@ -15,7 +15,9 @@ exits nonzero without the final line:
      int8 cache, H = 32, D = 128, S = 2048; the W6A16 and W4A16 GEMMs (K7,
      K11) at M = 2048 with and without the RoPE epilogue and at M = 4
      (weight-only decode; K11 also at the head), the fused GLU (K8) at
-     M = 2048 with separate and fused planes), with the tolerance stated,
+     M = 2048 with separate and fused planes; the paged attention (K13) over a
+     scrambled page table, B = 8 ragged rows up to 2048 keys, bf16 and int8
+     pools, with and without a window), with the tolerance stated,
      and their device times from CUDA events (median, L2 flushed before
      each launch) beside the plain version's, the least time the card could
      take (bytes at 3.35 TB/s or operations at peak, H100 SXM data sheet)
@@ -27,7 +29,13 @@ exits nonzero without the final line:
      layer, each followed by two decode steps (max |dlogit| / max |logit|
      per step, argmax agreement per run): llama_flex (unfused, fuse=True,
      int8 cache, 16 tokens with a W6A8 head), weight-only W6A16, W4A8 and
-     W8A8 (16 and 128 tokens), weight-only W4A16;
+     W8A8 (16 and 128 tokens), weight-only W4A16; the paged cache (bf16 and
+     int8 pools): a ragged B = 4 batch prefilled through the scheduler's
+     scratch-and-insert path, then two paged decode steps with per-row
+     positions; and a cache witness: the W6Ax prompts of that batch over a
+     bf16 and an int8 scratch, the activation and int8 K/V codes and the
+     cache layers the CPU computes off the card's, and the logit gap with
+     the card's codes handed on;
   4. end to end: the 32-layer LLaMA-2-7B shape with random weights (seeded
      torch.Generator, generated and quantized layer by layer on the card),
      greedy Engine.generate, max_seq_len 2048, B = 4, 32 new tokens:
@@ -38,8 +46,15 @@ exits nonzero without the final line:
      prefill_chunk=256 (whose tokens must equal the whole-prompt run's);
      W4A8 with a W4A8 head (32- and 512-token prompts), the same tree
      weight-only (W4A16 with a W4A16 head, 512-token prompts), and W8A8
-     (32-token prompts). Each run's launch counts are zeroed just before it
-     and read just after; every kernel of its path must launch.
+     (32-token prompts); the continuous-batching BatchScheduler (8 slots,
+     16 ragged requests, 8 of them arriving after the 4th tick, 6 sharing a
+     256-token prefix, prefill_chunk 256): paged bf16, dense bf16 (first
+     tokens equal the paged run's), paged bf16 with prefix_cache (hits > 0),
+     paged int8 and paged bf16 in a 24-page pool (preempts); every request
+     must get exactly its max_new tokens and every paged pool its pages
+     back; one torch.profiler breakdown of a paged run. Each run's launch
+     counts are zeroed just before it and read just after; every kernel of
+     its path must launch.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -58,6 +73,7 @@ from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels import (
     _build,
     flash_decode,
+    flash_decode_paged,
     flash_prefill,
     glu_quant,
     launch_counts,
@@ -73,6 +89,7 @@ from flexq_tpu_torch.kernels import (
     w8_matmul,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
+from flexq_tpu_torch.kernels.flash_decode import flash_decode_paged_plain
 from flexq_tpu_torch.kernels.fused_quant import (
     glu_quant_plain,
     quant_act_plain,
@@ -83,10 +100,12 @@ from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_pl
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
+from flexq_tpu_torch.models import quantized
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.serve import Engine
+from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3
 PEAK_INT8 = 1979e12  # dense int8 tensor-core ops/s
@@ -97,18 +116,19 @@ SEED = 0
 # wrapper -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "rmsnorm_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:119"),
-    "w6_matmul": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:190"),
-    "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
+    "w6_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:190"),
+    "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
     "quant_act": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:59"),
     "glu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:287"),
     "flash_decode": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_decode.py:193"),
     "flash_prefill": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_prefill.py:181"),
-    "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
-    "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
-    "w6_glu_fused_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w6_matmul.py:524"),
-    "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
-    "w4_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/w6_bf16.cu", "flexq_tpu/kernels/w4_matmul.py:220"),
-    "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/w6_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
+    "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
+    "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
+    "w6_glu_fused_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:524"),
+    "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
+    "w4_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:220"),
+    "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
+    "flash_decode_paged": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_decode.py:354"),
 }
 # the shape whose times go into the JSON line (the main path's decode shape)
 REPORT_SHAPE = {
@@ -127,6 +147,8 @@ REPORT_SHAPE = {
     "w4_matmul": "M=4 K=4096 N=11264",
     "w8_matmul": "M=4 K=4096 N=11264",
     "w4_matmul_bf16": "M=2048 K=4096 N=4096 rope",
+    # the scheduler's paged decode tick: 8 slots, ragged lengths up to 2048
+    "flash_decode_paged": "B=8 H=32 D=128 PS=128 MAXPAGES=16 ragged",
 }
 
 
@@ -322,6 +344,69 @@ def check_attention(results, dev, gen, timer):
                extra=f" sdpa_vs_plain_err={lib_err:.3g} (tolerance: 2e-2 of max|out|)")
 
 
+PAGED_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
+
+
+def check_paged_attention(results, dev, gen, timer):
+    """K13 over a page pool through a scrambled page table: B = 8 rows at
+    the ragged lengths above, H = KVH = 32, D = 128, PS = 128, MAXPAGES = 16
+    (the scheduler's decode tick at max_seq_len 2048), bf16 and int8 pools,
+    with and without a 512-key window; against its plain version (the
+    table's pages gathered, K6's plain version with one page per block) at
+    K6's tolerance, taken per (b, h) row. Yardstick: SDPA over the same
+    keys laid out contiguously (dequantized to bf16 for the int8 pool),
+    masked to each row's keys."""
+    b, h, kvh, ps, d, maxp = 8, 32, 32, 128, 128, 16
+    npages = 1 + b * maxp
+    shape = (2, npages, kvh, ps, d)
+    table = (torch.randperm(npages - 1, generator=gen, device=dev) + 1).reshape(b, maxp).to(torch.int32)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for quant in (False, True):
+        if quant:
+            pk, pv = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8) for _ in "kv")
+            scales = [torch.rand(shape[:-1], generator=gen, device=dev) * 0.02 + 1e-3 for _ in "kv"]
+        else:
+            pk, pv = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in "kv")
+            scales = []
+
+        def contiguous(pool, sc):  # [B, KVH, MAXPAGES*PS, D] bf16, the table's pages in order
+            g = pool[1][table.long()].float()  # [B, MAXPAGES, KVH, PS, D]
+            if sc is not None:
+                g = g * sc[1][table.long()][..., None]
+            return g.transpose(1, 2).reshape(b, kvh, maxp * ps, d).to(torch.bfloat16)
+
+        k_lin = contiguous(pk, scales[0] if quant else None)
+        v_lin = contiguous(pv, scales[1] if quant else None)
+        for window in (None, 512):
+            kern = lambda: flash_decode_paged(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+            plain = lambda: flash_decode_paged_plain(q, pk, pv, table, lengths, *scales, layer_idx=1,
+                                                     window=window)
+            got, want = kern().float().reshape(b, h, d), plain().float().reshape(b, h, d)
+            err = (got - want).abs().max().item()
+            # tolerance: K6's, 2e-2 of max |out| (bf16), per (b, h) row: the
+            # 1-key row's output is a raw V row, the long rows' are small
+            row_err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+            if not row_err.max().item() <= 2e-2:
+                raise AssertionError(f"flash_decode_paged int8={quant} window={window}: max abs err {err}, "
+                                     f"worst row err / row max|out| {row_err.max().item()}")
+            keys = torch.arange(maxp * ps, device=dev)
+            lo = (lengths - window).clamp(min=0) if window is not None else torch.zeros_like(lengths)
+            mask = (keys[None, :] < lengths[:, None]) & (keys[None, :] >= lo[:, None])  # [B, keys]
+            lib = lambda: sdpa(q[:, :, None], k_lin, v_lin, attn_mask=mask[:, None, None, :])
+            ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
+            attended = int((lengths - lo).sum().item())  # keys each row's (b, head) attends
+            per_key = kvh * (d + 4) if quant else kvh * d * 2
+            nbytes = 2 * attended * per_key + b * maxp * 4 + 2 * b * h * d * 2  # K/V rows (+scales), table, q, out
+            shape_s = (f"B={b} H={h} D={d} PS={ps} MAXPAGES={maxp} ragged" + (" int8" if quant else "")
+                       + (f" window={window}" if window else ""))
+            record(results, "flash_decode_paged", shape_s, err, ms, plain_ms, nbytes, 4 * h * attended * d,
+                   PEAK_BF16, lib_ms, extra=f" worst_row_rel_err={row_err.max().item():.3g} "
+                                            "(tolerance: 2e-2 of each (b, h) row's max|out|)")
+        del pk, pv, scales, k_lin, v_lin
+
+
 def _wa16_err(name, shape, got, want) -> float:
     """Tolerance: kernel and plain version differ only in the order of the
     f32 sums; f32 output within 1e-4 of max |out|, bf16 output within one
@@ -490,13 +575,200 @@ def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat
     return ok and agree >= 0.95 * total
 
 
+PARITY_LENGTHS = (16, 40, 100, 200)  # ragged B = 4: W6Ax and W6A16 prefills, one past a page edge
+
+
+def paged_parity(label, params, params_cpu, cfg, policy, dev, kv_dtype) -> bool:
+    """forward_serve over a page pool with per-row positions, on the card vs
+    the CPU plain versions (same weights): a ragged B = 4 batch prefilled
+    through the scheduler's scratch-and-insert path (a B = 1 prefill into a
+    page-sized scratch, then BatchScheduler._insert_scratch; every prompt
+    position's logits are kept, as the dense parity runs keep them), then
+    two decode steps of its paged tick (page_table + vector cache_pos),
+    both fed the CPU's argmax."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PARITY_LENGTHS]
+    scheds = {d: BatchScheduler(p, cfg, policy, num_slots=4, max_seq_len=512, kv_dtype=kv_dtype, paged=True,
+                                device=d) for d, p in ((dev, params), (cpu, params_cpu))}
+    outs = {}
+    for d, s in scheds.items():
+        rows = []
+        for i, prompt in enumerate(prompts):
+            n = len(prompt)
+            scratch = s._new_scratch(s.pool.pages_for(n) * s.pool.page_size)
+            logits, kv1 = s._forward(s._ids(prompt), scratch, None, 0, prefill_bf16=n >= 64)
+            s._insert_scratch(i, kv1, n)
+            rows.append(logits[0].float().cpu())
+        outs[d] = [torch.cat(rows)]  # [sum of prompt lengths, V]
+    pos = np.array(PARITY_LENGTHS)
+    last = np.cumsum(pos) - 1  # each prompt's last position in the prefill rows
+    ok, agree, total = True, 0, 0
+    for step in range(3):
+        ref, got = outs[cpu][step], outs[dev][step]
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+        total += ref.shape[0]
+        rel = (got - ref).abs().amax(-1) / ref.abs().max()  # per logits row
+        bounds = np.cumsum((0,) + PARITY_LENGTHS) if step == 0 else np.arange(5)
+        errs, tols = [], []
+        for r, n in enumerate(PARITY_LENGTHS):
+            errs.append(rel[bounds[r] : bounds[r + 1]].max().item())
+            # the dense parity runs' tolerances: 2e-2, and 1e-1 where 6-bit
+            # activation codes part card from CPU: decode after a W6A16
+            # prefill (its cache differs by bf16 ulps), and a W6Ax prompt over
+            # the int8 pool, where cache_witness finds the int8 codes equal
+            # wherever their inputs are and holds the same prompts at 2e-2
+            # once the card's activation codes are handed on
+            loose = (kv_dtype == torch.int8 and n < 64) or (step > 0 and n >= 64)
+            tols.append(1e-1 if loose else 2e-2)
+        what = "prefill (every prompt position)" if step == 0 else f"decode step {step}"
+        log(f"slice parity {label} (2 layers, 7B width, card vs CPU plain), {what}: max |dlogit|/max|logit| "
+            f"per prompt {dict(zip(PARITY_LENGTHS, (round(e, 5) for e in errs)))} (tolerance {tols})")
+        ok = ok and all(e <= t for e, t in zip(errs, tols))
+        if step == 2:
+            break
+        ids = (ref[last] if step == 0 else ref).argmax(-1)[:, None]
+        for d, s in scheds.items():
+            for i in range(4):  # the page the write at pos lands in
+                while s.ptable.num_blocks[i] < pos[i] // s.pool.page_size + 1:
+                    s.ptable.append(i, s._alloc(1)[0])
+            positions = torch.as_tensor(pos, device=d)
+            logits = s._step_paged_fn(ids.to(d), s.pool.state(), positions, s.ptable.to_device(d))
+            outs[d].append(logits.float().cpu())
+        pos = pos + 1
+    log(f"slice parity {label}: argmax agreement {agree}/{total} over the prompt and decode steps "
+        f"(tolerance >= 95%)")
+    return ok and agree >= 0.95 * total
+
+
+# the functions of models.quantized that a Tap wraps: the int8 cache's
+# quantizer and the three activation producers (K1, K4, K5)
+TAPPED = ("_kv_quant", "rmsnorm_quant", "quant_act", "glu_quant")
+
+
+class Tap:
+    """Wraps the functions in TAPPED where models.quantized calls them. Each
+    call's tensor inputs and outputs are kept on the CPU; given the Tap of
+    an earlier run of the same forward, each call's codes are compared with
+    that run's (entries off, entries, most off; apart for calls whose
+    inputs equal that run's, where only the function itself can part), and
+    for the names in ``hand_on`` that run's outputs are handed on in place
+    of this call's."""
+
+    def __init__(self, given=None, hand_on=()):
+        self.given, self.hand_on = given, hand_on
+        self.calls = {n: [] for n in TAPPED}
+        # name -> [codes off, codes, most off], over the calls with equal / unequal inputs
+        self.off = {n: {True: [0, 0, 0], False: [0, 0, 0]} for n in TAPPED}
+
+    def __enter__(self):
+        self.saved = {n: getattr(quantized, n) for n in TAPPED}
+        for n in TAPPED:
+            setattr(quantized, n, self._wrap(n, self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(quantized, n, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            ins = [t.cpu() for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)]
+            i = len(self.calls[name])
+            self.calls[name].append((ins, tuple(t.cpu() for t in out)))
+            if self.given is not None:
+                ins_want, want = self.given.calls[name][i]
+                dq = (out[0].cpu().int() - want[0].int()).abs()
+                off = self.off[name][all(map(torch.equal, ins, ins_want))]
+                off[0] += int((dq > 0).sum())
+                off[1] += dq.numel()
+                off[2] = max(off[2], int(dq.max()))
+                if name in self.hand_on:
+                    out = tuple(t.to(o.device) for t, o in zip(want, out))
+            return out
+
+        return call
+
+
+def cache_witness(params, params_cpu, cfg, policy, dev) -> bool:
+    """Where the card and the CPU part on a W6Ax prompt over an int8 cache:
+    the prompts of paged_parity below 64 tokens, each prefilled into a
+    B = 1 scratch as the scheduler does, over a bf16 and an int8 cache. The
+    CPU runs three times: as it is; with the card's int8 K/V codes and
+    scales handed on (the int8 cache then equals the card's); and with the
+    producers' codes handed on too. Logged: the logit gap of each run, the
+    codes of each tapped function that the CPU computed off the card's, and
+    the layers whose cache the CPU wrote equal to the card's. Where a call's
+    inputs equal the card's, holds the producers to their kernel check's
+    tolerance (one code off on at most 0.1 % of entries) and the int8
+    quant to the card's codes; holds the gap with every code handed on to
+    2e-2 of max |logit|."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in PARITY_LENGTHS if n < 64]
+    ok = True
+    for kv_dtype in (torch.bfloat16, torch.int8):
+        for prompt in prompts:
+            n = len(prompt)
+
+            def run(d, p, tap):
+                shape = (cfg.num_layers, 1, cfg.num_kv_heads, 128, cfg.head_dim)
+                c = [torch.zeros(shape, dtype=kv_dtype, device=d) for _ in "kv"]
+                if kv_dtype == torch.int8:
+                    c += [torch.zeros(shape[:-1], dtype=torch.float32, device=d) for _ in "kv"]
+                with tap:
+                    logits, _ = forward_serve(p, cfg, policy, torch.as_tensor([prompt]), kv_k=c[0], kv_v=c[1],
+                                              cache_pos=0, device=d,
+                                              **dict(zip(("kv_k_scale", "kv_v_scale"), c[2:])))
+                return logits[0].float().cpu(), [t.cpu() for t in c]
+
+            card_tap = Tap()
+            card, card_cache = run(dev, params, card_tap)
+            runs = [("as is", ())]
+            if kv_dtype == torch.int8:
+                runs.append(("card's int8 K/V handed on", ("_kv_quant",)))
+            runs.append(("every code handed on", TAPPED))
+            gaps = []
+            for label, hand_on in runs:
+                tap = Tap(card_tap, hand_on)
+                got, cache = run(cpu, params_cpu, tap)
+                gap = ((got - card).abs().max() / card.abs().max()).item()
+                gaps.append(f"{label} {gap:.3g}")
+                if label == "as is":
+                    equal = [li for li in range(cfg.num_layers)
+                             if all(torch.equal(a[li], b[li]) for a, b in zip(cache, card_cache))]
+
+                    def fmt(same):
+                        return {k: "{}/{} (most {})".format(*v[same]) for k, v in tap.off.items() if v[same][1]}
+
+                    # equal inputs: the producers within their kernel check's
+                    # tolerance, the int8 quant bit-exact
+                    for k, v in tap.off.items():
+                        off, total, most = v[True]
+                        ok = ok and (most == 0 if k == "_kv_quant" else most <= 1 and off <= 1e-3 * total)
+                    log(f"cache witness {n}-token W6Ax prompt, {str(kv_dtype)[6:]} cache (2 layers, 7B width, "
+                        f"card vs CPU plain): codes off the card's, calls with equal inputs {fmt(True)}, "
+                        f"calls with unequal inputs {fmt(False)}; layers whose cache the CPU wrote equal to "
+                        f"the card's: {equal} of {cfg.num_layers}")
+                if label == "every code handed on":
+                    ok = ok and gap <= 2e-2
+            log(f"cache witness {n}-token W6Ax prompt, {str(kv_dtype)[6:]} cache: max |dlogit|/max|logit| "
+                f"{'; '.join(gaps)} (tolerances: the producers one code off on <= 0.1% of entries; "
+                f"2e-2 with every code handed on)")
+    return ok
+
+
 def slice_parity(dev, gen):
     """2-layer models at 7B width: the W6Ax path (16-token prompt), then the
     W6A16 prefill (128-token prompt) over an unfused and a fuse=True tree,
     with an int8 cache, and under the weight-only W6A16 policy; then the
     other formats: W4A8 (16- and 128-token prompts: the W4A8 layer, the W4A16
     prefill), weight-only W4A16, W8A8 (16 and 128 tokens: the W8A8 layer,
-    the dequantized W8A16 prefill), and llama_flex with a W6A8 lm_head."""
+    the dequantized W8A16 prefill), and llama_flex with a W6A8 lm_head;
+    then the paged cache (bf16 and int8 pools, per-row positions)."""
     cfg = ModelConfig.llama(num_layers=2)
     flex = QuantPolicy.llama_flex()
     cpu = torch.device("cpu")
@@ -516,6 +788,9 @@ def slice_parity(dev, gen):
     head = quantize_head(params["lm_head"], flex_head)
     ok.append(parity("W6Ax + W6A8 head", dict(params, lm_head=head), dict(params_cpu, lm_head=to_device(head, cpu)),
                      cfg, flex_head, 16, dev))
+    ok += [paged_parity(f"paged {name} pool", params, params_cpu, cfg, flex, dev, dt)
+           for name, dt in (("bf16", torch.bfloat16), ("int8", torch.int8))]
+    ok.append(cache_witness(params, params_cpu, cfg, flex, dev))
     del params, params_cpu, fused, fused_cpu
     for bits, lengths in ((4, (16, 128)), (8, (16, 128))):
         policy = QuantPolicy.uniform(wbits=bits, abits=8)
@@ -543,6 +818,12 @@ PATH_KERNELS = {
     "W8A8 32-token": PRODUCERS + ("w8_matmul", "flash_decode", "flash_prefill"),
     # llama_flex with a W6A8 head: K4 + K2 at the head
     "W6Ax+head 32-token": W6AX,
+    # the continuous-batching scheduler: W6Ax and W6A16 prefills (whole and
+    # chunked) into a scratch, then W6Ax decode ticks over the dense cache or
+    # the page pool (K13)
+    "scheduler dense": W6AX + ("w6_matmul_bf16", "w6_glu_matmul_bf16"),
+    "scheduler paged": PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode_paged", "flash_prefill",
+                                    "w6_matmul_bf16", "w6_glu_matmul_bf16"),
 }
 
 
@@ -569,6 +850,138 @@ def generate_run(label, path, eng, prompts, new, dev, mode="fused"):
     if missing:
         raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
     return out, counts, stats
+
+
+SCHED = dict(num_slots=8, max_seq_len=2048, page_size=128, prefill_chunk=256)
+SHARED = (0, 1, 8, 9, 10, 11)  # requests whose prompts start with one 256-token prefix
+
+
+def sched_requests(vocab: int):
+    """16 seeded requests: (prompt, max_new); prompts of 16-700 tokens (both
+    prefill layers, whole and chunked), max_new 16-64; SHARED start with a
+    common 256-token prefix. The first 8 are added up front, the rest after
+    the 4th tick."""
+    rng = np.random.default_rng(SEED + 3)
+    prefix = rng.integers(0, vocab, 256).tolist()
+    reqs = []
+    for r in range(16):
+        if r in SHARED:
+            prompt = prefix + rng.integers(0, vocab, int(rng.integers(16, 445))).tolist()
+        else:
+            prompt = rng.integers(0, vocab, int(rng.integers(16, 701))).tolist()
+        reqs.append((prompt, int(rng.integers(16, 65))))
+    return reqs
+
+
+def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
+    """One BatchScheduler run over ``reqs`` (launch counts zeroed just before,
+    read just after); checks that every request got exactly its max_new
+    tokens and, paged, that the pool got every non-garbage page back.
+    Returns (token lists, counts, scheduler)."""
+    sched = BatchScheduler(params, cfg, policy, **SCHED, device=dev, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [sched.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in reqs[:8]]
+    out = {}
+    for _ in range(4):
+        out.update(sched.step())
+    ids += [sched.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in reqs[8:]]
+    out.update(sched.run())
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    tokens = [out[i] for i in ids]
+    bad = [r for r, (t, (_, n)) in enumerate(zip(tokens, reqs)) if len(t) != n or not all(0 <= x < cfg.vocab_size for x in t)]
+    if bad:
+        raise AssertionError(f"{label}: requests {bad} did not get exactly max_new valid tokens")
+    ttft = sorted((sched.t_first[i] - sched.t_arrival[i]) * 1e3 for i in ids)
+    gen_tokens = sum(len(t) for t in tokens)
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else float("nan")
+    extra = ""
+    if sched.paged:
+        reclaim = sched.registry.reclaimable if sched.registry is not None else 0
+        if sched.pool.free_pages + reclaim != sched.pool.num_pages - 1:
+            raise AssertionError(f"{label}: pool free {sched.pool.free_pages} + retained {reclaim} != "
+                                 f"{sched.pool.num_pages - 1} pages")
+        extra = (f" num_pages={sched.pool.num_pages} free_after={sched.pool.free_pages} retained_after={reclaim}"
+                 f" preemptions={sched.preemptions}")
+        if sched.registry is not None:
+            extra += f" prefix_hits={sched.registry.hits} prefix_misses={sched.registry.misses}"
+    log(f"sched {label}: 16 requests, {gen_tokens} tokens in {wall:.2f}s: tokens_per_s={gen_tokens / wall:.1f} "
+        f"decode_ticks={len(sched.tick_s)} mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.2f} "
+        f"ttft_ms_p50={statistics.median(ttft):.1f} ttft_ms_max={ttft[-1]:.1f} peak_mem_gib={peak:.2f}{extra}")
+    log(f"sched {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+    return tokens, counts, sched
+
+
+def scheduler_runs(params, cfg, policy, dev):
+    """The continuous-batching scheduler at 7B width, 8 slots, max_seq_len
+    2048, 128-token pages, prefill_chunk 256, 16 requests (sched_requests):
+    paged bf16; dense bf16 (first tokens equal the paged run's); paged bf16
+    with prefix_cache (hits > 0); paged int8; paged bf16 in a 24-page pool
+    (the first 8 requests need 28 pages: it preempts). Returns the summed
+    launch counts."""
+    reqs = sched_requests(cfg.vocab_size)
+    log(f"sched: prompt lengths {[len(p) for p, _ in reqs]}, max_new {[n for _, n in reqs]}")
+    warm = BatchScheduler(params, cfg, policy, **SCHED, paged=True, device=dev)  # first-use set-up, not timed
+    for p, _ in reqs[:2]:
+        warm.add_request(p, max_new_tokens=2, eos_id=-1)
+    warm.run()
+    del warm
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    paged, counts, sched = sched_run("paged bf16", "scheduler paged", params, cfg, policy, dev, reqs, paged=True)
+    add(counts)
+    del sched
+    dense, counts, sched = sched_run("dense bf16", "scheduler dense", params, cfg, policy, dev, reqs)
+    add(counts)
+    del sched
+    first = [a[0] == b[0] for a, b in zip(paged, dense)]
+    same = [a == b for a, b in zip(paged, dense)]
+    div = [(r, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)) for r, (a, b) in enumerate(zip(paged, dense))
+           if a != b]
+    log(f"sched dense vs paged: first tokens equal {sum(first)}/16, whole streams equal {sum(same)}/16, "
+        f"first divergence (request, token) {div[:4]} (decode attention blocks: 128 keys paged, 512 dense)")
+    if not all(first):
+        raise AssertionError("dense and paged runs disagree on a first token (identical prefill path)")
+    _, counts, sched = sched_run("paged bf16 prefix_cache", "scheduler paged", params, cfg, policy, dev, reqs,
+                                 paged=True, prefix_cache=True)
+    add(counts)
+    if sched.registry.hits == 0:
+        raise AssertionError("prefix_cache run: no prefix page was reused")
+    del sched
+    _, counts, sched = sched_run("paged int8", "scheduler paged", params, cfg, policy, dev, reqs, paged=True,
+                                 kv_dtype=torch.int8)
+    add(counts)
+    del sched
+    _, counts, sched = sched_run("paged bf16 24-page pool", "scheduler paged", params, cfg, policy, dev, reqs,
+                                 paged=True, num_pages=24)
+    add(counts)
+    if sched.preemptions == 0:
+        raise AssertionError("24-page pool: no request was preempted")
+    del sched
+    if dev.type == "cuda":
+        short = [(p[:32], 16) for p, _ in reqs[:8]]
+
+        def profiled():
+            s = BatchScheduler(params, cfg, policy, **SCHED, paged=True, device=dev)
+            for p, n in short:
+                s.add_request(p, max_new_tokens=n, eos_id=-1)
+            s.run()
+
+        profile_call("scheduler paged bf16, 8 requests x 32-token prompts, 16 new", profiled)
+    return totals
 
 
 def end_to_end(dev, gen):
@@ -620,7 +1033,12 @@ def end_to_end(dev, gen):
     if chunked != whole:
         raise AssertionError("prefill_chunk=256 tokens differ from the whole-prompt prefill's")
     log("e2e 512-token prefill_chunk=256 tokens equal to the whole-prompt run: True")
-    del engc, eng, params
+    del engc, eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    add(scheduler_runs(params, cfg, policy, dev))
+    log(f"e2e scheduler runs: {time.perf_counter() - t0:.1f}s")
+    del params
     torch.cuda.empty_cache()
     fused = random_params(cfg, policy, gen, dev, fuse=True)
     engf = Engine(fused, cfg, policy, max_seq_len=2048)
@@ -663,25 +1081,31 @@ def end_to_end(dev, gen):
 
 
 def profile_decode(eng, prompts, new: int = 8) -> None:
-    """Device time by kernel over one short generate (prefill + new - 1
-    decode steps) from torch.profiler, and the device's busy share: that
-    device time over the wall time of the same generate run without the
-    profiler (the profiler itself slows the host several-fold)."""
-    log(f"profile: B={prompts.shape[0]} prompt={prompts.shape[1]} new={new}")
+    """profile_call over one short generate (prefill + new - 1 decode steps)."""
+    profile_call(f"generate B={prompts.shape[0]} prompt={prompts.shape[1]} new={new}",
+                 lambda: eng.generate(prompts, max_new_tokens=new, eos_id=-1))
+
+
+def profile_call(label, fn) -> None:
+    """Device time by kernel over one call of ``fn`` from torch.profiler,
+    and the device's busy share: that device time over the wall time of
+    the same call run without the profiler (the profiler itself slows the
+    host several-fold)."""
+    log(f"profile: {label}")
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(prompts, max_new_tokens=new, eos_id=-1)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        eng.generate(prompts, max_new_tokens=new, eos_id=-1)
+        fn()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(ms for _, ms, _ in rows)
-    log(f"profile generate(new={new}): wall_ms={wall_ms:.1f} (no profiler) device_kernel_ms={busy:.2f} "
+    log(f"profile {label}: wall_ms={wall_ms:.1f} (no profiler) device_kernel_ms={busy:.2f} "
         f"device_busy_share={busy / wall_ms:.3f}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:10]:
         log(f"profile   {ms:9.3f} ms  {n:6d} calls  {key[:90]}")
@@ -712,6 +1136,7 @@ def main() -> int:
     check_int_gemms(results, dev, gen, timer)
     check_wa16(results, dev, gen, timer)
     check_attention(results, dev, gen, timer)
+    check_paged_attention(results, dev, gen, timer)
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
     del timer  # free its 1 GiB buffer before the model phases measure peak memory
     torch.cuda.empty_cache()

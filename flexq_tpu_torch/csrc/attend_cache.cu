@@ -2,13 +2,19 @@
 // with per-(token, head) f32 scales), for Hopper (sm_90a), plain C interface.
 //
 // Replaces the TPU kernels flexq_tpu/kernels/flash_decode.py::flash_decode
-// (_flash_decode_kernel, the Lq == 1 case) and
-// flexq_tpu/kernels/flash_prefill.py::flash_prefill (_flash_prefill_kernel)
-// for a bf16 or an int8 cache: on such a cache the two compute the same
-// function.
+// (_flash_decode_kernel, the Lq == 1 case, K6),
+// flexq_tpu/kernels/flash_prefill.py::flash_prefill (_flash_prefill_kernel,
+// K9) and flexq_tpu/kernels/flash_decode.py::flash_decode_paged
+// (_flash_decode_kernel over a page pool, K13) for a bf16 or an int8 cache:
+// on such a cache they compute the same function.
 //
-//   cache  k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
+//   dense cache k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
 //   scales ks, vs: [L, B, KVH, S] f32 (int8 cache only)
+//   paged (PAGED, Lq == 1): a pool k, v [L, P, KVH, PS, D] (scales
+//   [L, P, KVH, PS]) and table int32 [B, MAXPAGES]: key block i of row b is
+//   pool page table[b, i], so key j of the block is read at
+//   ((layer * P + table[b, i]) * KVH + kvh) * PS + j; the block is one page
+//   (bs = PS) and S = MAXPAGES * PS
 //   q: [B, Lq, H, D] bf16; out: [B, Lq, H, D] bf16; lengths: int32 [B]
 //   query i of row b sits at pos = lengths[b] - Lq + i (decode clips
 //   lengths[b] to [1, S] first) and attends keys in (pos - window, pos],
@@ -32,7 +38,9 @@
 // and reads only the key blocks in the query's window (blocks past the
 // diagonal or before the window start are never read). GQA heads re-read
 // their kv head's rows (from L2); sharing them across a block's warps is
-// later work.
+// later work. The paged form differs only in where a block starts: the warp
+// reads its page id from the table once per block (a page is PS * D
+// contiguous elements, so its rows are read as the dense ones are).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,12 +72,15 @@ __device__ __forceinline__ void load_row(const int8_t* p, float* v) {
   }
 }
 
-// T: cache element type (__nv_bfloat16, or int8_t with scales ks / vs)
-template <typename T, int DPL, int WARPS>
+// T: cache element type (__nv_bfloat16, or int8_t with scales ks / vs);
+// PAGED: kc / vc / ks / vs are the layer's page pool and key blocks come
+// through table [B, max_pages] (Lq == 1, bs == PS, S == max_pages * PS)
+template <typename T, int DPL, int WARPS, bool PAGED>
 __global__ void __launch_bounds__(WARPS * 32)
 attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ lengths,
+                    const int* __restrict__ table, int max_pages,
                     __nv_bfloat16* __restrict__ out, int Lq, int H, int KVH, int S,
                     int window, int bs, float scale, int clip_len) {
   constexpr int D = DPL * 32;
@@ -86,9 +97,11 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   if (clip_len) len = min(max(len, 1), S);
   const int pos = len - Lq + qi;
   const int kvh = h / (H / KVH);
-  const size_t row0 = ((size_t)b * KVH + kvh) * S;  // this (b, kv head)'s first key
-  const T* kb = kc + row0 * D + lane * DPL;
-  const T* vb = vc + row0 * D + lane * DPL;
+  const size_t row0 = ((size_t)b * KVH + kvh) * S;  // dense: this (b, kv head)'s first key
+  // dense row pointers set once (recomputing them from a per-block base
+  // slowed the dense Lq > 1 launch measurably)
+  const T* kd = kc + row0 * D + lane * DPL;
+  const T* vd = vc + row0 * D + lane * DPL;
 
   float qv[DPL];
   load_row<DPL>(q + (((size_t)b * Lq + qi) * H + h) * D + lane * DPL, qv);
@@ -103,10 +116,19 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   for (int blk = lo_k / bs; pos >= 0 && blk <= hi_k / bs; ++blk) {
     const int k0 = blk * bs;
     const int nk = min(bs, hi_k - k0 + 1);  // keys past the diagonal: p == 0
+    // the block's first key: its pool page (paged) or its cache row (dense)
+    size_t base = row0 + k0;
+    const T* kb = kd + (size_t)k0 * D;
+    const T* vb = vd + (size_t)k0 * D;
+    if (PAGED) {
+      base = ((size_t)table[(size_t)b * max_pages + blk] * KVH + kvh) * bs;
+      kb = kc + base * D + lane * DPL;
+      vb = vc + base * D + lane * DPL;
+    }
 #pragma unroll 4
     for (int j = 0; j < nk; ++j) {
       float kv[DPL];
-      load_row<DPL>(kb + (size_t)(k0 + j) * D, kv);
+      load_row<DPL>(kb + (size_t)j * D, kv);
       float part = 0.f;
 #pragma unroll
       for (int d = 0; d < DPL; ++d) part = fmaf(qv[d], kv[d], part);
@@ -114,7 +136,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
       for (int off = 16; off > 0; off >>= 1) part += __shfl_xor_sync(FULL, part, off);
       if (lane == (j & 31)) {
         float s = part * scale;
-        if (QUANT) s = s * ks[row0 + k0 + j];  // K dequant after the dot: (q.K8)*ks
+        if (QUANT) s = s * ks[base + j];  // K dequant after the dot: (q.K8)*ks
         sc[j] = (k0 + j < lo_k) ? NEG : s;
       }
     }
@@ -129,7 +151,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
     for (int j = lane; j < nk; j += 32) {
       float p = expf(sc[j] - m_new);
       ps += p;
-      if (QUANT) p = p * vs[row0 + k0 + j];  // V dequant folded into p: (p*vs).V8
+      if (QUANT) p = p * vs[base + j];  // V dequant folded into p: (p*vs).V8
       sc[j] = __bfloat162float(__float2bfloat16_rn(p));
     }
 #pragma unroll
@@ -143,7 +165,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
     for (int j = 0; j < nk; ++j) {
       const float p = sc[j];
       float vv[DPL];
-      load_row<DPL>(vb + (size_t)(k0 + j) * D, vv);
+      load_row<DPL>(vb + (size_t)j * D, vv);
 #pragma unroll
       for (int d = 0; d < DPL; ++d) pv[d] = fmaf(p, vv[d], pv[d]);
     }
@@ -159,27 +181,28 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
 }
 
 struct Args {
-  const void *q, *kc, *vc, *ks, *vs, *lengths;
+  const void *q, *kc, *vc, *ks, *vs, *lengths, *table;
   void* out;
-  int B, Lq, H, KVH, S, window, bs;
+  int B, Lq, H, KVH, S, window, bs, max_pages;
   float scale;
   int clip_len;
 };
 
-template <typename T, int DPL, int WARPS>
+template <typename T, int DPL, int WARPS, bool PAGED>
 int launch(const Args& a, cudaStream_t s) {
   dim3 grid(a.B * a.H, (a.Lq + WARPS - 1) / WARPS);
   const size_t smem = (size_t)WARPS * a.bs * sizeof(float);
-  attend_cache_kernel<T, DPL, WARPS><<<grid, WARPS * 32, smem, s>>>(
+  attend_cache_kernel<T, DPL, WARPS, PAGED><<<grid, WARPS * 32, smem, s>>>(
       (const __nv_bfloat16*)a.q, (const T*)a.kc, (const T*)a.vc, (const float*)a.ks,
-      (const float*)a.vs, (const int*)a.lengths, (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S,
-      a.window, a.bs, a.scale, a.clip_len);
+      (const float*)a.vs, (const int*)a.lengths, (const int*)a.table, a.max_pages,
+      (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S, a.window, a.bs, a.scale, a.clip_len);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DPL>
 int launch_d(const Args& a, cudaStream_t s) {
-  return a.Lq == 1 ? launch<T, DPL, 1>(a, s) : launch<T, DPL, 4>(a, s);
+  if (a.table != nullptr) return launch<T, DPL, 1, true>(a, s);  // paged: Lq == 1
+  return a.Lq == 1 ? launch<T, DPL, 1, false>(a, s) : launch<T, DPL, 4, false>(a, s);
 }
 
 template <typename T>
@@ -201,17 +224,21 @@ int launch_t(const Args& a, int D, cudaStream_t s) {
 // k_layer / v_layer point at cache[layer] ([B, KVH, S, D]); quant = 1 means
 // an int8 cache with ks_layer / vs_layer at scales[layer] ([B, KVH, S] f32),
 // quant = 0 a bf16 cache (the scale pointers are ignored); window <= 0 means
-// none; clip_len = 1 clips lengths to [1, S] (decode). Returns
-// cudaGetLastError() after the launch.
+// none; clip_len = 1 clips lengths to [1, S] (decode). With a page table
+// (int32 [B, max_pages], not null; Lq == 1) the layer pointers are the
+// pool's layer ([P, KVH, PS, D], scales [P, KVH, PS]), bs = PS and
+// S = max_pages * PS. Returns cudaGetLastError() after the launch.
 extern "C" int flexq_attend_cache(const void* q, const void* k_layer, const void* v_layer,
                                   const void* ks_layer, const void* vs_layer,
-                                  const void* lengths, void* out, int B, int Lq, int H,
-                                  int KVH, int S, int D, int window, int bs, float scale,
-                                  int clip_len, int quant, void* stream) {
+                                  const void* lengths, const void* table, int max_pages,
+                                  void* out, int B, int Lq, int H, int KVH, int S, int D,
+                                  int window, int bs, float scale, int clip_len, int quant,
+                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KVH != 0 || S % bs != 0 || bs > 512) return (int)cudaErrorInvalidValue;
   if (quant && (ks_layer == nullptr || vs_layer == nullptr)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, out,
-               B, Lq, H, KVH, S, window, bs, scale, clip_len};
+  if (table != nullptr && (Lq != 1 || S != max_pages * bs)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, table, out,
+               B, Lq, H, KVH, S, window, bs, max_pages, scale, clip_len};
   return quant ? launch_t<int8_t>(a, D, s) : launch_t<__nv_bfloat16>(a, D, s);
 }

@@ -308,10 +308,10 @@ int dispatch(const void* x, const void* hi0, const void* lo0, const void* ws0, c
 // [M, 128]) are not null; glu = 1 (fmt 6 only): K8, weight 0 = gate, weight
 // 1 = up, act 0 = silu, 1 = gelu. bm: rows per block, 64 or 128 (K8: 64).
 // Returns cudaGetLastError() after the launch.
-extern "C" int flexq_w6_bf16(const void* x, const void* hi0, const void* lo0, const void* ws0,
-                             const void* hi1, const void* lo1, const void* ws1,
-                             const void* cosv, const void* sin2, void* out, int M, int N, int K,
-                             int ldw, int out_bf16, int glu, int act, int bm, int fmt, void* stream) {
+extern "C" int flexq_wa16_matmul(const void* x, const void* hi0, const void* lo0, const void* ws0,
+                                 const void* hi1, const void* lo1, const void* ws1,
+                                 const void* cosv, const void* sin2, void* out, int M, int N, int K,
+                                 int ldw, int out_bf16, int glu, int act, int bm, int fmt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (M <= 0 || N <= 0 || K % BK != 0 || N % BN != 0 || ldw % 4 != 0 || ldw < N)
     return (int)cudaErrorInvalidValue;

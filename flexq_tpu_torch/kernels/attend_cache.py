@@ -1,11 +1,12 @@
-"""Causal attention over the dense KV cache: the kernel shared by
-``flash_decode`` (Lq == 1) and ``flash_prefill`` (Lq >= 1), and its plain
-PyTorch version.
+"""Causal attention over the KV cache: the kernel shared by ``flash_decode``
+(Lq == 1), ``flash_prefill`` (Lq >= 1) and ``flash_decode_paged`` (Lq == 1
+over a page pool through a page table), and its plain PyTorch version.
 
 Kernel: csrc/attend_cache.cu (CUDA C++ for sm_90a, bf16 or int8 cache; see
 its header for the design and its bound). ``attend_cache_plain`` computes the
 same function the way the TPU kernels do: keys in blocks of ``pick_bs(S)``,
-the online-softmax update per block, and q, K, V and p rounded to
+the online-softmax update per block (``bs``; the paged kernel's block is one
+page), and q, K, V and p rounded to
 ``compute_dtype`` before their dots (f32 sums). With an int8 cache the f32
 scales fold into the math as in the TPU kernels: the score is
 ``(q . K8) * (1/sqrt(D)) * ks`` and ``p * vs`` (f32) is rounded before the PV
@@ -29,7 +30,7 @@ from flexq_tpu_torch.kernels.common import check_tensor
 
 NEG = -1e30  # finite -inf stand-in, as in the TPU kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+_ARGS = [_P] * 7 + [_I, _P] + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 
 
 def pick_bs(s: int, cap: int = 512) -> int:
@@ -53,16 +54,18 @@ def attend_cache_plain(
     out_dtype,
     k_scale: Optional[torch.Tensor] = None,  # f32 [L, B, KVH, S] (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
+    bs: Optional[int] = None,
 ) -> torch.Tensor:
     """[B, Lq, H*D]: query i of row b at lengths[b] - Lq + i attends keys in
-    (pos - window, pos]; ``clip_len`` clips lengths to [1, S] first."""
+    (pos - window, pos]; ``clip_len`` clips lengths to [1, S] first. Keys go
+    in blocks of ``bs`` (default: ``pick_bs(S)``, the dense kernels' block)."""
     b, lq, h, d = q.shape
     kc, vc = k_cache[layer_idx], v_cache[layer_idx]
     ks = k_scale[layer_idx].to(torch.float32)[:, :, None] if k_scale is not None else None
     vs = v_scale[layer_idx].to(torch.float32)[:, :, None] if v_scale is not None else None
     kvh, s = kc.shape[1], kc.shape[2]
     g = h // kvh
-    bs = pick_bs(s)
+    bs = bs or pick_bs(s)
     dev = q.device
     ln = lengths.to(device=dev, dtype=torch.int64)
     if clip_len:
@@ -112,24 +115,36 @@ def attend_cache_plain(
 
 
 def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int],
-           clip_len: bool, k_scale=None, v_scale=None) -> torch.Tensor:
+           clip_len: bool, k_scale=None, v_scale=None, table=None) -> torch.Tensor:
     """Launch csrc/attend_cache.cu: q bf16 [B, Lq, H, D] over the bf16 cache,
-    or the int8 cache with its f32 scales [L, B, KVH, S], at ``layer_idx``;
-    returns bf16 [B, Lq, H*D]."""
+    or the int8 cache with its f32 scales, at ``layer_idx``; returns bf16
+    [B, Lq, H*D]. The cache is [L, B, KVH, S, D] (scales [L, B, KVH, S]), or
+    with ``table`` (int32 [B, MAXPAGES], Lq == 1) a page pool [L, P, KVH, PS,
+    D] (scales [L, P, KVH, PS]) whose key block i of row b is page
+    table[b, i]. The kernel reads the table's entries as given: each must be
+    a page of the pool."""
     b, lq, h, d = q.shape
-    nl, cb, kvh, s, cd = k_cache.shape
+    nl, rows, kvh, s, cd = k_cache.shape  # rows: B (dense) or P (pool)
     dev = q.device
     quant = k_scale is not None
     cache_dtype = torch.int8 if quant else torch.bfloat16
     check_tensor(q, "q", torch.bfloat16, (b, lq, h, d), dev)
-    check_tensor(k_cache, "k_cache", cache_dtype, (nl, b, kvh, s, d), dev)
-    check_tensor(v_cache, "v_cache", cache_dtype, (nl, b, kvh, s, d), dev)
+    if table is None:
+        rows, max_pages, s_total, bs = b, 0, s, pick_bs(s)
+    else:
+        if lq != 1 or s % 128:
+            raise ValueError(f"the paged kernel takes Lq == 1 and PS % 128 == 0, got Lq={lq}, PS={s}")
+        max_pages = table.shape[1]
+        check_tensor(table, "page_table", torch.int32, (b, max_pages), dev)
+        s_total, bs = max_pages * s, s
+    check_tensor(k_cache, "k_cache", cache_dtype, (nl, rows, kvh, s, d), dev)
+    check_tensor(v_cache, "v_cache", cache_dtype, (nl, rows, kvh, s, d), dev)
     check_tensor(lengths, "lengths", torch.int32, (b,), dev)
     scale_ptrs = [None, None]
     if quant:
         for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
-            check_tensor(t, name, torch.float32, (nl, b, kvh, s), dev)
-        per_layer_s = b * kvh * s * 4
+            check_tensor(t, name, torch.float32, (nl, rows, kvh, s), dev)
+        per_layer_s = rows * kvh * s * 4
         scale_ptrs = [k_scale.data_ptr() + layer_idx * per_layer_s,
                       v_scale.data_ptr() + layer_idx * per_layer_s]
     if d not in (64, 128, 256) or h % kvh:
@@ -141,8 +156,9 @@ def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int],
     fn = _build.function("attend_cache", "flexq_attend_cache", _ARGS)
     rc = fn(
         q.data_ptr(), k_cache.data_ptr() + layer_idx * per_layer,
-        v_cache.data_ptr() + layer_idx * per_layer, *scale_ptrs, lengths.data_ptr(), out.data_ptr(),
-        b, lq, h, kvh, s, d, window if window is not None else 0, pick_bs(s),
+        v_cache.data_ptr() + layer_idx * per_layer, *scale_ptrs, lengths.data_ptr(),
+        None if table is None else table.data_ptr(), max_pages, out.data_ptr(),
+        b, lq, h, kvh, s_total, d, window if window is not None else 0, bs,
         1.0 / math.sqrt(d), int(clip_len), int(quant), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

@@ -7,10 +7,10 @@
                     per 128-group, f32 accumulation, optional RoPE epilogue;
 
 with the weights as stored by packing/pack4.py (a biased nibble plane,
-N-minor). The kernels are the W6 kernels over the nibble plane: K10 is
-``csrc/w6_matmul.cu`` with the format parameter 4 and K11 is
-``csrc/w6_bf16.cu``'s body with the format parameter 4 (see their headers
-for the design and the bound). The plain versions follow the kernels'
+N-minor). The kernels are the format-neutral ones over the nibble plane:
+K10 is ``csrc/int_matmul.cu`` with the format parameter 4 and K11 is
+``csrc/wa16_matmul.cu`` with the format parameter 4 (see their headers for
+the design and the bound). The plain versions follow the kernels'
 order of operations, as the W6 ones do.
 """
 
@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
-from flexq_tpu_torch.kernels.w6_bf16 import (
+from flexq_tpu_torch.kernels.wa16_matmul import (
     ROPE_HEAD,
     acc_plain,
     check_rope,
@@ -29,7 +29,7 @@ from flexq_tpu_torch.kernels.w6_bf16 import (
     launch_bf16,
     rope_epilogue_plain,
 )
-from flexq_tpu_torch.kernels.w6_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
 from flexq_tpu_torch.packing.pack4 import unpack4
 
 

@@ -1,7 +1,7 @@
 """W6Ax matmul for K-tall decode shapes (port of
 flexq_tpu/kernels/w6_stream.py::w6_matmul_stream).
 
-The same function as ``w6_matmul`` (same CUDA source, csrc/w6_matmul.cu) in
+The same function as ``w6_matmul`` (same CUDA source, csrc/int_matmul.cu) in
 the launch shape for M <= 32 and K > N (down_proj at decode): 16 warps per
 block split K, so each block keeps twice the plane bytes in flight of the
 grid launch; with N small there are few column blocks to spread over the
@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from flexq_tpu_torch.kernels.w6_matmul import check_operands, launch, w6_matmul_plain
+from flexq_tpu_torch.kernels.int_matmul import launch
+from flexq_tpu_torch.kernels.w6_matmul import check_operands, w6_matmul_plain
 
 
 def w6_matmul_stream(x_q, x_scale, w_hi, w_lo, w_scale, *, out_dtype=torch.bfloat16):

@@ -4,7 +4,7 @@ K12), the SmoothQuant-baseline GEMM:
     out[m, n] = sum_g (sum_{k in g} x_q * w_q) * x_scale[m, g] * w_scale[g, n]
 
 with int8 weights stored dense [K, N] (no bias). The kernel is
-``csrc/w6_matmul.cu`` with the format parameter 8 (see its header for the
+``csrc/int_matmul.cu`` with the format parameter 8 (see its header for the
 design and the bound); the plain version follows its order of operations:
 exact integer partials, f32 accumulation over the groups in order.
 """
@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
-from flexq_tpu_torch.kernels.w6_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
 
 
 def w8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype=torch.float32):

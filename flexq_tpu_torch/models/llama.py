@@ -8,6 +8,7 @@ from an f32 inv_freq, applied in f32 with rotate_half.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -15,15 +16,13 @@ import torch
 from flexq_tpu_torch.config import ModelConfig
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, scaling=None):
-    """positions [B, L] -> (cos, sin) [B, L, head_dim] (half-rotate layout).
-
-    ``scaling`` is the LLaMA-3.1 (factor, low_freq_factor, high_freq_factor,
-    original_max_position_embeddings) inv_freq remap."""
-    dev = positions.device
-    inv_freq = 1.0 / (
-        theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=dev) / head_dim)
-    )
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, scaling, device: torch.device) -> torch.Tensor:
+    """f32 [head_dim / 2] RoPE inverse frequencies, computed on the host and
+    copied to ``device`` once: the card's f32 ``pow`` rounds some entries an
+    ulp apart from the CPU's, which moves a few percent of the cos / sin
+    table, and with it q and k."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
     if scaling is not None:
         factor, low, high, orig = scaling
         wavelen = 2.0 * math.pi / inv_freq
@@ -34,6 +33,15 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, scaling=N
             inv_freq / factor,
             torch.where(wavelen < orig / high, inv_freq, blended),
         )
+    return inv_freq.to(device)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float, scaling=None):
+    """positions [B, L] -> (cos, sin) [B, L, head_dim] (half-rotate layout).
+
+    ``scaling`` is the LLaMA-3.1 (factor, low_freq_factor, high_freq_factor,
+    original_max_position_embeddings) inv_freq remap."""
+    inv_freq = _inv_freq(head_dim, theta, scaling, positions.device)
     freqs = positions[..., None].to(torch.float32) * inv_freq  # [B, L, D/2]
     emb = torch.cat([freqs, freqs], dim=-1).to(torch.float64)
     # cos/sin of the f32 angle, taken in f64 and rounded once: as accurate
@@ -63,7 +71,7 @@ def apply_rope(q, k, cos, sin):
 
 def rope_gemm_operands(cos: torch.Tensor, sin: torch.Tensor):
     """(cos, sin) [B, L, D] -> (cos_f, sin2_f) [B*L, D] f32 operands of the
-    in-GEMM RoPE epilogue (kernels.w6_bf16.w6_matmul_bf16): with P the roll
+    in-GEMM RoPE epilogue (kernels.wa16_matmul, K7 and K11): with P the roll
     by D/2 within a head, rotate_half(t) * sin == P(t) * sin2, where
     sin2 = (-sin_half | sin_half)."""
     b, l, d = cos.shape

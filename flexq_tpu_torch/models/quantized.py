@@ -20,13 +20,16 @@ Two layers, chosen as the reference chooses them:
 Attention reads the cache through the attention kernel. The lm_head may be
 packed too (``QuantPolicy.with_head``).
 
-Not in this slice (each raises NotImplementedError naming its slice): the
-paged KV cache, per-row cache positions, OPT, and the cache-less forward.
+Not in this slice (each raises NotImplementedError naming its slice): OPT
+and the cache-less forward.
 
 Cache layout: [L, B, KVH, S, D] (sequence second-minor), with f32 scales
-[L, B, KVH, S] for the int8 cache, updated in place: the port's tensors are
-mutable, so writing the step's K/V into the caller's cache replaces the
-reference's functional cache update.
+[L, B, KVH, S] for the int8 cache, or a page pool [L, P, KVH, PS, D] (scales
+[L, P, KVH, PS]) read through a page table [B, MAXPAGES] (decode only: the
+continuous-batching scheduler fills pages from a dense prefill scratch).
+Cache positions are one int or one per row. The cache is updated in place:
+the port's tensors are mutable, so writing the step's K/V into the caller's
+cache replaces the reference's functional cache update.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels import (
     GROUP_SIZE,
     flash_decode,
+    flash_decode_paged,
     flash_prefill,
     glu_quant,
     quant_act,
@@ -55,7 +59,7 @@ from flexq_tpu_torch.kernels import (
 )
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.kernels.fused_quant import f32_reciprocal
-from flexq_tpu_torch.kernels.w6_bf16 import dequant_int
+from flexq_tpu_torch.kernels.wa16_matmul import dequant_int
 from flexq_tpu_torch.models.llama import act_fn, apply_rope, rmsnorm, rope_for_cfg, rope_gemm_operands
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
@@ -200,12 +204,30 @@ def quantize_params(
     return out
 
 
-def _cache_update(ck, cv, k, v, li: int, cache_pos: int) -> None:
-    """Write step K/V [B, L, KVH, D] into layer ``li`` of the cache at
-    ``cache_pos``, in place (transposed to the [B, KVH, L, D] cache rows)."""
-    l = k.shape[1]
-    ck[li, :, :, cache_pos : cache_pos + l] = k.transpose(1, 2).to(ck.dtype)
-    cv[li, :, :, cache_pos : cache_pos + l] = v.transpose(1, 2).to(cv.dtype)
+def _cache_rows(cache_pos, b: int, l: int, device):
+    """Index pair (rows [B, 1], positions [B, L]) of the cache entries that
+    a step of L tokens per row writes at ``cache_pos`` (int: every row at
+    the same start; int tensor [B]: row r at its own start)."""
+    if isinstance(cache_pos, torch.Tensor):
+        start = cache_pos.to(device=device, dtype=torch.int64).reshape(b, 1)
+    else:
+        start = torch.full((b, 1), int(cache_pos), dtype=torch.int64, device=device)
+    return torch.arange(b, device=device)[:, None], start + torch.arange(l, device=device)
+
+
+def _write_rows(buf, li: int, x, cache_pos) -> None:
+    """Write a step's x [B, L, KVH(, D)] into layer ``li`` of a cache buffer
+    [L, B, KVH, S(, D)] at ``cache_pos``, in place. An int is one slice
+    write into the transposed rows; a vector [B] (per-row positions:
+    continuous batching, L == 1, or an L-token window at each row's own
+    start) is one indexed write, where the reference unrolls B slice writes
+    (a TPU workaround): with indices on both sides of the KVH slice, the
+    indexed view is [B, L, KVH(, D)], the step's own layout."""
+    if isinstance(cache_pos, torch.Tensor):
+        rows, pos = _cache_rows(cache_pos, x.shape[0], x.shape[1], buf.device)
+        buf[li, rows, :, pos] = x.to(buf.dtype)
+    else:
+        buf[li, :, :, cache_pos : cache_pos + x.shape[1]] = x.transpose(1, 2).to(buf.dtype)
 
 
 KV_QMAX = 127
@@ -222,34 +244,51 @@ def _kv_quant(x: torch.Tensor):
     return q.to(torch.int8), scale
 
 
-def _kv_write_read(kv, k, v, cache_pos: int):
+def _kv_write_read(kv, k, v, cache_pos):
     """Write step K/V into the cache, in place, and return the view the
-    attention kernel reads, (ck, cv, cks, cvs, li).
+    attention kernel reads: ``kv`` itself, (ck, cv, cks, cvs, li, table).
 
-    kv = (ck, cv, li)                bf16 (or f32) cache [L, B, KVH, S, D]
-       | (ck, cv, cks, cvs, li)      int8 cache + f32 scales [L, B, KVH, S]
-    The int8 view is consumed with the scales folded into the math."""
-    if isinstance(kv[0], str):
-        raise NotImplementedError("the paged KV cache is a later slice")
-    if len(kv) == 3:
-        ck, cv, li = kv
-        _cache_update(ck, cv, k, v, li, cache_pos)
-        return ck, cv, None, None, li
-    ck, cv, cks, cvs, li = kv
-    kq, ks = _kv_quant(k)
-    vq, vs = _kv_quant(v)
-    _cache_update(ck, cv, kq, vq, li, cache_pos)
-    l = k.shape[1]
-    cks[li, :, :, cache_pos : cache_pos + l] = ks.transpose(1, 2)
-    cvs[li, :, :, cache_pos : cache_pos + l] = vs.transpose(1, 2)
-    return ck, cv, cks, cvs, li
+    ck, cv: the bf16 (or f32) or int8 cache [L, B, KVH, S, D], or with a
+    ``table`` (int32 [B, MAXPAGES]) a page pool [L, P, KVH, PS, D]; cks, cvs:
+    the int8 cache's f32 scales ([L, B, KVH, S] or [L, P, KVH, PS]), else
+    None; li: the layer. ``cache_pos`` is an int or an int tensor [B]
+    (per-row positions). The paged pools are decode-only (L == 1): row b
+    writes at page table[b, pos // PS], offset pos % PS, with one indexed
+    write per buffer; inactive rows (an all-zero table row, position 0)
+    write into page 0, the garbage page, where several rows may land on one
+    entry. The int8 views are consumed with the scales folded into the
+    math."""
+    ck, cv, cks, cvs, li, table = kv
+    if cks is not None:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        writes = ((ck, kq), (cv, vq), (cks, ks), (cvs, vs))
+    else:
+        writes = ((ck, k), (cv, v))
+    if table is None:
+        for buf, x in writes:
+            _write_rows(buf, li, x, cache_pos)
+        return kv
+    b, ps = k.shape[0], ck.shape[3]
+    rows, pos = _cache_rows(cache_pos, b, 1, ck.device)
+    pages = table.to(torch.int64)[rows, pos // ps][:, 0]  # [B]
+    offs = (pos % ps)[:, 0]
+    for buf, x in writes:
+        buf[li, pages, :, offs] = x[:, 0].to(buf.dtype)  # indexed view [B, KVH(, D)]
+    return kv
 
 
 def _attend(q, kv_view, lengths, window=None):
-    """The attention kernel over the cache: flash_decode for one query per
-    row, flash_prefill otherwise. Causality comes from ``lengths``."""
-    ck, cv, cks, cvs, li = kv_view
+    """The attention kernel over the cache: flash_decode_paged over a page
+    pool, flash_decode for one query per row, flash_prefill otherwise.
+    Causality comes from ``lengths``."""
+    ck, cv, cks, cvs, li, table = kv_view
     b, l, h, d = q.shape
+    if table is not None:
+        if l != 1:
+            raise ValueError("the paged cache is decode-only (L == 1)")
+        out = flash_decode_paged(q[:, 0], ck, cv, table, lengths, cks, cvs, layer_idx=li, window=window)
+        return out.to(q.dtype).reshape(b, 1, h * d)
     if l == 1:
         out = flash_decode(q[:, 0], ck, cv, lengths, cks, cvs, layer_idx=li, window=window)
         return out.to(q.dtype).reshape(b, 1, h * d)
@@ -487,22 +526,25 @@ def forward_serve(
     policy: QuantPolicy,
     ids,  # [B, L]
     positions: Optional[torch.Tensor] = None,
-    kv_k: Optional[torch.Tensor] = None,  # [layers, B, KVH, max, D] bf16 | int8
-    kv_v: Optional[torch.Tensor] = None,
-    cache_pos=None,
+    kv_k: Optional[torch.Tensor] = None,  # [layers, B, KVH, max, D] | pool [layers, P, KVH, PS, D]
+    kv_v: Optional[torch.Tensor] = None,  # (bf16 | int8)
+    cache_pos=None,  # int, or int tensor [B]: per-row positions
     prefill_bf16: bool = False,
-    kv_k_scale: Optional[torch.Tensor] = None,  # [layers, B, KVH, max] f32
+    kv_k_scale: Optional[torch.Tensor] = None,  # [layers, B, KVH, max] | [layers, P, KVH, PS] f32
     kv_v_scale: Optional[torch.Tensor] = None,  # (present => int8 KV cache)
-    page_table: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,  # int32 [B, MAXPAGES] (present => paged pool)
     last_only: bool = False,
     device="cuda",
 ):
     """Quantized forward over the cache: writes K/V at ``cache_pos`` (in
-    place) and attends over the cache. ``prefill_bf16`` selects the W6A16
-    layer (always taken under a no-act-quant policy); passing the scale
-    tensors selects the int8 cache. Returns (logits [B, L, V] — [B, 1, V]
-    with ``last_only`` — and the cache state (kv_k, kv_v) or (kv_k, kv_v,
-    kv_k_scale, kv_v_scale))."""
+    place) and attends over the cache. ``cache_pos`` is one start for every
+    row, or a tensor [B] of per-row starts (continuous batching; pass the
+    matching ``positions``, e.g. ``cache_pos[:, None]``). ``prefill_bf16``
+    selects the W6A16 layer (always taken under a no-act-quant policy);
+    passing the scale tensors selects the int8 cache; a ``page_table`` makes
+    kv_k / kv_v (and the scales) a page pool, decode only (L == 1). Returns
+    (logits [B, L, V] — [B, 1, V] with ``last_only`` — and the cache state
+    (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale))."""
     dev = resolve_device(device)
     if cfg.arch != "llama":
         raise NotImplementedError("OPT serving is a later slice")
@@ -513,28 +555,30 @@ def forward_serve(
     quant_cache = kv_k_scale is not None
     if quant_cache != (kv_v_scale is not None):
         raise ValueError("the int8 cache needs both kv_k_scale and kv_v_scale")
-    if page_table is not None:
-        raise NotImplementedError("the paged KV cache is a later slice")
     if kv_k is None or kv_v is None:
         raise NotImplementedError("the cache-less (eval) forward is a later slice")
-    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
-        raise NotImplementedError("per-row cache positions (continuous batching) are a later slice")
     if kv_k.shape[3] % 128:
         raise ValueError(f"cache length {kv_k.shape[3]} must be a multiple of 128")
     if params["embed"].device != dev or kv_k.device != dev:
         raise ValueError(f"params and cache must be on {dev}")
     ids = torch.as_tensor(ids, device=dev)
     b, l = ids.shape
+    if page_table is not None and l != 1:
+        raise ValueError("the paged cache is decode-only (L == 1); prefill fills pages from a dense scratch")
     x = params["embed"][ids]
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     if positions is None:
         positions = torch.arange(l, device=dev).expand(b, l)
     cos, sin = rope_for_cfg(torch.as_tensor(positions, device=dev), cfg)
-    cache_pos = 0 if cache_pos is None else int(cache_pos)
-    lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
+    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
+        cache_pos = cache_pos.to(device=dev, dtype=torch.int64).reshape(b)
+        lengths = (cache_pos + l).to(torch.int32)
+    else:
+        cache_pos = 0 if cache_pos is None else int(cache_pos)
+        lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
     for i, lp in enumerate(params["layers"]):
-        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i) if quant_cache else (kv_k, kv_v, i)
+        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table)
         if prefill_bf16:
             x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
         else:

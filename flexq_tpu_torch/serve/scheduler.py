@@ -1,0 +1,545 @@
+"""Continuous batching scheduler (port of flexq_tpu/serve/scheduler.py::
+BatchScheduler, single device, per-token ticks).
+
+A fixed number of KV-cache slots each hold one request; new requests
+prefill into a free slot while the other slots keep decoding. Every tick is
+one decode forward over all slots with per-slot positions (``cache_pos`` a
+vector): inactive slots decode garbage that is never surfaced (position 0;
+in paged mode an all-zero table row, so their writes land in page 0, the
+garbage page). Prefill runs at B = 1 into a scratch cache sized to the
+prompt's page (or 128) bucket and is then inserted into the slot's row of
+the dense cache or into freshly allocated pool pages.
+
+Options, as in the reference: a dense or a paged KV cache (``paged``), bf16
+or int8 (``kv_dtype``); chunked admission (``prefill_chunk``: one chunk per
+tick, so decoding slots keep emitting while a long prompt is admitted);
+recompute preemption when the pool runs dry (the youngest request re-queues
+with prompt + generated and later re-prefills); prefix-page reuse
+(``prefix_cache``); per-request SamplingParams and logprobs. A prefill of 64
+tokens or more takes the W6A16 layer, the reference's rule here (not the
+Engine's threshold).
+
+Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``),
+fused multi-step ticks (``fused_tick > 0``; a CUDA graph of the step
+belongs with them) and beam search (``beam_width > 1``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import time
+from collections import deque
+from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.kernels.common import resolve_device
+from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.serve.paged import PagePool, PageTable, PrefixRegistry
+from flexq_tpu_torch.serve.sampling import (
+    SamplingParams,
+    dynamic_params,
+    process_logits,
+    process_logits_dynamic,
+    sample,
+)
+
+BF16_PREFILL_MIN = 64  # a prefill (or chunk) of this many tokens takes the W6A16 layer
+
+
+@dataclasses.dataclass
+class _Slot:
+    req_id: Optional[int] = None
+    pos: int = 0  # next cache position to write
+    generated: List[int] = dataclasses.field(default_factory=list)
+    sampling: SamplingParams = SamplingParams()
+    eos_id: int = 2
+    max_new: int = 64
+    prompt: List[int] = dataclasses.field(default_factory=list)
+    # chunked admission: phase "prefill" while the prompt is chunked into
+    # the scratch cache (decode ticks skip the slot)
+    phase: str = "decode"
+    prefill_pos: int = 0
+    bucket: int = 0
+    scratch: Optional[Tuple] = None
+    # tokens generated before a preemption (now inside ``prompt``)
+    prior: List[int] = dataclasses.field(default_factory=list)
+    want_logprobs: bool = False
+    lps: List[float] = dataclasses.field(default_factory=list)
+    prior_lps: List[float] = dataclasses.field(default_factory=list)
+    # prefix cache (paged): reused pages, the tokens they cover, and the
+    # prompt's full-page hash chain
+    shared_pages: List[int] = dataclasses.field(default_factory=list)
+    prefix_len: int = 0
+    page_hashes: List[int] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Pending:
+    req_id: int
+    prompt: List[int]
+    sampling: SamplingParams
+    max_new: int
+    eos_id: int
+    prior: List[int] = dataclasses.field(default_factory=list)
+    want_logprobs: bool = False
+    prior_lps: List[float] = dataclasses.field(default_factory=list)
+
+
+class BatchScheduler:
+    """Slot-based continuous batching over the quantized serve path on one
+    device. ``device="cuda"`` by default (``"cpu"``: the plain versions);
+    sampling draws from a ``torch.Generator`` seeded with ``seed``.
+
+    Timing, on the host clock after the device's result is read: per
+    request ``t_arrival`` / ``t_first`` (seconds, ``time.perf_counter``),
+    and ``tick_s``, the wall time of each decode tick."""
+
+    def __init__(
+        self,
+        params: Dict[str, Any],
+        cfg: ModelConfig,
+        policy: QuantPolicy,
+        num_slots: int = 4,
+        max_seq_len: int = 512,
+        kv_dtype=torch.bfloat16,
+        seed: int = 0,
+        paged: bool = False,
+        page_size: int = 128,
+        num_pages: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        mesh=None,
+        prefix_cache: bool = False,
+        fused_tick: int = 0,
+        pp_mesh=None,
+        max_prefilling: Optional[int] = None,
+        device="cuda",
+    ):
+        if mesh is not None or pp_mesh is not None:
+            raise NotImplementedError("tensor- and pipeline-parallel continuous batching are a later slice")
+        if fused_tick:
+            raise NotImplementedError("fused multi-step ticks (a CUDA graph of the step) are a later slice")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params are on {params['embed'].device}, scheduler on {self.device}")
+        if max_seq_len % 128:
+            raise ValueError(f"max_seq_len={max_seq_len} must be a multiple of 128")
+        self.params = params
+        self.cfg = cfg
+        self.policy = policy
+        self.num_slots = num_slots
+        self.max_seq_len = max_seq_len
+        self.paged = paged
+        self.kv_dtype = kv_dtype
+        self.quantized = kv_dtype == torch.int8
+        self.prefill_chunk = prefill_chunk
+        self.max_prefilling = max_prefilling
+        self.registry: Optional[PrefixRegistry] = None
+        if prefix_cache:
+            if not paged:
+                raise ValueError("prefix_cache requires paged=True")
+            if self.prefill_chunk is None:
+                self.prefill_chunk = page_size
+            if self.prefill_chunk % page_size:
+                raise ValueError("prefix_cache needs prefill_chunk to be a multiple of the page size")
+            self.registry = PrefixRegistry()
+        dev = self.device
+        c = cfg
+        if paged:
+            if max_seq_len % page_size:
+                raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size {page_size}")
+            if num_pages is None:
+                num_pages = num_slots * (max_seq_len // page_size) + 1
+            self.pool = PagePool(c.num_layers, num_pages, c.num_kv_heads, page_size, c.head_dim,
+                                 dtype=kv_dtype, device=dev)
+            self.ptable = PageTable(num_slots, max_seq_len // page_size)
+            # page 0 is the garbage page: inactive slots (an all-zero table
+            # row) decode junk into it without touching live pages
+            if self.pool.alloc(1) != [0]:
+                raise AssertionError("page 0 must be the first page allocated")
+        else:
+            shape = (c.num_layers, num_slots, c.num_kv_heads, max_seq_len, c.head_dim)
+            self.kv = tuple(torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in "kv")
+            if self.quantized:
+                self.kv += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=dev) for _ in "kv")
+        self.slots = [_Slot() for _ in range(num_slots)]
+        self.pending: Deque[_Pending] = deque()
+        self.done: Dict[int, List[int]] = {}
+        self.done_logprobs: Dict[int, List[float]] = {}
+        self.last_tokens = torch.zeros((num_slots, 1), dtype=torch.int64, device=dev)
+        self._req_counter = itertools.count()
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.preemptions = 0
+        self.t_arrival: Dict[int, float] = {}
+        self.t_first: Dict[int, float] = {}
+        self.tick_s: List[float] = []
+
+    # ---- forward pieces --------------------------------------------------
+    def _forward(self, ids, cache, positions, cache_pos, table=None, prefill_bf16=False, last_only=False):
+        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
+        return forward_serve(
+            self.params, self.cfg, self.policy, ids, positions=positions, kv_k=cache[0], kv_v=cache[1],
+            cache_pos=cache_pos, prefill_bf16=prefill_bf16, page_table=table, last_only=last_only,
+            device=self.device, **scales,
+        )
+
+    def _step_fn(self, ids, cache, positions):
+        """One decode step over all slots, per-slot positions [S] (dense)."""
+        logits, _ = self._forward(ids, cache, positions[:, None], positions)
+        return logits[:, 0]
+
+    def _step_paged_fn(self, ids, cache, positions, table):
+        """The decode step over the page pool, through the page table."""
+        logits, _ = self._forward(ids, cache, positions[:, None], positions, table=table)
+        return logits[:, 0]
+
+    def _new_scratch(self, bucket: int) -> Tuple:
+        """A zeroed B=1 scratch cache tuple sized to the prompt bucket."""
+        c = self.cfg
+        shape = (c.num_layers, 1, c.num_kv_heads, bucket, c.head_dim)
+        cache = tuple(torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in "kv")
+        if self.quantized:
+            cache += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=self.device) for _ in "kv")
+        return cache
+
+    def _ids(self, tokens: Sequence[int]) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(tokens, np.int64)[None], device=self.device)
+
+    def _prefill_one(self, prompt: List[int]):
+        """B=1 prefill -> (last logits [1, V], scratch cache). The scratch is
+        the prompt rounded up to a page (or 128), not max_seq_len."""
+        l = len(prompt)
+        unit = self.pool.page_size if self.paged else 128
+        scratch = self._new_scratch(-(-l // unit) * unit)
+        logits, kv = self._forward(self._ids(prompt), scratch, None, 0,
+                                   prefill_bf16=l >= BF16_PREFILL_MIN, last_only=True)
+        return logits[:, -1], kv
+
+    def _prefill_chunk(self, ids: torch.Tensor, cache: Tuple, start: int):
+        """One chunk of a chunked admission (the reference's ``_chunk_fn``):
+        queries at start..start+C-1 attend over scratch[0 : start+C]."""
+        b, c = ids.shape
+        positions = start + torch.arange(c, device=self.device).expand(b, c)
+        return self._forward(ids, cache, positions, start, prefill_bf16=c >= BF16_PREFILL_MIN)
+
+    def _advance_prefill(self, i: int) -> None:
+        """Run ONE chunk of slot i's prompt; on the last, insert the scratch
+        into the cache and emit the first token."""
+        slot = self.slots[i]
+        chunk, start, plen = self.prefill_chunk, slot.prefill_pos, len(slot.prompt)
+        padded = slot.prompt + [0] * (slot.bucket - plen)
+        logits, slot.scratch = self._prefill_chunk(self._ids(padded[start : start + chunk]), slot.scratch, start)
+        slot.prefill_pos = start + chunk
+        if slot.prefill_pos >= plen:
+            # the padding queries (positions >= plen) produced garbage logits
+            # and K/V past plen: neither is read (insert copies whole pages,
+            # whose tail past plen decode overwrites before attending to it)
+            self._insert_scratch(i, slot.scratch, plen, slot=slot)
+            slot.scratch = None
+            slot.phase = "decode"
+            slot.pos = plen
+            self._record(i, slot, self._sample_one(logits[0, plen - 1 - start], slot))
+
+    # ---- pages -----------------------------------------------------------
+    def _alloc(self, n: int) -> List[int]:
+        """Pool alloc that reclaims retained prefix pages under pressure."""
+        if self.registry is not None and self.pool.free_pages < n:
+            self.pool.free(self.registry.evict(n - self.pool.free_pages))
+        return self.pool.alloc(n)
+
+    def _release_slot_pages(self, i: int) -> None:
+        s = self.slots[i]
+        pages = [p for p in self.ptable.release(i) if p != 0]
+        if s.phase == "prefill" and s.shared_pages:
+            pages += s.shared_pages  # acquired, not yet in the table
+        if self.registry is not None:
+            pages = self.registry.release(pages)
+        self.pool.free(pages)
+
+    def _preempt(self, exclude: Optional[int] = None) -> bool:
+        """Evict the youngest other request back to the head of the queue
+        (recompute preemption): its pages free now; on re-admission it
+        prefills prompt + generated, and ``prior`` is prepended to its
+        output."""
+        cands = [i for i, s in enumerate(self.slots) if i != exclude and s.req_id is not None]
+        if not cands:
+            return False
+        i = max(cands, key=lambda j: self.slots[j].req_id)
+        s = self.slots[i]
+        self._release_slot_pages(i)
+        self.pending.appendleft(_Pending(
+            s.req_id, s.prompt + s.generated, s.sampling, s.max_new, s.eos_id, prior=s.prior + s.generated,
+            want_logprobs=s.want_logprobs, prior_lps=s.prior_lps + s.lps,
+        ))
+        self.slots[i] = _Slot()
+        self.preemptions += 1
+        return True
+
+    def _insert_scratch(self, i: int, kv1: Tuple, plen: int, slot: Optional[_Slot] = None) -> None:
+        """Copy a B=1 scratch cache's positions [prefix_len, plen) into slot
+        i's pages (prefix pages are mapped without a copy), or its
+        positions [0, plen) into row i of the dense cache."""
+        if not self.paged:
+            for dst, src in zip(self.kv, kv1):
+                dst[:, i, :, :plen] = src[:, 0, :, :plen]
+            return
+        shared = slot.shared_pages if slot is not None else []
+        pfx = slot.prefix_len if slot is not None else 0
+        while True:
+            try:
+                new_pages = self._alloc(self.pool.pages_for(plen) - len(shared))
+                break
+            except MemoryError:
+                if not self._preempt(exclude=i):
+                    raise
+        region = [x[:, :, :, pfx:] for x in kv1]
+        self.pool.insert_prefill(new_pages, region[0], region[1], plen - pfx, *region[2:])
+        self.ptable.assign(i, shared + new_pages)
+        if self.registry is not None and slot is not None:
+            # publish the freshly written FULL prompt pages for reuse
+            full = plen // self.pool.page_size
+            for j, page in enumerate(new_pages):
+                if len(shared) + j < full:
+                    self.registry.register(slot.page_hashes[len(shared) + j], page)
+
+    # ---- public API ------------------------------------------------------
+    def add_request(
+        self,
+        prompt: Sequence[int],
+        sampling: SamplingParams = SamplingParams(),
+        max_new_tokens: int = 64,
+        eos_id: int = 2,
+        logprobs: bool = False,
+        beam_width: int = 1,
+    ) -> int:
+        if beam_width > 1:
+            raise NotImplementedError("beam search in the scheduler is a later slice")
+        if len(prompt) + max_new_tokens > self.max_seq_len:
+            raise ValueError(f"prompt {len(prompt)} + {max_new_tokens} new tokens exceed max_seq_len {self.max_seq_len}")
+        req_id = next(self._req_counter)
+        self.t_arrival[req_id] = time.perf_counter()
+        self.pending.append(_Pending(req_id, list(prompt), sampling, max_new_tokens, eos_id,
+                                     want_logprobs=logprobs))
+        return req_id
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.pending) or any(s.req_id is not None for s in self.slots)
+
+    def cancel(self, req_id: int) -> Optional[List[int]]:
+        """Best-effort early stop: a pending request is dropped and its prior
+        tokens returned; an in-flight one has its budget clamped so it
+        finishes on its next token (returns None)."""
+        for p in list(self.pending):
+            if p.req_id == req_id:
+                self.pending.remove(p)
+                return list(p.prior)
+        for s in self.slots:
+            if s.req_id == req_id:
+                s.max_new = max(1, len(s.prior) + len(s.generated))
+        return None
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.req_id is not None or not self.pending:
+                continue
+            req = self.pending.popleft()
+            if self.max_prefilling is not None and self.prefill_chunk and len(req.prompt) > self.prefill_chunk:
+                n_pref = sum(1 for s in self.slots if s.req_id is not None and s.phase == "prefill")
+                if n_pref >= self.max_prefilling:
+                    self.pending.appendleft(req)  # bounded in-flight scratch caches
+                    break
+            if self.paged:
+                avail = self.pool.free_pages + (self.registry.reclaimable if self.registry is not None else 0)
+                # charge the REMAINING budget: a preempted request re-queues
+                # with prompt + generated and an unchanged max_new
+                if avail < self.pool.pages_for(len(req.prompt) + req.max_new - len(req.prior)):
+                    self.pending.appendleft(req)
+                    break
+            plen = len(req.prompt)
+            self.slots[i] = slot = _Slot(
+                req_id=req.req_id, sampling=req.sampling, eos_id=req.eos_id, max_new=req.max_new,
+                prompt=req.prompt, prior=req.prior, want_logprobs=req.want_logprobs, prior_lps=req.prior_lps,
+            )
+            if self.registry is not None:
+                ps = self.pool.page_size
+                slot.page_hashes = self.registry.hash_chain(req.prompt, ps)
+                matched = self.registry.match(slot.page_hashes)
+                # page-granular reuse; leave >= 1 token to compute (its
+                # logits give the first token)
+                m_tok = min(len(matched) * ps, (plen - 1) // ps * ps)
+                if m_tok > 0:
+                    slot.shared_pages = matched[: m_tok // ps]
+                    slot.prefix_len = m_tok
+                    self.registry.acquire(slot.shared_pages)
+                self.registry.account_miss(len(slot.page_hashes) - len(slot.shared_pages))
+            if self.prefill_chunk and plen - slot.prefix_len > 0 and (plen > self.prefill_chunk or slot.prefix_len):
+                # chunked admission: the compute runs in step() ticks, chunks
+                # starting at prefix_len (page-, not chunk-aligned); the
+                # bucket covers the last chunk's write, 128- or page-aligned
+                c = self.prefill_chunk
+                pfx = slot.prefix_len
+                unit = self.pool.page_size if self.paged else 128
+                slot.phase = "prefill"
+                slot.prefill_pos = pfx
+                slot.bucket = -(-(pfx + -(-(plen - pfx) // c) * c) // unit) * unit
+                slot.scratch = self._new_scratch(slot.bucket)
+                if slot.shared_pages:
+                    slot.scratch = self.pool.gather_prefix(slot.shared_pages, slot.scratch)
+                continue
+            logits, kv1 = self._prefill_one(req.prompt)
+            self._insert_scratch(i, kv1, plen, slot=slot)
+            slot.pos = plen
+            self._record(i, slot, self._sample_one(logits[0], slot))
+
+    # ---- sampling --------------------------------------------------------
+    def _counts(self, slots: List[_Slot]) -> torch.Tensor:
+        """Token counts [len(slots), V] over each slot's prompt + generated
+        (the penalties' input)."""
+        c = np.zeros((len(slots), self.cfg.vocab_size), np.int32)
+        for j, s in enumerate(slots):
+            np.add.at(c[j], np.asarray(s.prompt + s.generated, np.int64), 1)
+        return torch.from_numpy(c).to(self.device)
+
+    def _sample_batch(self, idx: List[int], logits: torch.Tensor) -> List[Tuple[int, Optional[float]]]:
+        """Sample the given slots' next tokens: one batched computation per
+        SamplingParams group, and ONE host read of every group's tokens and
+        logprobs together."""
+        if not idx:
+            return []
+        groups: Dict[Any, List[int]] = {}
+        for i in idx:
+            groups.setdefault(self.slots[i].sampling, []).append(i)
+        order, parts = [], []
+        for sp, members in groups.items():
+            use_counts = sp.repetition_penalty != 1.0 or sp.presence_penalty != 0.0 or sp.frequency_penalty != 0.0
+            rows = torch.as_tensor(members, device=self.device)
+            eos = torch.as_tensor([self.slots[i].eos_id for i in members], device=self.device)
+            gen0 = torch.as_tensor([len(self.slots[i].prior) + len(self.slots[i].generated) for i in members],
+                                   device=self.device)
+            proc = process_logits_dynamic(
+                logits[rows], dynamic_params(sp, self.device), top_k=sp.top_k, use_top_p=sp.top_p < 1.0,
+                token_counts=self._counts([self.slots[i] for i in members]) if use_counts else None, cur_length=gen0, eos_ids=eos,
+            )
+            toks = sample(proc, sp, self.generator).to(torch.int64)
+            lp = torch.log_softmax(proc, dim=-1).gather(-1, toks[:, None])[:, 0]
+            order += members
+            parts.append(torch.stack([toks.to(torch.float64), lp.to(torch.float64)]))
+        toks, lps = torch.cat(parts, dim=1).tolist()
+        out = {i: (int(t), float(l) if self.slots[i].want_logprobs else None) for i, t, l in zip(order, toks, lps)}
+        return [out[i] for i in idx]
+
+    def _sample_one(self, logits_row: torch.Tensor, slot: _Slot) -> int:
+        """The first token of a request, from its prefill logits [V]."""
+        # after a preemption the earlier tokens sit in slot.prompt, but count
+        # as generated for the min-length and eos gates
+        cur = len(slot.prior) + len(slot.generated)
+        proc = process_logits(
+            logits_row[None], slot.sampling, token_counts=self._counts([slot]),
+            cur_length=torch.tensor([cur], device=self.device), eos_id=slot.eos_id,
+        )
+        tok = sample(proc, slot.sampling, self.generator)[0].to(torch.int64)
+        if slot.want_logprobs:
+            lp = torch.log_softmax(proc, dim=-1)[0, tok]
+            t, lp = torch.stack([tok.to(torch.float64), lp.to(torch.float64)]).tolist()  # one host read
+            slot.lps.append(lp)
+            return int(t)
+        return int(tok)
+
+    def _record(self, i: int, slot: _Slot, tok: int) -> None:
+        slot.generated.append(tok)
+        self.last_tokens[i, 0] = tok
+        self._first_token(slot)
+        self._finish_check(i, slot, tok)
+
+    def _first_token(self, slot: _Slot) -> None:
+        if slot.req_id not in self.t_first:
+            self.t_first[slot.req_id] = time.perf_counter()
+
+    def _finish_check(self, i: int, slot: _Slot, tok: int) -> None:
+        """Complete slot i if ``tok`` (already appended) ends its request."""
+        if tok != slot.eos_id and len(slot.prior) + len(slot.generated) < slot.max_new:
+            return
+        self.done[slot.req_id] = slot.prior + slot.generated
+        if slot.want_logprobs:
+            self.done_logprobs[slot.req_id] = slot.prior_lps + slot.lps
+        if self.paged:
+            if self.registry is not None:
+                # publish every full page of prompt + generated (a later
+                # prompt that includes this turn's reply reuses them)
+                hashes = self.registry.hash_chain(slot.prompt + slot.generated, self.pool.page_size)
+                for blk, h in enumerate(hashes[: int(self.ptable.num_blocks[i])]):
+                    page = int(self.ptable.table[i, blk])
+                    if page and page not in self.registry.page_hash:
+                        self.registry.register(h, page)
+            self._release_slot_pages(i)
+        self.slots[i] = _Slot()
+
+    # ---- the tick --------------------------------------------------------
+    def _grow_pages(self, active: List[int]) -> List[int]:
+        """Give every decoding slot the page its next write lands in,
+        preempting the youngest request when the pool is dry; returns the
+        slots still decoding."""
+        ps = self.pool.page_size
+        for i in active:
+            if self.slots[i].req_id is None:
+                continue  # preempted by an earlier slot's allocation
+            needed = self.slots[i].pos // ps + 1
+            while self.ptable.num_blocks[i] < needed:
+                try:
+                    page = self._alloc(1)[0]
+                except MemoryError:
+                    # the youngest request yields, possibly this very slot
+                    if not self._preempt():
+                        raise
+                    if self.slots[i].req_id is None:
+                        break
+                    continue
+                self.ptable.append(i, page)
+        return [i for i in active if self.slots[i].req_id is not None and self.slots[i].phase == "decode"]
+
+    def step(self) -> Dict[int, List[int]]:
+        """Admit pending requests, run at most one prompt chunk and one decode
+        tick, and return the requests that finished."""
+        self._admit()
+        prefilling = [i for i, s in enumerate(self.slots) if s.req_id is not None and s.phase == "prefill"]
+        if prefilling:
+            self._advance_prefill(min(prefilling, key=lambda i: self.slots[i].req_id))
+        active = [i for i, s in enumerate(self.slots) if s.req_id is not None and s.phase == "decode"]
+        if active and self.paged:
+            active = self._grow_pages(active)
+        if active:
+            t0 = time.perf_counter()
+            positions = torch.as_tensor(
+                [s.pos if s.req_id is not None and s.phase == "decode" else 0 for s in self.slots],
+                dtype=torch.int64, device=self.device,
+            )
+            if self.paged:
+                logits = self._step_paged_fn(self.last_tokens, self.pool.state(), positions,
+                                             self.ptable.to_device(self.device))
+            else:
+                logits = self._step_fn(self.last_tokens, self.kv, positions)
+            results = self._sample_batch(active, logits)
+            for i, (tok, lp) in zip(active, results):
+                slot = self.slots[i]
+                slot.pos += 1
+                if lp is not None:
+                    slot.lps.append(lp)
+                slot.generated.append(tok)
+                self._finish_check(i, slot, tok)
+            # one batched last_tokens update
+            self.last_tokens[torch.as_tensor(active, device=self.device), 0] = torch.as_tensor(
+                [tok for tok, _ in results], device=self.device)
+            self.tick_s.append(time.perf_counter() - t0)
+        finished, self.done = self.done, {}
+        return finished
+
+    def run(self) -> Dict[int, List[int]]:
+        """Drain all requests; returns {req_id: generated tokens}."""
+        out: Dict[int, List[int]] = {}
+        while self.has_work:
+            out.update(self.step())
+        return out

@@ -10,16 +10,19 @@ RMS sum order differs); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
 their plain versions only in the order of f32 sums: f32 output within 1e-4
 of max |out|, bf16 output within one bf16 ulp of the plain f32 result (plus
 that 1e-4 for sums that cancel); attention
-sums in another order (2e-2 of max |out|, bf16 output), over a bf16 or an
-int8 cache.
+sums in another order (2e-2 of max |out|, bf16 output; per (b, h) row for
+the paged kernel, whose rows are ragged), over a bf16 or an int8 cache,
+dense or paged.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from flexq_tpu_torch.config import ModelConfig
 from flexq_tpu_torch.kernels import (
     flash_decode,
+    flash_decode_paged,
     flash_prefill,
     glu_quant,
     launch_counts,
@@ -35,6 +38,7 @@ from flexq_tpu_torch.kernels import (
     w8_matmul,
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
+from flexq_tpu_torch.kernels.flash_decode import flash_decode_paged_plain
 from flexq_tpu_torch.kernels.fused_quant import (
     glu_quant_plain,
     quant_act_plain,
@@ -44,6 +48,7 @@ from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_pl
 from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
+from flexq_tpu_torch.models.llama import rope_for_cfg
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 
@@ -212,3 +217,39 @@ def test_attend_cache_int8_kernel(gen, lq):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item()
     assert launch_counts()["flash_decode" if lq == 1 else "flash_prefill"] == 1
+
+
+@pytest.mark.parametrize("quant,window", [(False, None), (True, None), (False, 300), (True, 300)])
+def test_flash_decode_paged_kernel(gen, quant, window):
+    """K13 over a scrambled page table, lengths around the page edges."""
+    nl, npages, b, h, kvh, ps, d, maxp = 2, 20, 4, 8, 2, 128, 128, 4
+    shape = (nl, npages, kvh, ps, d)
+    if quant:
+        pk, pv = (torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        scales = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv"]
+    else:
+        pk, pv = (randn(gen, *shape) for _ in "kv")
+        scales = []
+    table = torch.stack([torch.randperm(npages - 1, generator=gen, device="cuda")[:maxp] + 1
+                         for _ in range(b)]).to(torch.int32)
+    lengths = torch.tensor([1, 128, 129, 500], dtype=torch.int32, device="cuda")
+    q = randn(gen, b, h, d)
+    got = flash_decode_paged(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+    want = flash_decode_paged_plain(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+    # per (b, h) row: a long row's outputs are small, so a bound at the
+    # batch's max |out| (set by the 1-key row, a raw V row) would let a
+    # wrong or a dropped page pass there
+    got, want = got.float().reshape(b, h, d), want.float().reshape(b, h, d)
+    err = (got - want).abs().amax(-1)
+    assert bool((err <= 2e-2 * want.abs().amax(-1)).all()), err.max().item()
+    assert launch_counts()["flash_decode_paged"] == 1
+
+
+def test_rope_table_matches_cpu(gen):
+    """The card's RoPE cos / sin table equals the CPU's bit for bit (the
+    inverse frequencies are computed on the host), so q / k on the card
+    equal the CPU's wherever the GEMM in front of them is exact."""
+    cfg = ModelConfig.llama()
+    pos = torch.arange(cfg.max_seq_len)[None]
+    for got, want in zip(rope_for_cfg(pos.cuda(), cfg), rope_for_cfg(pos, cfg)):
+        assert torch.equal(got.cpu(), want)

@@ -1,7 +1,9 @@
 """The port's serve slice vs flexq_tpu on a tiny llama_flex LLaMA (2 layers,
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
-greedy Engine.generate tokens equal; the paths still to port raise."""
+greedy Engine.generate tokens equal; the paths still to port raise (OPT,
+the cache-less forward, and the scheduler's meshes, fused ticks and beam
+search)."""
 
 import dataclasses
 
@@ -22,6 +24,7 @@ from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.convert import params_from_numpy
 from flexq_tpu_torch.models.quantized import forward_serve
 from flexq_tpu_torch.serve import Engine, SamplingParams
+from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
 KW = dict(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=2,
           num_heads=2, num_kv_heads=1, max_seq_len=128)
@@ -91,8 +94,6 @@ def test_unsupported_paths_raise(model):
     cache = eng.new_cache(2)
     opt_cfg = dataclasses.replace(cfg, arch="opt")
     calls = [
-        dict(page_table=torch.zeros((2, 1), dtype=torch.int32)),  # paged cache
-        dict(cache_pos=torch.zeros(2, dtype=torch.int32)),  # per-row positions
         dict(cfg=opt_cfg),  # OPT serving (K14-K15)
         dict(kv_k=None, kv_v=None),  # the cache-less forward
     ]
@@ -104,6 +105,16 @@ def test_unsupported_paths_raise(model):
     for preset in (QuantPolicy.uniform, QuantPolicy.weight_only, QuantPolicy.fp16):  # OPT policies
         with pytest.raises(NotImplementedError):
             preset(arch="opt")
+    # the scheduler's paths still to port: meshes, fused ticks, beam search
+    for kw in (dict(mesh=object()), dict(pp_mesh=object()), dict(fused_tick=4)):
+        with pytest.raises(NotImplementedError):
+            BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", **kw)
+    sched = BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError):
+        sched.add_request([1, 2, 3], max_new_tokens=2, beam_width=2)
+    with pytest.raises(ValueError):  # the paged pool is decode-only
+        forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=sched.pool.pool_k, kv_v=sched.pool.pool_v,
+                      cache_pos=0, page_table=torch.zeros((2, 1), dtype=torch.int32), device="cpu")
 
 
 def test_engine_defaults_to_the_card(model):
