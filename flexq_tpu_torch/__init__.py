@@ -7,11 +7,13 @@ or ``flexq_tpu``. Kernels are hand-written for Hopper (``csrc/*.cu`` built
 with nvcc, and one Triton kernel) and are built the first time they are
 launched, so importing the package needs neither a GPU nor a compiler.
 
-It serves a LLaMA through greedy ``Engine.generate`` with a dense bf16 or
-int8 KV cache, or through the continuous-batching ``BatchScheduler`` with a
-dense cache or a paged pool (bf16 or int8, chunked admission, preemption,
-prefix reuse, sampling and logprobs), under ``QuantPolicy.llama_flex()`` (W6
-weights, A6 activations, A8 into down_proj), ``QuantPolicy.uniform`` (W4A8,
-W8A8) or ``QuantPolicy.weight_only`` (W4/W6/W8 A16), optionally with a
-packed lm_head (``with_head``).
+It serves a LLaMA or a pre-LN OPT through greedy ``Engine.generate`` with a
+dense bf16 or int8 KV cache, or through the continuous-batching
+``BatchScheduler`` with a dense cache or a paged pool (bf16 or int8, chunked
+admission, preemption, prefix reuse, sampling and logprobs), under
+``QuantPolicy.llama_flex()`` (W6 weights, A6 activations, A8 into
+down_proj), ``QuantPolicy.opt_flex()`` (W6 weights, A8 into q/k/v, A6
+elsewhere), ``QuantPolicy.uniform`` (W4A8, W8A8) or
+``QuantPolicy.weight_only`` (W4/W6/W8 A16), optionally with a packed
+lm_head (``with_head``).
 """

@@ -18,7 +18,7 @@ GROUP_SIZE = 128
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description: the fields of the reference's ModelConfig
-    that the LLaMA-family serve path reads."""
+    that the LLaMA-family and OPT serve paths read."""
 
     vocab_size: int
     hidden_size: int
@@ -30,8 +30,12 @@ class ModelConfig:
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
-    arch: str = "llama"  # "llama" | "opt" (OPT serving is a later slice)
-    act: str = "silu"  # llama: silu-glu; gemma: gelu (tanh) glu
+    arch: str = "llama"  # "llama" | "opt"
+    act: str = "silu"  # llama: silu-glu; gemma: gelu (tanh) glu; opt: relu
+    # OPT specifics
+    do_layer_norm_before: bool = True  # OPT-350m is post-LN (False): not served
+    attn_bias: bool = False  # OPT linears carry biases
+    ffn_bias: bool = False
     sliding_window: Optional[int] = None  # Mistral: local attention window
     # LLaMA-3.1 rope scaling: (factor, low_freq_factor, high_freq_factor,
     # original_max_position_embeddings)
@@ -79,8 +83,38 @@ class ModelConfig:
             **kw,
         )
 
+    @staticmethod
+    def opt(
+        vocab_size=50272,
+        hidden_size=768,
+        intermediate_size=3072,
+        num_layers=12,
+        num_heads=12,
+        max_seq_len=2048,
+        norm_eps=1e-5,
+        **kw,
+    ) -> "ModelConfig":
+        return ModelConfig(
+            vocab_size=vocab_size,
+            hidden_size=hidden_size,
+            intermediate_size=intermediate_size,
+            num_layers=num_layers,
+            num_heads=num_heads,
+            num_kv_heads=num_heads,
+            head_dim=hidden_size // num_heads,
+            max_seq_len=max_seq_len,
+            norm_eps=norm_eps,
+            arch="opt",
+            act="relu",
+            attn_bias=True,
+            ffn_bias=True,
+            **kw,
+        )
 
+
+# linear-layer names per architecture (policies and loaders)
 LLAMA_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+OPT_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "fc1", "fc2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +142,19 @@ class QuantPolicy:
             act_bits={
                 **{n: abits for n in LLAMA_LINEARS},
                 "down_proj": down_abits,
+            },
+        )
+
+    @staticmethod
+    def opt_flex(wbits: int = 6, abits: int = 6, qkv_abits: int = 8) -> "QuantPolicy":
+        """All weights 6-bit; activations 6-bit except q/k/v's 8-bit."""
+        return QuantPolicy(
+            weight_bits={n: wbits for n in OPT_LINEARS},
+            act_bits={
+                **{n: abits for n in OPT_LINEARS},
+                "q_proj": qkv_abits,
+                "k_proj": qkv_abits,
+                "v_proj": qkv_abits,
             },
         )
 
@@ -160,6 +207,4 @@ class QuantPolicy:
 
 
 def _linears(arch: str):
-    if arch != "llama":
-        raise NotImplementedError("OPT serving is a later slice")
-    return LLAMA_LINEARS
+    return LLAMA_LINEARS if arch == "llama" else OPT_LINEARS

@@ -10,7 +10,7 @@ from typing import Dict
 from flexq_tpu_torch.kernels.common import GROUP_SIZE
 from flexq_tpu_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from flexq_tpu_torch.kernels.flash_prefill import flash_prefill
-from flexq_tpu_torch.kernels.fused_quant import glu_quant, quant_act, rmsnorm_quant
+from flexq_tpu_torch.kernels.fused_quant import glu_quant, layernorm_quant, quant_act, relu_quant, rmsnorm_quant
 from flexq_tpu_torch.kernels.w4_matmul import w4_matmul, w4_matmul_bf16
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_fused_bf16, w6_glu_matmul_bf16, w6_matmul_bf16
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul
@@ -20,7 +20,7 @@ from flexq_tpu_torch.kernels.w8_matmul import w8_matmul
 WRAPPERS = (
     rmsnorm_quant, w6_matmul, w6_matmul_stream, quant_act, glu_quant, flash_decode,
     flash_prefill, w6_matmul_bf16, w6_glu_matmul_bf16, w6_glu_fused_bf16,
-    w4_matmul, w4_matmul_bf16, w8_matmul, flash_decode_paged,
+    w4_matmul, w4_matmul_bf16, w8_matmul, flash_decode_paged, layernorm_quant, relu_quant,
 )
 
 

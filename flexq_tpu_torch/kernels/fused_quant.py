@@ -1,7 +1,8 @@
 """Fused producer + per-group activation quant (port of
-flexq_tpu/kernels/fused_quant.py: rmsnorm_quant, quant_act, glu_quant).
+flexq_tpu/kernels/fused_quant.py: rmsnorm_quant, quant_act, glu_quant,
+layernorm_quant, relu_quant).
 
-One Triton kernel, ``_row_quant_kernel``, replaces three TPU kernels: its
+One Triton kernel, ``_row_quant_kernel``, replaces five TPU kernels: its
 constexpr MODE selects the row producer and a shared epilogue quantizes the
 row in 128-wide groups (symmetric, scale = absmax / qmax clamped to
 [CLIPMIN, CLIPMAX], q = rint(y / scale) clamped to [-qmax-1, qmax]):
@@ -10,18 +11,26 @@ row in 128-wide groups (symmetric, scale = absmax / qmax clamped to
   MODE 1  RMSNorm                        flexq_tpu rmsnorm_quant (K1)
   MODE 2  residual add, then RMSNorm     flexq_tpu rmsnorm_quant (K1, residual)
   MODE 3  act(gate) * up, silu or tanh-gelu  flexq_tpu glu_quant (K5)
+  MODE 4  LayerNorm                      flexq_tpu layernorm_quant (K14)
+  MODE 5  residual add, then LayerNorm   flexq_tpu layernorm_quant (K14, residual)
+  MODE 6  ReLU                           flexq_tpu relu_quant    (K15)
 
 Bound on this card: bytes. Each row is read once and written once as int8
 plus one f32 scale per 128 values (a few flops per byte; no tensor cores).
 Design: one program per row holds the whole row in registers, so the RMS
-reduction, the 128-wide absmax reductions and the stores need one pass over
-memory. The arithmetic mirrors the plain versions below operation by
+reduction (LayerNorm: the mean, then the variance of the centred row, a
+second pass over the registers), the 128-wide absmax reductions and the
+stores need one pass over memory. The widest row on the serve path is
+OPT-6.7B's FFN (16384 values: BLOCK 16384 at 16 warps, 32 f32 a thread per
+live array, as glu_quant at LLaMA's 11264); ``_launch.compiled`` keeps each
+specialization's registers and spills. The arithmetic mirrors the plain versions below operation by
 operation: IEEE division (tl.div_rn) where the compiled reference divides,
 a multiply by the f32 reciprocal where it divides by a constant (qmax, K),
 half-to-even rounding (libdevice rint), libdevice exp / tanh / rsqrt (the
-functions torch's CUDA ops call), the cast to the model dtype before the
-gamma multiply, and no FMA contraction (enable_fp_fusion=False). What can
-still differ from the plain version is the order of the RMS sum.
+functions torch's CUDA ops call), RMSNorm's cast to the model dtype before
+the gamma multiply (LayerNorm has none: y * gamma + beta in f32), and no FMA
+contraction (enable_fp_fusion=False). What can still differ from the plain
+version is the order of the RMS and LayerNorm sums.
 
 Triton is imported only when a kernel is launched: ``tl`` and ``libdevice``
 below are bound then, and the kernel is jitted from the plain function.
@@ -37,7 +46,7 @@ import torch
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
 from flexq_tpu_torch.quant.quantizer import CLIPMAX, CLIPMIN
 
-_MODE_IDENT, _MODE_RMS, _MODE_RMS_RES, _MODE_GLU = 0, 1, 2, 3
+_MODE_IDENT, _MODE_RMS, _MODE_RMS_RES, _MODE_GLU, _MODE_LN, _MODE_LN_RES, _MODE_RELU = range(7)
 _ACTS = {"silu": 0, "gelu": 1}
 _GELU_C = 0.7978845608028654  # sqrt(2 / pi)
 
@@ -48,7 +57,7 @@ _jitted = None
 
 
 def _row_quant_kernel(
-    x_ptr, r_ptr, g_ptr, q_ptr, s_ptr, ro_ptr, K, rk, eps, qmax, rq,
+    x_ptr, r_ptr, g_ptr, b_ptr, q_ptr, s_ptr, ro_ptr, K, rk, eps, qmax, rq,
     MODE: "tl.constexpr", ACT: "tl.constexpr", MODEL_BF16: "tl.constexpr",
     BLOCK: "tl.constexpr",
 ):
@@ -59,6 +68,8 @@ def _row_quant_kernel(
     x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
     if MODE == 0:
         y = x
+    elif MODE == 6:
+        y = tl.maximum(x, 0.0)
     elif MODE == 3:
         u = tl.load(r_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
         if ACT == 0:
@@ -69,14 +80,22 @@ def _row_quant_kernel(
             y = x * cdf * u
     else:
         h = x
-        if MODE == 2:
+        if MODE == 2 or MODE == 5:
             h = h + tl.load(r_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
             tl.store(ro_ptr + base + offs, h.to(ro_ptr.dtype.element_ty), mask=mask)
-        var = tl.sum(h * h, axis=0) * rk
-        y = h * libdevice.rsqrt(var + eps)
-        if MODEL_BF16:
-            y = y.to(tl.bfloat16).to(tl.float32)
-        y = y * tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        if MODE >= 4:
+            mu = tl.sum(h, axis=0) * rk
+            d = tl.where(mask, h - mu, 0.0)  # lanes past K would read -mu
+            var = tl.sum(d * d, axis=0) * rk
+            y = d * libdevice.rsqrt(var + eps)
+            y = y * g + tl.load(b_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        else:
+            var = tl.sum(h * h, axis=0) * rk
+            y = h * libdevice.rsqrt(var + eps)
+            if MODEL_BF16:
+                y = y.to(tl.bfloat16).to(tl.float32)
+            y = y * g
     yg = tl.reshape(y, (BLOCK // 128, 128))
     absmax = tl.max(tl.abs(yg), axis=1)
     scale = tl.minimum(tl.maximum(absmax * rq, 1e-5), 1e4)
@@ -100,7 +119,7 @@ def _kernel():
     return _jitted
 
 
-def _launch(mode: int, x, other, gamma, bits: int, eps: float, act: str, with_ro: bool):
+def _launch(mode: int, x, other, gamma, bits: int, eps: float, act: str, with_ro: bool, beta=None):
     m, k = x.shape
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     s = torch.empty((m, k // GROUP_SIZE), dtype=torch.float32, device=x.device)
@@ -109,13 +128,22 @@ def _launch(mode: int, x, other, gamma, bits: int, eps: float, act: str, with_ro
     block = max(128, 1 << (k - 1).bit_length())
     warps = 4 if block <= 1024 else (8 if block <= 4096 else 16)
     with torch.cuda.device(x.device):
-        _kernel()[(m,)](
+        compiled = _kernel()[(m,)](
             x, other if other is not None else x, gamma if gamma is not None else x,
+            beta if beta is not None else x,
             q, s, ro, k, f32_reciprocal(k), float(eps), float(qmax), f32_reciprocal(qmax),
             MODE=mode, ACT=_ACTS[act], MODEL_BF16=x.dtype == torch.bfloat16,
             BLOCK=block, num_warps=warps, enable_fp_fusion=False,
         )
+    key = (mode, block, x.dtype)
+    if key not in _launch.compiled:
+        _launch.compiled[key] = (getattr(compiled, "n_regs", None), getattr(compiled, "n_spills", None))
     return q, s, ro
+
+
+# (MODE, BLOCK, dtype) -> (registers a thread, spilled registers) of each
+# specialization launched, as Triton reports them
+_launch.compiled = {}
 
 
 def _check_rows(x: torch.Tensor, name: str) -> None:
@@ -163,6 +191,30 @@ def rmsnorm_quant_plain(x, gamma, bits: int = 6, *, residual=None, eps: float = 
 
 def quant_act_plain(x, bits: int = 8):
     return group_quant_plain(x.to(torch.float32), bits)
+
+
+def _ln_plain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm of f32 rows, the kernel's arithmetic: both means multiply
+    by the f32 reciprocal of K, the variance is taken of the centred row,
+    and y * gamma + beta stays in f32 (no cast to the model dtype)."""
+    rk = f32_reciprocal(h.shape[-1])
+    d = h - h.sum(dim=-1, keepdim=True) * rk
+    var = (d * d).sum(dim=-1, keepdim=True) * rk
+    y = d * torch.rsqrt(var + eps)
+    return y * gamma.to(torch.float32) + beta.to(torch.float32)
+
+
+def layernorm_quant_plain(x, gamma, beta, bits: int = 6, *, residual=None, eps: float = 1e-5):
+    h = x.to(torch.float32)
+    if residual is None:
+        return group_quant_plain(_ln_plain(h, gamma, beta, eps), bits)
+    h = h + residual.to(torch.float32)
+    q, s = group_quant_plain(_ln_plain(h, gamma, beta, eps), bits)
+    return q, s, h.to(x.dtype)
+
+
+def relu_quant_plain(x, bits: int = 6):
+    return group_quant_plain(torch.clamp_min(x.to(torch.float32), 0.0), bits)
 
 
 def glu_act_plain(gate: torch.Tensor, up: torch.Tensor, act: str) -> torch.Tensor:
@@ -234,6 +286,46 @@ def glu_quant(
     return q, s
 
 
+def layernorm_quant(
+    x: torch.Tensor,
+    gamma: torch.Tensor,
+    beta: torch.Tensor,
+    bits: int = 6,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    eps: float = 1e-5,
+):
+    """Fused [residual-add +] LayerNorm + per-group quant (OPT's q/k/v and
+    fc1 input producer).
+
+    Returns (q int8 [M, K], scales f32 [M, K/128][, residual_out [M, K]]).
+    Stats in f32 (mean, then the variance of the centred row), y * gamma +
+    beta in f32."""
+    _check_rows(x, "x")
+    for t, name in ((gamma, "gamma"), (beta, "beta")):
+        check_tensor(t, name, (torch.bfloat16, torch.float32), (x.shape[1],), x.device)
+    if residual is not None:
+        check_tensor(residual, "residual", x.dtype, x.shape, x.device)
+    if not on_card(x):
+        return layernorm_quant_plain(x, gamma, beta, bits, residual=residual, eps=eps)
+    mode = _MODE_LN if residual is None else _MODE_LN_RES
+    q, s, ro = _launch(mode, x, residual, gamma, bits, eps, "silu", residual is not None, beta=beta)
+    layernorm_quant.launches += 1
+    return (q, s) if residual is None else (q, s, ro)
+
+
+def relu_quant(x: torch.Tensor, bits: int = 6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused ReLU + per-group quant: OPT's fc2 input producer."""
+    _check_rows(x, "x")
+    if not on_card(x):
+        return relu_quant_plain(x, bits)
+    q, s, _ = _launch(_MODE_RELU, x, None, None, bits, 0.0, "silu", False)
+    relu_quant.launches += 1
+    return q, s
+
+
 rmsnorm_quant.launches = 0
 quant_act.launches = 0
 glu_quant.launches = 0
+layernorm_quant.launches = 0
+relu_quant.launches = 0

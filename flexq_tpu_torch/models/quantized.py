@@ -1,6 +1,6 @@
-"""Quantized serve-path LLaMA (port of flexq_tpu/models/quantized.py: the
-W*Ax decode layer, the W*A16 prefill layer and forward_serve over a dense
-bf16 or int8 KV cache).
+"""Quantized serve-path LLaMA and OPT (port of flexq_tpu/models/quantized.py:
+the W*Ax decode layer, the W*A16 prefill layer, the OPT layers and
+forward_serve over a dense bf16 or int8 KV cache or a page pool).
 
 Three weight formats, as the reference packs them (``quantize_linear``):
 6-bit planes ("hi"/"lo", the FlexQ format), a 4-bit nibble plane ("q4")
@@ -17,11 +17,14 @@ Two layers, chosen as the reference chooses them:
     unquantized; packed q and k take the fused RoPE epilogue, W6 gate and
     up the fused GLU kernel. Long prompts (``prefill_bf16``), and every step
     under a no-act-quant policy (``QuantPolicy.weight_only``).
-Attention reads the cache through the attention kernel. The lm_head may be
-packed too (``QuantPolicy.with_head``).
+OPT (``cfg.arch == "opt"``, pre-LN only) has its own two layers:
+``opt_layer_serve`` (W*Ax: fused LayerNorm and ReLU producers, K14 / K15)
+and, under a no-act-quant policy, ``_opt_layer_serve_bf16``. OPT never takes
+the W*A16 prefill layer: its prompts run the exact GEMMs at M = B * L, as
+in the reference. Attention reads the cache through the attention kernel.
+The lm_head may be packed too (``QuantPolicy.with_head``); OPT's is tied.
 
-Not in this slice (each raises NotImplementedError naming its slice): OPT
-and the cache-less forward.
+Not in this slice (raises NotImplementedError): the cache-less forward.
 
 Cache layout: [L, B, KVH, S, D] (sequence second-minor), with f32 scales
 [L, B, KVH, S] for the int8 cache, or a page pool [L, P, KVH, PS, D] (scales
@@ -47,7 +50,9 @@ from flexq_tpu_torch.kernels import (
     flash_decode_paged,
     flash_prefill,
     glu_quant,
+    layernorm_quant,
     quant_act,
+    relu_quant,
     rmsnorm_quant,
     w4_matmul,
     w4_matmul_bf16,
@@ -61,6 +66,7 @@ from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.kernels.fused_quant import f32_reciprocal
 from flexq_tpu_torch.kernels.wa16_matmul import dequant_int
 from flexq_tpu_torch.models.llama import act_fn, apply_rope, rmsnorm, rope_for_cfg, rope_gemm_operands
+from flexq_tpu_torch.models.opt import POS_OFFSET, layernorm
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import QuantSpec, quantize
@@ -70,6 +76,14 @@ def _as_tensor(x, device) -> torch.Tensor:
     if isinstance(x, np.ndarray) and not x.flags.writeable:  # arrays from JAX are read-only
         x = x.copy()
     return torch.as_tensor(x, device=device)
+
+
+def _convert(tree, device, dtype):
+    """A norm's leaf (RMSNorm gamma) or dict of leaves (LayerNorm {"g", "b"})
+    on ``device`` in ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+    return _as_tensor(tree, device).to(dtype)
 
 
 def _padded_width(n: int) -> int:
@@ -85,7 +99,7 @@ def quantize_linear(
     {"q8", "scale"} (dense int8).
 
     N is zero-padded to the plane width; ``k_pad_to`` zero-pads K (exact:
-    zero rows quantize to 0) so down_proj matches the padded FFN width."""
+    zero rows quantize to 0) so down_proj (fc2) matches the padded FFN width."""
     k, n = w.shape
     if k_pad_to is not None and k_pad_to != k:
         w = F.pad(w, (0, 0, 0, k_pad_to - k))
@@ -164,7 +178,7 @@ def quantize_layer(
             w = _as_tensor(val["w"], device)
             spec = policy.weight_spec(_FUSED_SPEC.get(name, name))
             if spec.enabled:
-                k_pad = ffn_pad if name == "down_proj" else None
+                k_pad = ffn_pad if name in ("down_proj", "fc2") else None
                 out[name] = quantize_linear(w, spec, k_pad_to=k_pad)
                 n_plane = out[name]["scale"].shape[1]
             else:  # a 16-bit linear keeps its dense weight
@@ -175,7 +189,7 @@ def quantize_layer(
                 b = _as_tensor(val["b"], device)
                 out[name]["b"] = F.pad(b, (0, n_plane - b.shape[0])).to(dtype)
         else:
-            out[name] = _as_tensor(val, device).to(dtype)
+            out[name] = _convert(val, device, dtype)
     return out
 
 
@@ -194,9 +208,11 @@ def quantize_params(
     dev = resolve_device(device)
     out: Dict[str, Any] = {
         "embed": _as_tensor(params["embed"], dev).to(dtype),
-        "final_norm": _as_tensor(params["final_norm"], dev).to(dtype),
+        "final_norm": _convert(params["final_norm"], dev, dtype),
         "layers": [quantize_layer(lp, cfg, policy, dtype, dev, fuse) for lp in params["layers"]],
     }
+    if "pos_embed" in params:  # OPT's learned positions
+        out["pos_embed"] = _as_tensor(params["pos_embed"], dev).to(dtype)
     if "lm_head" in params:
         head = _as_tensor(params["lm_head"], dev)
         head_spec = policy.weight_spec("lm_head")
@@ -344,7 +360,7 @@ def _split_qkv(qkv, cfg: ModelConfig):
 
 
 def _ffn_width(wq, cfg: ModelConfig) -> int:
-    """Padded FFN width implied by a packed down_proj weight's K."""
+    """Padded FFN width implied by a packed down_proj (fc2) weight's K."""
     if "hi" in wq:
         return wq["hi"].shape[0] * 2
     if "q4" in wq:
@@ -494,6 +510,74 @@ def llama_layer_serve_prefill(
     return x2.reshape(b, l, hidden)
 
 
+def opt_layer_serve(
+    lp: Dict[str, Any],
+    cfg: ModelConfig,
+    policy: QuantPolicy,
+    x: torch.Tensor,  # [B, L, H]
+    kv,
+    cache_pos,
+    lengths: torch.Tensor,
+):
+    """One quantized pre-LN OPT decoder layer: fused LayerNorm -> quant
+    (K14) at q_proj's bits, biased W*Ax q/k/v, cache write + multi-head
+    attention, quant (K4) + biased o_proj, the residual, K14 at fc1's bits,
+    biased fc1, fused ReLU -> quant (K15) at fc2's bits, biased fc2, the
+    residual. Every bias is added after its GEMM (``_finish_linear``); the
+    reference adds o_proj's and fc2's after the slice to ``hidden`` so that,
+    under tensor parallelism, they follow the all-reduce: on one device the
+    two give the same values. Under a no-act-quant policy the layer is
+    ``_opt_layer_serve_bf16``."""
+    if policy.no_act_quant:
+        return _opt_layer_serve_bf16(lp, cfg, x, kv, cache_pos, lengths)
+    b, l, hidden = x.shape
+    dtype = x.dtype
+    x2 = x.reshape(b * l, hidden)
+
+    norm = lp["input_norm"]
+    qx, qs = layernorm_quant(x2, norm["g"], norm["b"], bits=policy.act_bits.get("q_proj", 8), eps=cfg.norm_eps)
+    nq = cfg.num_heads * cfg.head_dim
+    q, k, v = (_qlinear(lp[n], qx, qs, dtype, nq).reshape(b, l, cfg.num_heads, cfg.head_dim)
+               for n in ("q_proj", "k_proj", "v_proj"))
+
+    kv_view = _kv_write_read(kv, k, v, cache_pos)
+    attn = _attend(q, kv_view, lengths)
+    oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
+    x2 = x2 + _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
+
+    norm = lp["post_norm"]
+    fq, fs = layernorm_quant(x2, norm["g"], norm["b"], bits=policy.act_bits.get("fc1", 6), eps=cfg.norm_eps)
+    h = _qlinear(lp["fc1"], fq, fs, dtype, _ffn_width(lp["fc2"], cfg))
+    hq, hs = relu_quant(h, bits=policy.act_bits.get("fc2", 6))
+    x2 = x2 + _qlinear(lp["fc2"], hq, hs, dtype, hidden)
+    return x2.reshape(b, l, hidden)
+
+
+def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, kv, cache_pos, lengths):
+    """The OPT layer with unquantized activations (weight-only and fp16
+    policies): plain LayerNorm producers, the W*A16 GEMMs (K7 for W6, K11
+    for W4; W8 and 16-bit weights in a plain product), ReLU in f32 cast back
+    to the model dtype."""
+    b, l, hidden = x.shape
+    dtype = x.dtype
+    x2 = x.reshape(b * l, hidden)
+
+    h = layernorm(x2, lp["input_norm"]["g"], lp["input_norm"]["b"], cfg.norm_eps)
+    nq = cfg.num_heads * cfg.head_dim
+    q, k, v = (_qlinear_bf16(lp[n], h, dtype, nq).reshape(b, l, cfg.num_heads, cfg.head_dim)
+               for n in ("q_proj", "k_proj", "v_proj"))
+
+    kv_view = _kv_write_read(kv, k, v, cache_pos)
+    attn = _attend(q, kv_view, lengths)
+    x2 = x2 + _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
+
+    h = layernorm(x2, lp["post_norm"]["g"], lp["post_norm"]["b"], cfg.norm_eps)
+    h = _qlinear_bf16(lp["fc1"], h, dtype, _ffn_width(lp["fc2"], cfg))
+    h = torch.relu(h.to(torch.float32)).to(dtype)
+    x2 = x2 + _qlinear_bf16(lp["fc2"], h, dtype, hidden)
+    return x2.reshape(b, l, hidden)
+
+
 def apply_lm_head(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor) -> torch.Tensor:
     """Vocab projection [B, L, H] -> logits [B, L, V].
 
@@ -540,15 +624,19 @@ def forward_serve(
     place) and attends over the cache. ``cache_pos`` is one start for every
     row, or a tensor [B] of per-row starts (continuous batching; pass the
     matching ``positions``, e.g. ``cache_pos[:, None]``). ``prefill_bf16``
-    selects the W6A16 layer (always taken under a no-act-quant policy);
+    selects the W6A16 layer (always taken under a no-act-quant policy; OPT
+    ignores it and runs its own layers, as the reference does);
     passing the scale tensors selects the int8 cache; a ``page_table`` makes
     kv_k / kv_v (and the scales) a page pool, decode only (L == 1). Returns
     (logits [B, L, V] — [B, 1, V] with ``last_only`` — and the cache state
     (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale))."""
     dev = resolve_device(device)
-    if cfg.arch != "llama":
-        raise NotImplementedError("OPT serving is a later slice")
-    if policy.no_act_quant:
+    is_opt = cfg.arch == "opt"
+    if is_opt and not cfg.do_layer_norm_before:
+        # the reference's serve layers apply pre-LN whatever the flag says,
+        # so they serve OPT-350m unlike its own model; the port refuses it
+        raise ValueError("post-LN OPT (do_layer_norm_before=False) is not served: the serve layers are pre-LN")
+    if policy.no_act_quant and not is_opt:
         # W*A16: activations stay unquantized at decode too (an int8
         # container cannot hold them), so every step takes the W6A16 layer
         prefill_bf16 = True
@@ -570,7 +658,11 @@ def forward_serve(
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     if positions is None:
         positions = torch.arange(l, device=dev).expand(b, l)
-    cos, sin = rope_for_cfg(torch.as_tensor(positions, device=dev), cfg)
+    positions = torch.as_tensor(positions, device=dev)
+    if is_opt:  # learned positions, per row where the rows are ragged; no RoPE
+        x = x + params["pos_embed"][positions + POS_OFFSET]
+    else:
+        cos, sin = rope_for_cfg(positions, cfg)
     if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
         cache_pos = cache_pos.to(device=dev, dtype=torch.int64).reshape(b)
         lengths = (cache_pos + l).to(torch.int32)
@@ -579,11 +671,16 @@ def forward_serve(
         lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
     for i, lp in enumerate(params["layers"]):
         kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table)
-        if prefill_bf16:
+        if is_opt:
+            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths)
+        elif prefill_bf16:
             x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
         else:
             x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if not is_opt:
+        x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    elif "final_norm" in params:
+        x = layernorm(x, params["final_norm"]["g"], params["final_norm"]["b"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
     cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v)

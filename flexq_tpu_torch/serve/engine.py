@@ -20,6 +20,7 @@ Two decode loops, as in the reference, returning the same tokens:
 
 Not in this slice (NotImplementedError): meshes (tensor / pipeline
 parallel), speculative decoding, logprobs and non-default sampling.
+The model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses its layers.
 """
 
 from __future__ import annotations
@@ -143,12 +144,17 @@ class Engine:
         sampling: SamplingParams = SamplingParams(),
         eos_id: int = 2,
         stop_ids: Sequence[int] = (),
+        seed: int = 0,
         return_stats: bool = False,
+        return_logprobs: bool = False,
         mode: str = "fused",
     ):
         """Batched greedy generation of equal-length prompts. Returns the
         generated ids per row (up to and including a stop token)
-        [, stats]."""
+        [, stats]. The parameters are the reference's, in its order;
+        ``seed`` seeds sampling, which greedy decoding does not read."""
+        if return_logprobs:
+            raise NotImplementedError("the Engine's logprobs are a later slice (the Engine's full surface)")
         if mode == "spec":
             raise NotImplementedError("speculative decoding is a later slice")
         if mode not in ("fused", "step"):

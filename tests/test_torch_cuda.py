@@ -6,7 +6,7 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
 Tolerances: the exact integer kernels (W6Ax, W4A8, W8A8) are bit-exact; the
 producers may move a quantized value by 1 on at most 0.1 % of entries (the
-RMS sum order differs); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
+RMS and LayerNorm sum orders differ; relu_quant has no sum and is bit-exact); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
 their plain versions only in the order of f32 sums: f32 output within 1e-4
 of max |out|, bf16 output within one bf16 ulp of the plain f32 result (plus
 that 1e-4 for sums that cancel); attention
@@ -26,7 +26,9 @@ from flexq_tpu_torch.kernels import (
     flash_prefill,
     glu_quant,
     launch_counts,
+    layernorm_quant,
     quant_act,
+    relu_quant,
     reset_launch_counts,
     rmsnorm_quant,
     w4_matmul,
@@ -41,7 +43,9 @@ from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.flash_decode import flash_decode_paged_plain
 from flexq_tpu_torch.kernels.fused_quant import (
     glu_quant_plain,
+    layernorm_quant_plain,
     quant_act_plain,
+    relu_quant_plain,
     rmsnorm_quant_plain,
 )
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
@@ -94,6 +98,24 @@ def test_quant_act_kernel(gen):
 def test_glu_quant_kernel(gen, act):
     g, u = 2 * randn(gen, 8, 1152), randn(gen, 8, 1152)
     assert_quant_close(glu_quant(g, u, 8, act=act), glu_quant_plain(g, u, 8, act=act))
+
+
+@pytest.mark.parametrize("bits", [6, 8])
+@pytest.mark.parametrize("residual", [False, True])
+def test_layernorm_quant_kernel(gen, bits, residual):
+    x, gamma, beta = randn(gen, 8, 512) + 0.5, 1 + 0.1 * randn(gen, 512), 0.1 * randn(gen, 512)
+    res = randn(gen, 8, 512) if residual else None
+    got = layernorm_quant(x, gamma, beta, bits, residual=res)
+    assert_quant_close(got, layernorm_quant_plain(x, gamma, beta, bits, residual=res))
+    assert launch_counts()["layernorm_quant"] == 1
+
+
+@pytest.mark.parametrize("k", [1152, 16384])  # 16384: OPT-6.7B's FFN, BLOCK 16384 at 16 warps
+def test_relu_quant_kernel(gen, k):
+    x = 2 * randn(gen, 4, k)
+    got, want = relu_quant(x, 6), relu_quant_plain(x, 6)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert launch_counts()["relu_quant"] == 1
 
 
 @pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (40, 512, 1024), (4, 1024, 512)])

@@ -1,11 +1,11 @@
 """The port's serve slice vs flexq_tpu on a tiny llama_flex LLaMA (2 layers,
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
-greedy Engine.generate tokens equal; the paths still to port raise (OPT,
-the cache-less forward, and the scheduler's meshes, fused ticks and beam
-search)."""
+greedy Engine.generate tokens equal, with the reference's parameters in its
+order; the paths still to port raise (the cache-less forward, the Engine's
+logprobs, and the scheduler's meshes, fused ticks and beam search)."""
 
-import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -79,6 +79,18 @@ def test_generate_tokens_equal_jax(model):
         assert stats.generated_tokens == sum(map(len, want))
 
 
+def test_generate_takes_the_reference_parameters(model):
+    jcfg, cfg, jq, tq, prompts = model
+    assert list(inspect.signature(Engine.generate).parameters) == list(inspect.signature(JEngine.generate).parameters)
+    eng = Engine(tq, cfg, QuantPolicy.llama_flex(), max_seq_len=S, kv_dtype=torch.float32, device="cpu")
+    # positionally, in the reference's order: ..., stop_ids, seed, return_stats
+    out, stats = eng.generate(prompts, 4, SamplingParams(), -1, (), 123, True)
+    assert out == eng.generate(prompts, max_new_tokens=4, eos_id=-1, seed=7)  # greedy reads no seed
+    assert stats.generated_tokens == 8
+    with pytest.raises(NotImplementedError):
+        eng.generate(prompts, max_new_tokens=2, return_logprobs=True)
+
+
 def test_unsupported_paths_raise(model):
     jcfg, cfg, jq, tq, prompts = model
     pol = QuantPolicy.llama_flex()
@@ -91,20 +103,8 @@ def test_unsupported_paths_raise(model):
         Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
-    cache = eng.new_cache(2)
-    opt_cfg = dataclasses.replace(cfg, arch="opt")
-    calls = [
-        dict(cfg=opt_cfg),  # OPT serving (K14-K15)
-        dict(kv_k=None, kv_v=None),  # the cache-less forward
-    ]
-    for kw in calls:
-        args = dict(cfg=cfg, kv_k=cache[0], kv_v=cache[1], cache_pos=0, device="cpu")
-        args.update(kw)
-        with pytest.raises(NotImplementedError):
-            forward_serve(tq, args.pop("cfg"), pol, torch.from_numpy(prompts), **args)
-    for preset in (QuantPolicy.uniform, QuantPolicy.weight_only, QuantPolicy.fp16):  # OPT policies
-        with pytest.raises(NotImplementedError):
-            preset(arch="opt")
+    with pytest.raises(NotImplementedError):  # the cache-less forward
+        forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=None, kv_v=None, cache_pos=0, device="cpu")
     # the scheduler's paths still to port: meshes, fused ticks, beam search
     for kw in (dict(mesh=object()), dict(pp_mesh=object()), dict(fused_tick=4)):
         with pytest.raises(NotImplementedError):
