@@ -1,20 +1,15 @@
 // Causal attention of Lq >= 1 queries over the dense KV cache (bf16, or int8
-// with per-(token, head) f32 scales), for Hopper (sm_90a), plain C interface.
+// with per-(token, head) f32 scales), one warp per query, for Hopper
+// (sm_90a), plain C interface.
 //
-// Replaces the TPU kernels flexq_tpu/kernels/flash_decode.py::flash_decode
-// (_flash_decode_kernel, the Lq == 1 case, K6),
-// flexq_tpu/kernels/flash_prefill.py::flash_prefill (_flash_prefill_kernel,
-// K9) and flexq_tpu/kernels/flash_decode.py::flash_decode_paged
-// (_flash_decode_kernel over a page pool, K13) for a bf16 or an int8 cache:
-// on such a cache they compute the same function.
+// Replaces the TPU kernel flexq_tpu/kernels/flash_decode.py::flash_decode
+// (_flash_decode_kernel, the Lq == 1 case, K6), and serves
+// flexq_tpu/kernels/flash_prefill.py::flash_prefill (K9) for prompts of
+// fewer than 64 queries; longer ones go to flash_prefill.cu's tensor-core
+// tiles, and the paged decode (K13) to flash_decode_paged.cu.
 //
-//   dense cache k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
+//   cache k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
 //   scales ks, vs: [L, B, KVH, S] f32 (int8 cache only)
-//   paged (PAGED, Lq == 1): a pool k, v [L, P, KVH, PS, D] (scales
-//   [L, P, KVH, PS]) and table int32 [B, MAXPAGES]: key block i of row b is
-//   pool page table[b, i], so key j of the block is read at
-//   ((layer * P + table[b, i]) * KVH + kvh) * PS + j; the block is one page
-//   (bs = PS) and S = MAXPAGES * PS
 //   q: [B, Lq, H, D] bf16; out: [B, Lq, H, D] bf16; lengths: int32 [B]
 //   query i of row b sits at pos = lengths[b] - Lq + i (decode clips
 //   lengths[b] to [1, S] first) and attends keys in (pos - window, pos],
@@ -28,7 +23,11 @@
 //   alpha = exp(m - m'), p = exp(s - m'), l' = l * alpha + sum p,
 //   acc' = acc * alpha + bf16(p [* vs]) . V
 // per block (the int8 scales folded into the math: never a dequantized copy
-// of the cache); the output is acc / max(l, 1e-30).
+// of the cache); the output is acc / max(l, 1e-30). Each P.V sum runs key
+// by key in f32 FMAs from zero, as the plain version's matmul does, so a
+// short prompt's output rounds as the CPU's does nearly everywhere: on the
+// W*Ax prompt path each output goes straight into 6-bit activation codes,
+// where one bf16 ulp can flip a code (PERF.md §6).
 //
 // Bound on this card: bytes (the K and V rows of the keys attended, and
 // their scales; the work per byte is a few flops). Design, simple first: one
@@ -37,10 +36,8 @@
 // reduces each score with shuffles, keeps a block's scores in shared memory,
 // and reads only the key blocks in the query's window (blocks past the
 // diagonal or before the window start are never read). GQA heads re-read
-// their kv head's rows (from L2); sharing them across a block's warps is
-// later work. The paged form differs only in where a block starts: the warp
-// reads its page id from the table once per block (a page is PS * D
-// contiguous elements, so its rows are read as the dense ones are).
+// their kv head's rows (from L2). flash_decode_paged.cu's split over the
+// keys is the redesign this kernel is next for (ROADMAP).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -72,15 +69,12 @@ __device__ __forceinline__ void load_row(const int8_t* p, float* v) {
   }
 }
 
-// T: cache element type (__nv_bfloat16, or int8_t with scales ks / vs);
-// PAGED: kc / vc / ks / vs are the layer's page pool and key blocks come
-// through table [B, max_pages] (Lq == 1, bs == PS, S == max_pages * PS)
-template <typename T, int DPL, int WARPS, bool PAGED>
+// T: cache element type (__nv_bfloat16, or int8_t with scales ks / vs)
+template <typename T, int DPL, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32)
 attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ kc,
                     const T* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ lengths,
-                    const int* __restrict__ table, int max_pages,
                     __nv_bfloat16* __restrict__ out, int Lq, int H, int KVH, int S,
                     int window, int bs, float scale, int clip_len) {
   constexpr int D = DPL * 32;
@@ -97,7 +91,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   if (clip_len) len = min(max(len, 1), S);
   const int pos = len - Lq + qi;
   const int kvh = h / (H / KVH);
-  const size_t row0 = ((size_t)b * KVH + kvh) * S;  // dense: this (b, kv head)'s first key
+  const size_t row0 = ((size_t)b * KVH + kvh) * S;  // this (b, kv head)'s first key
   // dense row pointers set once (recomputing them from a per-block base
   // slowed the dense Lq > 1 launch measurably)
   const T* kd = kc + row0 * D + lane * DPL;
@@ -116,15 +110,9 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   for (int blk = lo_k / bs; pos >= 0 && blk <= hi_k / bs; ++blk) {
     const int k0 = blk * bs;
     const int nk = min(bs, hi_k - k0 + 1);  // keys past the diagonal: p == 0
-    // the block's first key: its pool page (paged) or its cache row (dense)
-    size_t base = row0 + k0;
+    const size_t base = row0 + k0;
     const T* kb = kd + (size_t)k0 * D;
     const T* vb = vd + (size_t)k0 * D;
-    if (PAGED) {
-      base = ((size_t)table[(size_t)b * max_pages + blk] * KVH + kvh) * bs;
-      kb = kc + base * D + lane * DPL;
-      vb = vc + base * D + lane * DPL;
-    }
 #pragma unroll 4
     for (int j = 0; j < nk; ++j) {
       float kv[DPL];
@@ -181,28 +169,27 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
 }
 
 struct Args {
-  const void *q, *kc, *vc, *ks, *vs, *lengths, *table;
+  const void *q, *kc, *vc, *ks, *vs, *lengths;
   void* out;
-  int B, Lq, H, KVH, S, window, bs, max_pages;
+  int B, Lq, H, KVH, S, window, bs;
   float scale;
   int clip_len;
 };
 
-template <typename T, int DPL, int WARPS, bool PAGED>
+template <typename T, int DPL, int WARPS>
 int launch(const Args& a, cudaStream_t s) {
   dim3 grid(a.B * a.H, (a.Lq + WARPS - 1) / WARPS);
   const size_t smem = (size_t)WARPS * a.bs * sizeof(float);
-  attend_cache_kernel<T, DPL, WARPS, PAGED><<<grid, WARPS * 32, smem, s>>>(
+  attend_cache_kernel<T, DPL, WARPS><<<grid, WARPS * 32, smem, s>>>(
       (const __nv_bfloat16*)a.q, (const T*)a.kc, (const T*)a.vc, (const float*)a.ks,
-      (const float*)a.vs, (const int*)a.lengths, (const int*)a.table, a.max_pages,
-      (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S, a.window, a.bs, a.scale, a.clip_len);
+      (const float*)a.vs, (const int*)a.lengths, (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S,
+      a.window, a.bs, a.scale, a.clip_len);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int DPL>
 int launch_d(const Args& a, cudaStream_t s) {
-  if (a.table != nullptr) return launch<T, DPL, 1, true>(a, s);  // paged: Lq == 1
-  return a.Lq == 1 ? launch<T, DPL, 1, false>(a, s) : launch<T, DPL, 4, false>(a, s);
+  return a.Lq == 1 ? launch<T, DPL, 1>(a, s) : launch<T, DPL, 4>(a, s);
 }
 
 template <typename T>
@@ -224,21 +211,16 @@ int launch_t(const Args& a, int D, cudaStream_t s) {
 // k_layer / v_layer point at cache[layer] ([B, KVH, S, D]); quant = 1 means
 // an int8 cache with ks_layer / vs_layer at scales[layer] ([B, KVH, S] f32),
 // quant = 0 a bf16 cache (the scale pointers are ignored); window <= 0 means
-// none; clip_len = 1 clips lengths to [1, S] (decode). With a page table
-// (int32 [B, max_pages], not null; Lq == 1) the layer pointers are the
-// pool's layer ([P, KVH, PS, D], scales [P, KVH, PS]), bs = PS and
-// S = max_pages * PS. Returns cudaGetLastError() after the launch.
+// none; bs (the key block) divides S and is at most 512; clip_len = 1 clips
+// lengths to [1, S] (decode). Returns cudaGetLastError() after the launch.
 extern "C" int flexq_attend_cache(const void* q, const void* k_layer, const void* v_layer,
-                                  const void* ks_layer, const void* vs_layer,
-                                  const void* lengths, const void* table, int max_pages,
-                                  void* out, int B, int Lq, int H, int KVH, int S, int D,
-                                  int window, int bs, float scale, int clip_len, int quant,
-                                  void* stream) {
+                                  const void* ks_layer, const void* vs_layer, const void* lengths,
+                                  void* out, int B, int Lq, int H, int KVH, int S, int D, int window,
+                                  int bs, float scale, int clip_len, int quant, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KVH != 0 || S % bs != 0 || bs > 512) return (int)cudaErrorInvalidValue;
   if (quant && (ks_layer == nullptr || vs_layer == nullptr)) return (int)cudaErrorInvalidValue;
-  if (table != nullptr && (Lq != 1 || S != max_pages * bs)) return (int)cudaErrorInvalidValue;
-  const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, table, out,
-               B, Lq, H, KVH, S, window, bs, max_pages, scale, clip_len};
+  const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, out,
+               B, Lq, H, KVH, S, window, bs, scale, clip_len};
   return quant ? launch_t<int8_t>(a, D, s) : launch_t<__nv_bfloat16>(a, D, s);
 }

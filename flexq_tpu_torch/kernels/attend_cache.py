@@ -1,12 +1,15 @@
-"""Causal attention over the KV cache: the kernel shared by ``flash_decode``
-(Lq == 1), ``flash_prefill`` (Lq >= 1) and ``flash_decode_paged`` (Lq == 1
-over a page pool through a page table), and its plain PyTorch version.
+"""Causal attention over the KV cache: the plain PyTorch version shared by
+``flash_decode`` (K6, Lq == 1), ``flash_prefill`` (K9, Lq >= 1) and
+``flash_decode_paged`` (K13, Lq == 1 over a page pool through a page
+table), the argument checks of their kernels, and K6's launch.
 
-Kernel: csrc/attend_cache.cu (CUDA C++ for sm_90a, bf16 or int8 cache; see
-its header for the design and its bound). ``attend_cache_plain`` computes the
-same function the way the TPU kernels do: keys in blocks of ``pick_bs(S)``,
-the online-softmax update per block (``bs``; the paged kernel's block is one
-page), and q, K, V and p rounded to
+Kernels: csrc/attend_cache.cu (one warp per query: K6, and K9 below 64
+queries), csrc/flash_prefill.cu (K9's tensor-core tiles) and
+csrc/flash_decode_paged.cu (K13), CUDA C++ for sm_90a over a bf16 or an int8
+cache (see each source's header for its design and its bound).
+``attend_cache_plain`` computes the function the way the TPU kernels do:
+keys in blocks of ``pick_bs(S)``, the online-softmax update per block
+(``bs``; the paged kernel's block is one page), and q, K, V and p rounded to
 ``compute_dtype`` before their dots (f32 sums). With an int8 cache the f32
 scales fold into the math as in the TPU kernels: the score is
 ``(q . K8) * (1/sqrt(D)) * ks`` and ``p * vs`` (f32) is rounded before the PV
@@ -14,7 +17,9 @@ dot; int8 K and V upcast to bf16 exactly. Processing a block in which
 a query has no valid key leaves that query's state unchanged in the TPU
 kernels (or is wiped by the first valid block's alpha == 0), so the plain
 version updates a query only on the blocks between its window start and its
-diagonal.
+diagonal. K9's tiles and K13 take their online-softmax steps over other key
+blocks than ``bs`` (64-key tiles; one split of the keys per block), so they
+round p against another running max (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from flexq_tpu_torch.kernels.common import check_tensor
 
 NEG = -1e30  # finite -inf stand-in, as in the TPU kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 7 + [_I, _P] + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 
 
 def pick_bs(s: int, cap: int = 512) -> int:
@@ -114,53 +119,55 @@ def attend_cache_plain(
     return out.to(out_dtype)
 
 
-def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int],
-           clip_len: bool, k_scale=None, v_scale=None, table=None) -> torch.Tensor:
-    """Launch csrc/attend_cache.cu: q bf16 [B, Lq, H, D] over the bf16 cache,
-    or the int8 cache with its f32 scales, at ``layer_idx``; returns bf16
-    [B, Lq, H*D]. The cache is [L, B, KVH, S, D] (scales [L, B, KVH, S]), or
-    with ``table`` (int32 [B, MAXPAGES], Lq == 1) a page pool [L, P, KVH, PS,
-    D] (scales [L, P, KVH, PS]) whose key block i of row b is page
-    table[b, i]. The kernel reads the table's entries as given: each must be
-    a page of the pool."""
+def layer_pointers(q, k_cache, v_cache, lengths, layer_idx: int, k_scale=None, v_scale=None,
+                   rows: Optional[int] = None):
+    """Check a kernel's q (bf16 [B, Lq, H, D]), cache or pool (bf16, or int8
+    with f32 scales) and lengths, and return the data pointers of layer
+    ``layer_idx``: [k, v, k_scale, v_scale] (the scales None for bf16). The
+    cache is [L, rows, KVH, S, D] (scales [L, rows, KVH, S]); ``rows`` is B
+    for a dense cache (the default) or the pool's P."""
     b, lq, h, d = q.shape
-    nl, rows, kvh, s, cd = k_cache.shape  # rows: B (dense) or P (pool)
+    nl, _, kvh, s, _ = k_cache.shape
+    rows = b if rows is None else rows
     dev = q.device
     quant = k_scale is not None
     cache_dtype = torch.int8 if quant else torch.bfloat16
     check_tensor(q, "q", torch.bfloat16, (b, lq, h, d), dev)
-    if table is None:
-        rows, max_pages, s_total, bs = b, 0, s, pick_bs(s)
-    else:
-        if lq != 1 or s % 128:
-            raise ValueError(f"the paged kernel takes Lq == 1 and PS % 128 == 0, got Lq={lq}, PS={s}")
-        max_pages = table.shape[1]
-        check_tensor(table, "page_table", torch.int32, (b, max_pages), dev)
-        s_total, bs = max_pages * s, s
     check_tensor(k_cache, "k_cache", cache_dtype, (nl, rows, kvh, s, d), dev)
     check_tensor(v_cache, "v_cache", cache_dtype, (nl, rows, kvh, s, d), dev)
     check_tensor(lengths, "lengths", torch.int32, (b,), dev)
-    scale_ptrs = [None, None]
+    if d not in (64, 128, 256) or h % kvh:
+        raise ValueError(f"the attention kernels take D in (64, 128, 256) and H % KVH == 0, got D={d}, H={h}, KVH={kvh}")
+    if not 0 <= layer_idx < nl:
+        raise IndexError(f"layer_idx {layer_idx} out of range [0, {nl})")
+    per_layer = k_cache[0].numel() * k_cache.element_size()
+    ptrs = [k_cache.data_ptr() + layer_idx * per_layer, v_cache.data_ptr() + layer_idx * per_layer, None, None]
     if quant:
         for t, name in ((k_scale, "k_scale"), (v_scale, "v_scale")):
             check_tensor(t, name, torch.float32, (nl, rows, kvh, s), dev)
         per_layer_s = rows * kvh * s * 4
-        scale_ptrs = [k_scale.data_ptr() + layer_idx * per_layer_s,
-                      v_scale.data_ptr() + layer_idx * per_layer_s]
-    if d not in (64, 128, 256) or h % kvh:
-        raise ValueError(f"attend_cache kernel takes D in (64, 128, 256) and H % KVH == 0, got D={d}, H={h}, KVH={kvh}")
-    if not 0 <= layer_idx < nl:
-        raise IndexError(f"layer_idx {layer_idx} out of range [0, {nl})")
-    out = torch.empty((b, lq, h * d), dtype=torch.bfloat16, device=dev)
-    per_layer = k_cache[0].numel() * k_cache.element_size()
-    fn = _build.function("attend_cache", "flexq_attend_cache", _ARGS)
-    rc = fn(
-        q.data_ptr(), k_cache.data_ptr() + layer_idx * per_layer,
-        v_cache.data_ptr() + layer_idx * per_layer, *scale_ptrs, lengths.data_ptr(),
-        None if table is None else table.data_ptr(), max_pages, out.data_ptr(),
-        b, lq, h, kvh, s_total, d, window if window is not None else 0, bs,
-        1.0 / math.sqrt(d), int(clip_len), int(quant), torch.cuda.current_stream(dev).cuda_stream,
-    )
+        ptrs[2:] = [k_scale.data_ptr() + layer_idx * per_layer_s, v_scale.data_ptr() + layer_idx * per_layer_s]
+    return ptrs
+
+
+def check_rc(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"attend_cache kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int], clip_len: bool, k_scale=None,
+           v_scale=None) -> torch.Tensor:
+    """Launch csrc/attend_cache.cu (one warp per query): q bf16 [B, Lq, H, D]
+    over the bf16 cache, or the int8 cache with its f32 scales,
+    [L, B, KVH, S, D] at ``layer_idx``; ``clip_len`` clips lengths to
+    [1, S] (decode). Returns bf16 [B, Lq, H*D]."""
+    b, lq, h, d = q.shape
+    s = k_cache.shape[3]
+    ptrs = layer_pointers(q, k_cache, v_cache, lengths, layer_idx, k_scale, v_scale)
+    out = torch.empty((b, lq, h * d), dtype=torch.bfloat16, device=q.device)
+    fn = _build.function("attend_cache", "flexq_attend_cache", _ARGS)
+    rc = fn(q.data_ptr(), *ptrs, lengths.data_ptr(), out.data_ptr(), b, lq, h, k_cache.shape[2], s, d,
+            window if window is not None else 0, pick_bs(s), 1.0 / math.sqrt(d), int(clip_len),
+            int(k_scale is not None), torch.cuda.current_stream(q.device).cuda_stream)
+    check_rc(rc, "attend_cache")
     return out

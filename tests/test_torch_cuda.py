@@ -11,8 +11,11 @@ their plain versions only in the order of f32 sums: f32 output within 1e-4
 of max |out|, bf16 output within one bf16 ulp of the plain f32 result (plus
 that 1e-4 for sums that cancel); attention
 sums in another order (2e-2 of max |out|, bf16 output; per (b, h) row for
-the paged kernel, whose rows are ragged), over a bf16 or an int8 cache,
-dense or paged.
+the paged kernel, whose rows are ragged and which rounds p against each
+split's own max, and for the edge cases of the prefill kernel), over a bf16
+or an int8 cache, dense or paged; the prefill kernel's tiles round p
+against each key block's max as the plain version does, so at most 1 % of
+their bf16 outputs part from the CPU's.
 """
 
 import numpy as np
@@ -265,6 +268,103 @@ def test_flash_decode_paged_kernel(gen, quant, window):
     err = (got - want).abs().amax(-1)
     assert bool((err <= 2e-2 * want.abs().amax(-1)).all()), err.max().item()
     assert launch_counts()["flash_decode_paged"] == 1
+
+
+@pytest.mark.parametrize("lq,kvh,window,quant,d", [
+    (101, 4, None, False, 128),  # Lq not a multiple of the 64-row query tile
+    (100, 1, 50, False, 128),    # GQA (G = 4: a tile's rows are (query, head) pairs) with a window
+    (70, 2, None, True, 128),    # int8 cache, G = 2
+    (65, 4, 40, True, 64),       # int8 with a window at D = 64
+    (96, 2, 70, False, 256),     # D = 256 (32-key tiles)
+])
+def test_flash_prefill_kernel_edges(gen, lq, kvh, window, quant, d):
+    """K9's tensor-core tiles (Lq >= 64) against the plain version: row 0
+    starts with 5 queries at pos < 0 (they attend nothing and read 0), row
+    1 is a fresh prompt, row 2 the last chunk of a full cache; 2e-2 of
+    max |out| per (query, head) row."""
+    b, h, s = 3, 4, 256
+    shape = (2, b, kvh, s, d)
+    if quant:
+        kc, vc = (torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        scales = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv"]
+    else:
+        kc, vc = randn(gen, *shape), randn(gen, *shape)
+        scales = []
+    q = randn(gen, b, lq, h, d)
+    lengths = torch.tensor([lq - 5, lq, s], dtype=torch.int32, device="cuda")
+    got = flash_prefill(q, kc, vc, lengths, *scales, layer_idx=1, window=window).float().reshape(b, lq, h, d)
+    want = attend_cache_plain(q, kc, vc, lengths, 1, window, torch.bfloat16, False, torch.bfloat16,
+                              *scales).float().reshape(b, lq, h, d)
+    assert torch.count_nonzero(got[0, :5]) == 0  # pos < 0
+    err = (got - want).abs().amax(-1)
+    assert bool((err <= 2e-2 * want.abs().amax(-1)).all()), err.max().item()
+    assert launch_counts()["flash_prefill"] == 1
+
+
+@pytest.mark.parametrize("s,window,quant", [
+    (384, None, False),  # pick_bs(384) = 384: key blocks of six 64-key tiles
+    (1024, 300, False),  # blocks of 512 keys, a window that starts inside a block
+    (512, None, True),   # int8
+])
+def test_flash_prefill_kernel_rounds_p_per_key_block(gen, s, window, quant):
+    """K9's tiles round p to bf16 against each key block's max, as the
+    plain version does: against the plain version run on the CPU (the side
+    the parity runs hold the card to), at most 1 % of the bf16 outputs part
+    (the order of the f32 sums only); p rounded against a running max
+    every 64 keys parts many times more."""
+    b, h, kvh, d, lq = 2, 8, 2, 128, 200
+    shape = (2, b, kvh, s, d)
+    if quant:
+        kc, vc = (torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        scales = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv"]
+    else:
+        kc, vc = randn(gen, *shape), randn(gen, *shape)
+        scales = []
+    q = randn(gen, b, lq, h, d)
+    lengths = torch.tensor([s - 84, s], dtype=torch.int32, device="cuda")
+    got = flash_prefill(q, kc, vc, lengths, *scales, layer_idx=1, window=window).cpu()
+    cpu = [t.cpu() for t in (q, kc, vc, lengths, *scales)]
+    want = attend_cache_plain(*cpu[:4], 1, window, torch.bfloat16, False, torch.bfloat16, *cpu[4:])
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+    parted = (got != want).float().mean().item()
+    assert parted <= 1e-2, parted
+
+
+@pytest.mark.parametrize("quant,window,kvh,d,ps,maxp", [
+    (False, None, 2, 128, 128, 4),   # GQA, G = 4: one block serves the 4 heads of a kv head
+    (True, 100, 2, 128, 128, 4),     # int8 pool with a window
+    (False, 300, 8, 64, 256, 4),     # D = 64, 256-key pages (two 128-key chunks a page)
+    (True, None, 8, 256, 128, 4),    # D = 256, int8
+    (False, 1000, 8, 128, 128, 72),  # 72 chunks: two chunks a split, 36 splits
+])
+def test_flash_decode_paged_kernel_edges(gen, quant, window, kvh, d, ps, maxp):
+    """K13 against its plain version per (b, h) row: a 1-key row, a row at
+    exactly MAXPAGES * PS keys, lengths past the end and below 1 (clipped),
+    page edges; one launch per call, and a second call (its counters left
+    at zero by the first) gives the same bits."""
+    nl, b, h = 2, 6, 8
+    npages = 1 + b * maxp
+    shape = (nl, npages, kvh, ps, d)
+    if quant:
+        pk, pv = (torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        scales = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv"]
+    else:
+        pk, pv = (randn(gen, *shape) for _ in "kv")
+        scales = []
+    table = (torch.randperm(npages - 1, generator=gen, device="cuda") + 1)[: b * maxp].reshape(b, maxp)
+    table = table.to(torch.int32)
+    full = maxp * ps
+    lengths = torch.tensor([1, full, ps + 1, full - 1, 0, full + 7], dtype=torch.int32, device="cuda")
+    q = randn(gen, b, h, d)
+    got = flash_decode_paged(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+    assert launch_counts()["flash_decode_paged"] == 1
+    again = flash_decode_paged(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+    assert torch.equal(got, again)
+    want = flash_decode_paged_plain(q, pk, pv, table, lengths, *scales, layer_idx=1, window=window)
+    got, want = got.float().reshape(b, h, d), want.float().reshape(b, h, d)
+    err = (got - want).abs().amax(-1)
+    assert bool((err <= 2e-2 * want.abs().amax(-1)).all()), err.max().item()
 
 
 def test_rope_table_matches_cpu(gen):
