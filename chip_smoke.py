@@ -15,15 +15,17 @@ exits nonzero without the final line:
      OPT's LayerNorm (K14) and ReLU (K15) producers at K = 4096 and
      F = 16384, M = 4 and 2048; attention
      at Lq = 1, 32 and 512 over a bf16 cache and at Lq = 1 and 512 over an
-     int8 cache, H = 32, D = 128, S = 2048; the W6A16 and W4A16 GEMMs (K7,
-     K11) at M = 2048 with and without the RoPE epilogue and at M = 4
-     (weight-only decode; K11 also at the head), the fused GLU (K8) at
-     M = 2048 with separate and fused planes; the paged attention (K13) over a
+     int8 cache, H = 32, D = 128, S = 2048 (K6 and K9 also with the share of
+     their bf16 outputs that part from the CPU's); the W6A16 and W4A16 GEMMs
+     (K7, K11) at M = 2048 with and without the RoPE epilogue, at the
+     scheduler's chunk M = 256 and at M = 4 (weight-only decode; K11 also at
+     the head), the fused GLU (K8) at M = 2048 with separate and fused planes
+     and at M = 256; the paged attention (K13) over a
      scrambled page table, B = 8 ragged rows up to 2048 keys, bf16 and int8
      pools, with and without a window; off the main path, K9 at Lq = 256
      over 768 keys, with a 512-key window and with GQA (H = 32, KVH = 8),
-     K13 with GQA, and both at D = 64 and 256, correctness only), with the
-     tolerance stated,
+     K13 with GQA, K6 with GQA and with a 512-key window, timed, and all
+     three at D = 64 and 256, correctness only), with the tolerance stated,
      and their device times from CUDA events (median, L2 flushed before
      each launch) beside the plain version's, the least time the card could
      take (bytes at 3.35 TB/s or operations at peak, H100 SXM data sheet)
@@ -139,7 +141,7 @@ KERNELS = {
     "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
     "quant_act": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:59"),
     "glu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:287"),
-    "flash_decode": ("cuda", "flexq_tpu_torch/csrc/attend_cache.cu", "flexq_tpu/kernels/flash_decode.py:193"),
+    "flash_decode": ("cuda", "flexq_tpu_torch/csrc/flash_decode.cu", "flexq_tpu/kernels/flash_decode.py:193"),
     "flash_prefill": ("cuda", "flexq_tpu_torch/csrc/flash_prefill.cu", "flexq_tpu/kernels/flash_prefill.py:181"),
     "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
     "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
@@ -147,7 +149,7 @@ KERNELS = {
     "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
     "w4_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:220"),
     "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
-    "flash_decode_paged": ("cuda", "flexq_tpu_torch/csrc/flash_decode_paged.cu", "flexq_tpu/kernels/flash_decode.py:354"),
+    "flash_decode_paged": ("cuda", "flexq_tpu_torch/csrc/flash_decode.cu", "flexq_tpu/kernels/flash_decode.py:354"),
     "layernorm_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:205"),
     "relu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:334"),
 }
@@ -394,9 +396,9 @@ def check_producers(results, dev, gen, timer):
 def check_attention(results, dev, gen, timer):
     """bf16 cache: Lq = 1 and 32 over 64 cached tokens (the 32-token path),
     Lq = 1 and 512 over 512 (the 512-token path); int8 cache with f32
-    scales: Lq = 1 and 512 over 512. For K9 also the share of its bf16
-    outputs that part from the plain version's on the CPU, the side that
-    phase 3's parity runs hold the card to."""
+    scales: Lq = 1 and 512 over 512. For K6 and K9 also the share of their
+    bf16 outputs that part from the plain version's on the CPU, the side
+    that phase 3's parity runs hold the card to."""
     b, h, kvh, s, d = 4, 32, 32, 2048, 128
     shape = (2, b, kvh, s, d)
     kc = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -434,11 +436,10 @@ def check_attention(results, dev, gen, timer):
             raise AssertionError(f"{name} Lq={lq} int8={quant}: max abs err {err}")
         lib_out = lib().transpose(1, 2).reshape(b, lq, h * d).float()
         lib_err = (lib_out - want).abs().max().item()
-        parted = ""
-        if name == "flash_prefill":  # the share of bf16 outputs that part from the CPU's plain version
-            cpu = [t.cpu() for t in (q, ck[1:], cv[1:], lengths, *(sc[1:] for sc in scales))]
-            want_cpu = attend_cache_plain(*cpu[:4], 0, None, torch.bfloat16, False, torch.bfloat16, *cpu[4:])
-            parted = f" parted_from_cpu={(got.to(torch.bfloat16).cpu() != want_cpu).float().mean().item():.3e}"
+        # the share of bf16 outputs that part from the CPU's plain version
+        cpu = [t.cpu() for t in (q, ck[1:], cv[1:], lengths, *(sc[1:] for sc in scales))]
+        want_cpu = attend_cache_plain(*cpu[:4], 0, None, torch.bfloat16, lq == 1, torch.bfloat16, *cpu[4:])
+        parted = f" parted_from_cpu={(got.to(torch.bfloat16).cpu() != want_cpu).float().mean().item():.3e}"
         ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
         keys = int((pos + 1).sum().item())  # keys attended over the Lq queries
         kv_bytes = 2 * b * kvh * ln * (d + 4) if quant else 2 * b * kvh * ln * d * 2
@@ -522,6 +523,60 @@ def check_prefill_cases(results, dev, gen, timer):
             log_check(results, "flash_prefill", f"B={b} Lq={lq} H={h} KVH={kvh} D={d} S={s}"
                       + (" int8" if quant else "") + (f" window={window}" if window else ""), err,
                       "2e-2 of max|out|")
+
+
+def check_decode_cases(results, dev, gen, timer):
+    """K6 off the main path's shapes, against its plain version at the same
+    tolerance (2e-2 of each (b, h) row's max |out|): GQA (H = 32 over
+    KVH = 8) over 512 keys, and a 512-key window over 1024 keys, each timed
+    beside SDPA over the same keys (K/V repeated to H heads for GQA; masked
+    to the window); then D = 64 and D = 256 over bf16 and int8 caches (GQA,
+    a window, a 1-key row, a row at S keys), correctness only."""
+    b, h, s, d = 4, 32, 2048, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for ln, window, kvh in ((512, None, 8), (1024, 512, 32)):
+        ck, cv, _ = random_cache((2, b, kvh, s, d), False, gen, dev)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+        lengths = torch.full((b,), ln, dtype=torch.int32, device=dev)
+        kern = lambda: flash_decode(q, ck, cv, lengths, layer_idx=1, window=window)
+        plain = lambda: attend_cache_plain(q[:, None], ck, cv, lengths, 1, window, torch.bfloat16, True,
+                                           torch.bfloat16)
+        got, want = kern().float().reshape(b, h, d), plain().float().reshape(b, h, d)
+        err = (got - want).abs().max().item()
+        row_err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+        if not row_err <= 2e-2:
+            raise AssertionError(f"flash_decode len={ln} window={window} KVH={kvh}: worst row err {row_err}")
+        first = max(ln - window, 0) if window is not None else 0
+        k_valid = ck[1, :, :, first:ln].repeat_interleave(h // kvh, dim=1)
+        v_valid = cv[1, :, :, first:ln].repeat_interleave(h // kvh, dim=1)
+        lib = lambda: sdpa(q[:, :, None], k_valid, v_valid)
+        lib_err = (lib().reshape(b, h, d).float() - want).abs().max().item()
+        ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
+        keys = ln - first
+        nbytes = 2 * b * kvh * keys * d * 2 + 2 * b * h * d * 2
+        shape = f"B={b} Lq=1 H={h} KVH={kvh} D={d} S={s} len={ln}" + (f" window={window}" if window else "")
+        record(results, "flash_decode", shape, err, ms, plain_ms, nbytes, 4 * b * h * keys * d, PEAK_BF16, lib_ms,
+               extra=f" worst_row_rel_err={row_err:.3g} sdpa_vs_plain_err={lib_err:.3g} (tolerance: 2e-2 of each "
+                     "(b, h) row's max|out|; SDPA over the keys attended"
+                     + (", K/V repeated to H heads)" if kvh < h else ")"))
+        del ck, cv, k_valid, v_valid
+    b, h, kvh, s = 3, 8, 2, 512
+    lengths = torch.tensor([1, 129, s], dtype=torch.int32, device=dev)
+    for d in (64, 256):
+        for quant in (False, True):
+            ck, cv, scales = random_cache((2, b, kvh, s, d), quant, gen, dev)
+            q = torch.randn((b, h, d), generator=gen, device=dev).to(torch.bfloat16)
+            window = 100 if quant else None
+            got = flash_decode(q, ck, cv, lengths, *scales, layer_idx=1, window=window).float().reshape(b, h, d)
+            want = attend_cache_plain(q[:, None], ck, cv, lengths, 1, window, torch.bfloat16, True, torch.bfloat16,
+                                      *scales).float().reshape(b, h, d)
+            err = (got - want).abs().max().item()
+            row_err = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item()
+            if not row_err <= 2e-2:
+                raise AssertionError(f"flash_decode D={d} int8={quant}: worst row err {row_err}")
+            log_check(results, "flash_decode", f"B={b} Lq=1 H={h} KVH={kvh} D={d} S={s}"
+                      + (" int8" if quant else "") + (f" window={window}" if window else ""), err,
+                      f"2e-2 of each (b, h) row's max|out|; worst row {row_err:.3g}")
 
 
 PAGED_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
@@ -655,20 +710,21 @@ BF16_GEMMS = {6: (w6_matmul_bf16, w6_matmul_bf16_plain), 4: (w4_matmul_bf16, w4_
 
 def check_wa16(results, dev, gen, timer):
     """K7 (W6A16) and K11 (W4A16) at the 512-token prefill (M = 4 x 512)
-    for q / k (RoPE epilogue), v / o (none) and down (K = 11264), and at
-    M = 4 (weight-only decode; K11 also at gate / up, which W4 runs as two
-    GEMMs, and at the packed head's shape); K8 at
-    M = 2048 with separate and fused gate / up planes. Each against its
-    plain version in f32 and in bf16 output; times of the bf16 output."""
+    for q / k (RoPE epilogue), v / o (none) and down (K = 11264), at the
+    scheduler's 256-token chunk (q / k, down), and at M = 4 (weight-only
+    decode; K11 also at gate / up, which W4 runs as two GEMMs, and at the
+    packed head's shape); K8 at M = 2048 with separate and fused gate / up
+    planes and at M = 256. Each against its plain version in f32 and in bf16
+    output; times of the bf16 output."""
     def planes(fmt, k, n):
         return (*int_weight(fmt, k, n, gen, dev), torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4)
 
     cases = []
     (kq, nq), (kg, ng), (kd, nd) = SHAPES_7B
-    shapes = ((2048, kq, nq, True), (2048, kq, nq, False), (2048, kd, nd, False), (4, kq, nq, True),
-              (4, kd, nd, False))
+    shapes = ((2048, kq, nq, True), (2048, kq, nq, False), (2048, kd, nd, False), (256, kq, nq, True),
+              (256, kd, nd, False), (4, kq, nq, True), (4, kd, nd, False))
     # W4 has no fused GLU: K11 also runs gate / up (K = 4096, N = 11264) and the head
-    w4_only = ((2048, kg, ng, False), (4, kg, ng, False), (4, *HEAD_7B, False))
+    w4_only = ((2048, kg, ng, False), (256, kg, ng, False), (4, kg, ng, False), (4, *HEAD_7B, False))
     for fmt, (fn, plain) in BF16_GEMMS.items():
         for m, k, n, rope in shapes + (w4_only if fmt == 4 else ()):
             x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
@@ -684,17 +740,21 @@ def check_wa16(results, dev, gen, timer):
                           lambda plain=plain, x=x, w=w, kw=kw: plain(x, *w, torch.float32, **kw),
                           nbytes, 2 * m * n * k, (k, n)))
 
-    m, k, n = 2048, kg, ng
-    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    k, n = kg, ng
     g, u = planes(6, k, n), planes(6, k, n)
     gu = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
-    nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
-    cases.append(("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
-                  lambda dt=None: w6_glu_matmul_bf16(x, *g, *u, out_dtype=dt),
-                  lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k, (k, 2 * n)))
-    cases.append(("w6_glu_fused_bf16", f"M={m} K={k} N={n} fused", x,
-                  lambda dt=None: w6_glu_fused_bf16(x, *gu, out_dtype=dt),
-                  lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k, (k, 2 * n)))
+    for m in (2048, 256):  # the 512-token prefill; the scheduler's chunk
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
+        cases.append(("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
+                      lambda dt=None, x=x: w6_glu_matmul_bf16(x, *g, *u, out_dtype=dt),
+                      lambda x=x: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k,
+                      (k, 2 * n)))
+        if m == 2048:
+            cases.append(("w6_glu_fused_bf16", f"M={m} K={k} N={n} fused", x,
+                          lambda dt=None, x=x: w6_glu_fused_bf16(x, *gu, out_dtype=dt),
+                          lambda x=x: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k,
+                          (k, 2 * n)))
     for name, shape, x, kern, plain, nbytes, ops, (k, n) in cases:
         want = plain()
         err = max(_wa16_err(name, shape, kern(dt=dt), want) for dt in (torch.float32, torch.bfloat16))
@@ -1473,7 +1533,7 @@ def profile_decode(eng, prompts, new: int = 8) -> None:
                  lambda: eng.generate(prompts, max_new_tokens=new, eos_id=-1))
 
 
-ATTENTION_KERNELS = ("attend_cache_kernel", "flash_prefill_kernel", "flash_decode_paged_kernel")
+ATTENTION_KERNELS = ("attend_cache_kernel", "flash_prefill_kernel", "flash_decode_kernel")
 
 
 def profile_call(label, fn) -> None:
@@ -1532,11 +1592,12 @@ def main() -> int:
     check_wa16(results, dev, gen, timer)
     check_attention(results, dev, gen, timer)
     check_paged_attention(results, dev, gen, timer)
-    # the attention cases off the main path draw from their own generator,
+    # the attention cases off the main path draw from their own generators,
     # so the cases above keep their inputs
     gen_attn = torch.Generator(device=dev).manual_seed(SEED + 5)
     check_prefill_cases(results, dev, gen_attn, timer)
     check_paged_cases(results, dev, gen_attn, timer)
+    check_decode_cases(results, dev, torch.Generator(device=dev).manual_seed(SEED + 6), timer)
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
     del timer  # free its 1 GiB buffer before the model phases measure peak memory
     torch.cuda.empty_cache()

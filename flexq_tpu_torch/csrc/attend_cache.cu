@@ -2,18 +2,16 @@
 // with per-(token, head) f32 scales), one warp per query, for Hopper
 // (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel flexq_tpu/kernels/flash_decode.py::flash_decode
-// (_flash_decode_kernel, the Lq == 1 case, K6), and serves
-// flexq_tpu/kernels/flash_prefill.py::flash_prefill (K9) for prompts of
-// fewer than 64 queries; longer ones go to flash_prefill.cu's tensor-core
-// tiles, and the paged decode (K13) to flash_decode_paged.cu.
+// Serves flexq_tpu/kernels/flash_prefill.py::flash_prefill (K9) for prompts
+// of fewer than 64 queries only: longer ones go to flash_prefill.cu's
+// tensor-core tiles, and single-query decode (K6, K13) to flash_decode.cu's
+// split-KV kernel.
 //
 //   cache k, v: [L, B, KVH, S, D] bf16 or int8, read at `layer`
 //   scales ks, vs: [L, B, KVH, S] f32 (int8 cache only)
 //   q: [B, Lq, H, D] bf16; out: [B, Lq, H, D] bf16; lengths: int32 [B]
-//   query i of row b sits at pos = lengths[b] - Lq + i (decode clips
-//   lengths[b] to [1, S] first) and attends keys in (pos - window, pos],
-//   from kv head h / (H / KVH).
+//   query i of row b sits at pos = lengths[b] - Lq + i and attends keys in
+//   (pos - window, pos], from kv head h / (H / KVH).
 //
 // Numerics follow the TPU kernels: q, K and p are bf16 before their dots
 // (int8 K and V upcast exactly), the dots and the softmax statistics are
@@ -31,13 +29,14 @@
 //
 // Bound on this card: bytes (the K and V rows of the keys attended, and
 // their scales; the work per byte is a few flops). Design, simple first: one
-// warp per (b, h, query); each lane holds D/32 dims of q and of the
-// accumulator, so a K or V row is one coalesced warp-wide read; the warp
-// reduces each score with shuffles, keeps a block's scores in shared memory,
-// and reads only the key blocks in the query's window (blocks past the
-// diagonal or before the window start are never read). GQA heads re-read
-// their kv head's rows (from L2). flash_decode_paged.cu's split over the
-// keys is the redesign this kernel is next for (ROADMAP).
+// warp per (b, h, query), four queries a block; each lane holds D/32 dims of
+// q and of the accumulator, so a K or V row is one coalesced warp-wide read;
+// the warp reduces each score with shuffles, keeps a block's scores in
+// shared memory, and reads only the key blocks in the query's window (blocks
+// past the diagonal or before the window start are never read). GQA heads
+// re-read their kv head's rows (from L2). Below 64 queries the prompt is
+// short (its attention is a small share of the prompt's time), and these
+// sums are what the 2e-2 W*Ax parity bounds rely on (ROADMAP Queue 3).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -76,7 +75,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
                     const T* __restrict__ vc, const float* __restrict__ ks,
                     const float* __restrict__ vs, const int* __restrict__ lengths,
                     __nv_bfloat16* __restrict__ out, int Lq, int H, int KVH, int S,
-                    int window, int bs, float scale, int clip_len) {
+                    int window, int bs, float scale) {
   constexpr int D = DPL * 32;
   constexpr bool QUANT = sizeof(T) == 1;
   extern __shared__ float sc_all[];
@@ -87,9 +86,7 @@ attend_cache_kernel(const __nv_bfloat16* __restrict__ q, const T* __restrict__ k
   if (qi >= Lq) return;  // no block-wide barrier below
   float* sc = sc_all + warp * bs;
 
-  int len = lengths[b];
-  if (clip_len) len = min(max(len, 1), S);
-  const int pos = len - Lq + qi;
+  const int pos = lengths[b] - Lq + qi;
   const int kvh = h / (H / KVH);
   const size_t row0 = ((size_t)b * KVH + kvh) * S;  // this (b, kv head)'s first key
   // dense row pointers set once (recomputing them from a per-block base
@@ -173,7 +170,6 @@ struct Args {
   void* out;
   int B, Lq, H, KVH, S, window, bs;
   float scale;
-  int clip_len;
 };
 
 template <typename T, int DPL, int WARPS>
@@ -183,24 +179,19 @@ int launch(const Args& a, cudaStream_t s) {
   attend_cache_kernel<T, DPL, WARPS><<<grid, WARPS * 32, smem, s>>>(
       (const __nv_bfloat16*)a.q, (const T*)a.kc, (const T*)a.vc, (const float*)a.ks,
       (const float*)a.vs, (const int*)a.lengths, (__nv_bfloat16*)a.out, a.Lq, a.H, a.KVH, a.S,
-      a.window, a.bs, a.scale, a.clip_len);
+      a.window, a.bs, a.scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T, int DPL>
-int launch_d(const Args& a, cudaStream_t s) {
-  return a.Lq == 1 ? launch<T, DPL, 1>(a, s) : launch<T, DPL, 4>(a, s);
 }
 
 template <typename T>
 int launch_t(const Args& a, int D, cudaStream_t s) {
   switch (D) {
     case 64:
-      return launch_d<T, 2>(a, s);
+      return launch<T, 2, 4>(a, s);
     case 128:
-      return launch_d<T, 4>(a, s);
+      return launch<T, 4, 4>(a, s);
     case 256:
-      return launch_d<T, 8>(a, s);
+      return launch<T, 8, 4>(a, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -211,16 +202,16 @@ int launch_t(const Args& a, int D, cudaStream_t s) {
 // k_layer / v_layer point at cache[layer] ([B, KVH, S, D]); quant = 1 means
 // an int8 cache with ks_layer / vs_layer at scales[layer] ([B, KVH, S] f32),
 // quant = 0 a bf16 cache (the scale pointers are ignored); window <= 0 means
-// none; bs (the key block) divides S and is at most 512; clip_len = 1 clips
-// lengths to [1, S] (decode). Returns cudaGetLastError() after the launch.
+// none; bs (the key block) divides S and is at most 512. Returns
+// cudaGetLastError() after the launch.
 extern "C" int flexq_attend_cache(const void* q, const void* k_layer, const void* v_layer,
                                   const void* ks_layer, const void* vs_layer, const void* lengths,
                                   void* out, int B, int Lq, int H, int KVH, int S, int D, int window,
-                                  int bs, float scale, int clip_len, int quant, void* stream) {
+                                  int bs, float scale, int quant, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (H % KVH != 0 || S % bs != 0 || bs > 512) return (int)cudaErrorInvalidValue;
   if (quant && (ks_layer == nullptr || vs_layer == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{q, k_layer, v_layer, ks_layer, vs_layer, lengths, out,
-               B, Lq, H, KVH, S, window, bs, scale, clip_len};
+               B, Lq, H, KVH, S, window, bs, scale};
   return quant ? launch_t<int8_t>(a, D, s) : launch_t<__nv_bfloat16>(a, D, s);
 }

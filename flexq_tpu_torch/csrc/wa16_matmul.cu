@@ -1,6 +1,6 @@
 // W6A16 and W4A16 GEMMs for Hopper (sm_90a), plain C interface: the 6- or
 // 4-bit weights are dequantized to bf16 in the kernel and multiplied with
-// bf16 activations on the tensor cores, f32 accumulation.
+// bf16 activations on the tensor cores (wgmma), f32 accumulation.
 //
 // Replaces the TPU kernels
 //   flexq_tpu/kernels/w6_matmul.py::w6_matmul_bf16      (_w6_bf16_kernel, K7),
@@ -16,7 +16,7 @@
 //        accumulator t, c the column within its 128-wide head, before the cast.
 //   K8:  out = act(g) * u for two such products g (gate) and u (up) of the
 //        same x; act = silu (g * sigmoid(g)) or tanh-approximate gelu, in f32.
-//        The fused-plane variant passes the up pointers as the gate pointers
+//        The fused-plane variant passes the up planes as the gate planes
 //        offset by nh columns, with the plane's row stride: nothing is copied.
 //
 // Numerics: the dequantized weight is bf16((u - BIAS) * ws), one f32 multiply
@@ -24,133 +24,282 @@
 // are exact in f32, so the kernel and its plain version (an f32 product of the
 // same bf16 operands) differ only in the order of the f32 sums.
 //
-// Bound on this card: operations at prefill (M = 2048, K = 4096, N = 11264:
-// 189 GFLOP, 0.19 ms at 989 TFLOP/s, against about 0.03 ms of bytes), bytes at
-// weight-only decode (M = 4: the planes, 0.75 B per weight for W6, 0.5 B for
-// W4: 8.4 MB and 2.5 us for a 4096 x 4096 W4 matrix). Design,
-// simple first: a block computes a BM x 128 output tile (one head, so the
-// RoPE partner column is in the block) with 8 warps; per 128-deep K step (one
-// pack K-tile = one quant group = one scale row) it copies the x tile into
-// shared memory, dequantizes the 128 x 128 weight tile into shared memory in
-// the layout the MMA reads, and runs wmma m16n16k16 bf16 -> f32 fragments;
-// each thread loads the next step's x and plane words into registers while
-// the tensor cores run the current one, so a step waits on one round of
-// global loads, not one per copy. The epilogue stages the f32 accumulators
-// through shared memory (the RoPE partner column sits in another thread's
-// fragment) and writes coalesced rows. No wgmma/TMA and no shared-memory
-// ring yet: that is later work. The W4 format (FMT = 4) loads only the
-// nibble plane and dequantizes each nibble alone; K8 has no W4 counterpart
-// in the reference (its W4 layers run two K11 GEMMs and the GLU apart).
+// Bound on this card: operations at prefill (M = 2048, K = N = 4096: 68.7
+// GFLOP, 0.069 ms at 989 TFLOP/s; K8's 4096 -> 2 x 11264: 0.38 ms), bytes at
+// weight-only decode (M = 4: the planes, 0.75 B a weight for W6, 0.5 B for
+// W4, and their scales: 0.0039 ms for a 4096 x 4096 W6 matrix).
+//
+// Design: a block computes a 128 x 128 tile of weight columns (one 128-wide
+// head for K7 / K11, so the RoPE partner column is in the block; for K8 64
+// gate and the same 64 up columns), walking K in 128-deep steps (one pack
+// K-tile = one quant group = one scale row):
+// - two producer warps keep two rings of shared-memory stages full with TMA
+//   (cp.async.bulk.tensor, completion on mbarriers): 3 stages of the x tile
+//   (two 64-wide boxes in the 128-byte swizzle wgmma reads; TMA zero-fills
+//   rows past M), and 2 stages of the raw plane tiles as they lie on disk
+//   (hi rows [64, 128], lo rows [32, 128] or the W4 nibble rows: 2-D boxes
+//   of the N-minor planes at the weight's column and row stride, so the
+//   fused-plane K8 needs no copy) with the step's scale row. A plane stage
+//   is free once dequantized, an x stage once its wgmmas are done, so both
+//   run two steps ahead;
+// - two consumer warpgroups dequantize a stage's planes into a bf16 weight
+//   tile in shared memory (MN-major, 128-byte swizzle: a thread turns one
+//   plane word, four columns of rows r and r + 64, into two 8-byte stores,
+//   without bank conflicts, at offsets fixed per thread), then each runs
+//   wgmma m64n128k16 (K8: m64n64k16 for gate and up) on its 64 rows of x (a
+//   warpgroup whose rows all lie past M runs none). Three weight tiles
+//   rotate and the wgmmas are asynchronous: a step's MMAs run on the tensor
+//   cores while the warpgroups dequantize the next step, one barrier a
+//   step, and each weight is dequantized once per 128 rows of x;
+// - the epilogue stays in registers: a thread holds columns c and c ^ 64
+//   of the same rows (RoPE), and gate and up of the same columns (K8);
+// - small tile counts (decode, the scheduler's chunks) split K over blocks
+//   so the launch fills the card: each split writes its f32 partial (the
+//   rows below M) to scratch, and the last block of its tile to arrive
+//   (an atomic counter, reset for the next call) adds them in split order
+//   and runs the epilogue, so the call stays one launch;
+// - tiles are walked in groups of 8 row tiles, so the blocks in flight
+//   share their weight tiles and x rows in the L2.
+// The geometry (tiles, splits, scratch size) is computed here alone: the
+// wrapper asks flexq_wa16_matmul_sizes for the scratch it allocates.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from cudaGetDriverEntryPoint
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "pack4.cuh"
 #include "pack6.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-constexpr int BN = 128;      // output columns per block: one 128-wide head
-constexpr int BK = pack6::KT;  // K step: one pack K-tile, one quant group
-constexpr int LDA = BK + 8;  // x tile row pitch (bf16), 16 B padding
-constexpr int LDB = BN + 8;  // weight tile row pitch (bf16)
-constexpr int LDC = BN + 4;  // accumulator staging row pitch (f32)
-constexpr int THREADS = 256;
+constexpr int BK = pack6::KT;   // K step: one pack K-tile, one quant group
+constexpr int WT = 128;         // weight columns of a stage (NB weights of WT / NB columns)
+constexpr int GROUP_M = 8;      // row tiles walked together
+constexpr int MAX_SPLITS = 16;
 
-template <int BM, int NB>
-constexpr size_t smem_bytes() {
-  const size_t ab = (size_t)BM * LDA * 2 + (size_t)NB * BK * LDB * 2;
-  const size_t cb = (size_t)NB * BM * LDC * 4;
-  return ab > cb ? ab : cb;
-}
-
-// One K step's global data for this thread, loaded into registers a step
-// ahead of its use. Weight item j of a thread is nibble (hi) row r =
-// threadIdx.x / 32 + 8 j (rows r and r + 64 of the K-tile) of four adjacent
-// columns; for FMT 6 rows r and r + 32 share their lo row, so four lo words
-// serve the eight items.
-constexpr int WITEMS = 64 * (BN / 4) / THREADS;
-
-template <int BM, int NB, int FMT>
-struct Stage {
-  uint4 x[BM * (BK / 8) / THREADS];  // the x tile, 16 B per copy
-  uint32_t h[NB][WITEMS];
-  uint32_t l[NB][FMT == 6 ? WITEMS / 2 : 1];
-  float4 s[NB];  // the step's scales of the thread's four columns
+struct Cfg {
+  static constexpr int BM = 128;                 // rows of a tile: a warpgroup per 64
+  static constexpr int SX = 3;                   // stages of the x ring
+  static constexpr int SP = 2;                   // stages of the plane ring
+  static constexpr int NBUF = 3;                 // bf16 weight tiles
+  static constexpr int CT = 256;                 // consumer threads: two warpgroups
+  static constexpr int THREADS = CT + 64;        // and two producer warps (x, planes)
+  static constexpr int X_BYTES = BM * BK * 2;    // x tile: two [BM][64] bf16 halves
+  static constexpr int B_BYTES = BK * WT * 2;    // the bf16 weight tile of a step
+  static constexpr int HI_BYTES = 64 * WT, LO_BYTES = 32 * WT, SC_BYTES = WT * 4;
+  static constexpr int OFF_B = SX * X_BYTES;     // offsets from the 1024-byte aligned base
+  static constexpr int OFF_HI = OFF_B + NBUF * B_BYTES;
+  static constexpr int OFF_LO = OFF_HI + SP * HI_BYTES;
+  static constexpr int OFF_SC = OFF_LO + SP * LO_BYTES;
+  static constexpr int OFF_BAR = OFF_SC + SP * SC_BYTES;  // x full / empty, plane full / empty, flag
+  static constexpr int SMEM = OFF_BAR + 2 * (SX + SP) * 8 + 16 + 1024;  // + room to align the base
 };
 
-template <int BM, int NB, int FMT>
-__device__ __forceinline__ void load_stage(Stage<BM, NB, FMT>& st, const __nv_bfloat16* __restrict__ x,
-                                           const uint8_t* const (&hi)[2],
-                                           const uint8_t* const (&lo)[2],
-                                           const float* const (&ws)[2], int M, int K, int ldw,
-                                           int m0, int n0, int t) {
-  const int xr = threadIdx.x / (BK / 8), xc = (threadIdx.x % (BK / 8)) * 8;
-#pragma unroll
-  for (int j = 0; j < BM * (BK / 8) / THREADS; ++j) {
-    const int r = xr + j * (THREADS / (BK / 8));
-    st.x[j] = make_uint4(0u, 0u, 0u, 0u);  // rows past M are zero
-    if (m0 + r < M)
-      st.x[j] = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + (size_t)t * BK + xc);
-  }
-  const int wr = threadIdx.x / (BN / 4), wc = n0 + (threadIdx.x % (BN / 4)) * 4;
-#pragma unroll
-  for (int w = 0; w < NB; ++w) {
-#pragma unroll
-    for (int j = 0; j < WITEMS; ++j)
-      st.h[w][j] = *reinterpret_cast<const uint32_t*>(hi[w] + (size_t)(t * 64 + wr + 8 * j) * ldw + wc);
-    if constexpr (FMT == 6) {
-#pragma unroll
-      for (int j = 0; j < WITEMS / 2; ++j)
-        st.l[w][j] = *reinterpret_cast<const uint32_t*>(lo[w] + (size_t)(t * 32 + wr + 8 * j) * ldw + wc);
-    }
-    st.s[w] = *reinterpret_cast<const float4*>(ws[w] + (size_t)t * ldw + wc);
+struct Params {
+  const float* cosv;  // RoPE f32 [M, 128] (or null)
+  const float* sin2;
+  void* out;          // [M, N] bf16 or f32
+  float* part;        // split partials
+  int* counters;      // arrival counters, one per tile
+  int M, N, K, out_bf16, act;
+  int m_tiles, n_tiles, splits, sps;  // sps: K steps a split
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
   }
 }
 
-// Write a loaded step into shared memory: the x tile as is, each weight
-// dequantized to bf16 into its [BK][LDB] tile (row = k).
-template <int BM, int NB, int FMT>
-__device__ __forceinline__ void store_stage(const Stage<BM, NB, FMT>& st, __nv_bfloat16* As,
-                                            __nv_bfloat16* Bs) {
-  const int xr = threadIdx.x / (BK / 8), xc = (threadIdx.x % (BK / 8)) * 8;
+// 2-D TMA load of a box at (c0 = column, c1 = row) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// the consumer warpgroups' own barrier (id 1; the producer warp is not in it)
+template <int N>
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes to shared memory, visible to wgmma (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmmas
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int j = 0; j < BM * (BK / 8) / THREADS; ++j)
-    *reinterpret_cast<uint4*>(As + (xr + j * (THREADS / (BK / 8))) * LDA + xc) = st.x[j];
-  const int wr = threadIdx.x / (BN / 4), wc = (threadIdx.x % (BN / 4)) * 4;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout B128
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) | (1ull << 62);
+}
+
+// d += A (64 x 16, K-major) * B (16 x 128, MN-major), bf16 in, f32 accumulators
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A (64 x 16, K-major) * B (16 x 64, MN-major), bf16 in, f32 accumulators
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// bf16((u - bias) * s) of the four biased values in the bytes of u4 (one
+// f32 multiply, rounded to nearest-even; (2^23 + u) - (2^23 + bias) is
+// u - bias exactly), stored as four neighbouring columns at dst.
+template <int BIAS>
+__device__ __forceinline__ void store4(uint8_t* dst, uint32_t u4, const float4& s) {
+  constexpr float MAGIC = 8388608.0f + (float)BIAS;
+  const float sc[4] = {s.x, s.y, s.z, s.w};
+  uint32_t packed[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q = 2 * h + e;
+      const float f = __int_as_float((int)__byte_perm(u4, 0x4B000000u, 0x7440u + q)) - MAGIC;
+      v[e] = __fmul_rn(f, sc[q]);
+    }
+    const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[0], v[1]);
+    packed[h] = *reinterpret_cast<const uint32_t*>(&b2);
+  }
+  *reinterpret_cast<uint2*>(dst) = make_uint2(packed[0], packed[1]);
+}
+
+// A consumer thread's part of the dequant. A stage holds NB weights, each
+// [64][WN] hi bytes, [32][WN] lo bytes and [WN] f32 scales as TMA laid them
+// down; an item is one plane word (four columns) of hi row r, i.e. K rows r
+// and r + 64. Thread ct always takes column word lw = ct % (WN / 4) and the
+// rows r0 + RS j (r0 = ct / (WN / 4) < RS, RS a multiple of 8), so its
+// offsets are fixed but for compile-time steps, and the swizzle of its
+// stores ((chunk ^ (k % 8)) in the weight tile's 128-byte rows) is the same
+// for all of them. A warp's 32 items read 32 neighbouring words.
+template <int NB>
+struct Dq {
+  static constexpr int WN = WT / NB;        // columns of a weight
+  static constexpr int RS = Cfg::CT / (WN / 4);  // rows between a thread's items
+  static_assert(RS % 8 == 0 && 32 % RS == 0, "a thread's rows share their swizzle");
+  int col;   // its first column (byte offset of its word in a plane row; 4 columns)
+  int row0;  // r0 * WN + col: its first item's offset in a weight's hi / lo tile
+  int b;     // its first item's byte offset in a weight's bf16 tile (MN-major, 64-column atoms of [BK][128 bytes])
+  __device__ __forceinline__ explicit Dq(int ct) {
+    const int lw = ct % (WN / 4), r0 = ct / (WN / 4);
+    col = 4 * lw;
+    row0 = r0 * WN + col;
+    const int c = col & 63;
+    b = (col >> 6) * (BK * 128) + r0 * 128 + ((((c >> 3) ^ (r0 & 7)) << 4) | ((c & 7) << 1));
+  }
+};
+
+template <int NB, int FMT>
+__device__ __forceinline__ void dequant(const uint8_t* hi, const uint8_t* lo, const float* sc, uint8_t* bt,
+                                        const Dq<NB>& q) {
+  constexpr int WN = Dq<NB>::WN, RS = Dq<NB>::RS;
 #pragma unroll
   for (int w = 0; w < NB; ++w) {
-    const float s[4] = {st.s[w].x, st.s[w].y, st.s[w].z, st.s[w].w};
-    __nv_bfloat16* Bt = Bs + w * BK * LDB;
+    const float4 s = *reinterpret_cast<const float4*>(sc + w * WN + q.col);
 #pragma unroll
-    for (int j = 0; j < WITEMS; ++j) {
-      const int r = wr + 8 * j;
-      const uint32_t h = st.h[w][j];
-      uint32_t va[2] = {0u, 0u}, vb[2] = {0u, 0u};  // four bf16 each, column wc in the low half
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        int ua, ub, bias;
-        if constexpr (FMT == 6) {
-          const uint32_t l = st.l[w][j % (WITEMS / 2)];
-          pack6::unpack_pair((h >> (8 * q)) & 0xFFu, (l >> (8 * q)) & 0xFFu, r, ua, ub);
-          bias = pack6::BIAS;
-        } else {
-          pack4::unpack_pair((h >> (8 * q)) & 0xFFu, ua, ub);
-          bias = pack4::BIAS;
-        }
-        const uint32_t ba = __bfloat16_as_ushort(
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ua - bias), s[q])));
-        const uint32_t bb = __bfloat16_as_ushort(
-            __float2bfloat16_rn(__fmul_rn(__int2float_rn(ub - bias), s[q])));
-        va[q >> 1] |= ba << (16 * (q & 1));
-        vb[q >> 1] |= bb << (16 * (q & 1));
+    for (int j = 0; j < 64 / RS; ++j) {
+      const int dr = RS * j;  // hi row r = r0 + dr; K rows r and r + 64
+      const uint32_t h = *reinterpret_cast<const uint32_t*>(hi + w * 64 * WN + q.row0 + dr * WN);
+      uint8_t* t = bt + w * (BK * WN * 2) + q.b + dr * 128;
+      if constexpr (FMT == 6) {
+        // rows r and r + 64 take the lo crumbs r / 32 and r / 32 + 2 of lo row r % 32
+        const uint32_t l = *reinterpret_cast<const uint32_t*>(lo + w * 32 * WN + q.row0 + (dr & 31) * WN);
+        const int sh = 2 * (dr >> 5);  // a compile-time constant: r0 < RS and RS divides 32
+        store4<pack6::BIAS>(t, ((h & 0x0F0F0F0Fu) << 2) | ((l >> sh) & 0x03030303u), s);
+        store4<pack6::BIAS>(t + 64 * 128, (((h >> 4) & 0x0F0F0F0Fu) << 2) | ((l >> (sh + 4)) & 0x03030303u), s);
+      } else {
+        store4<pack4::BIAS>(t, h & 0x0F0F0F0Fu, s);
+        store4<pack4::BIAS>(t + 64 * 128, (h >> 4) & 0x0F0F0F0Fu, s);
       }
-      *reinterpret_cast<uint2*>(Bt + r * LDB + wc) = make_uint2(va[0], va[1]);
-      *reinterpret_cast<uint2*>(Bt + (r + 64) * LDB + wc) = make_uint2(vb[0], vb[1]);
     }
   }
 }
@@ -163,163 +312,418 @@ __device__ __forceinline__ float act_f32(float g, int act) {
   return __fmul_rn(g, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
 }
 
-// NB = 1: K7 / K11 (ROPE optional); NB = 2: K8 (weight 0 = gate, weight 1 = up).
-// FMT: 6 (hi + lo planes) or 4 (the nibble plane in the hi pointer).
-template <int BM, int NB, bool ROPE, int FMT>
-__global__ void __launch_bounds__(THREADS)
-w6_bf16_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ hi0,
-               const uint8_t* __restrict__ lo0, const float* __restrict__ ws0,
-               const uint8_t* __restrict__ hi1, const uint8_t* __restrict__ lo1,
-               const float* __restrict__ ws1, const float* __restrict__ cosv,
-               const float* __restrict__ sin2, void* __restrict__ out, int M, int N, int K,
-               int ldw, int out_bf16, int act) {
-  constexpr int WARPS_M = BM / 32;            // each warp: 32 rows
-  constexpr int WARPS_N = (THREADS / 32) / WARPS_M;
-  constexpr int WN = BN / WARPS_N;            // columns per warp
-  constexpr int FM = 2, FN = WN / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;          // NB tiles of BK * LDB
-  float* Cs = reinterpret_cast<float*>(smem);  // NB tiles of BM * LDC, after the K loop
+// RoPE's cos and sin2 of columns c, c + 1 of row m, through the read-only
+// path (so the loads need not wait for the output stores before them)
+__device__ __forceinline__ float4 rope_pair(const Params& p, int m, int c) {
+  const float2 cs = __ldg(reinterpret_cast<const float2*>(p.cosv + (size_t)m * 128 + c));
+  const float2 sn = __ldg(reinterpret_cast<const float2*>(p.sin2 + (size_t)m * 128 + c));
+  return make_float4(cs.x, cs.y, sn.x, sn.y);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+// The epilogue of one output pair: columns c, c + 1 (within the tile) of row m.
+// t: the f32 sums of those columns; rot: of columns c ^ 64, c ^ 64 + 1, and
+// cs: rope_pair(p, m, c) (RoPE); u: the up sums (K8).
+template <int NB, bool ROPE>
+__device__ __forceinline__ void emit(const Params& p, int m, int col, float2 t, float2 rot, float4 cs, float2 u) {
+  if constexpr (ROPE) {
+    const float2 sn = make_float2(cs.z, cs.w);
+    t.x = __fadd_rn(__fmul_rn(t.x, cs.x), __fmul_rn(rot.x, sn.x));
+    t.y = __fadd_rn(__fmul_rn(t.y, cs.y), __fmul_rn(rot.y, sn.y));
+  }
+  if constexpr (NB == 2) {
+    t.x = __fmul_rn(act_f32(t.x, p.act), u.x);
+    t.y = __fmul_rn(act_f32(t.y, p.act), u.y);
+  }
+  const size_t o = (size_t)m * p.N + col;
+  if (p.out_bf16)
+    *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<__nv_bfloat16*>(p.out) + o) = __floats2bfloat162_rn(t.x, t.y);
+  else
+    *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + o) = t;
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NB][FM][FN];
+// The consumer warpgroups of a block: dequantize each stage into the weight
+// tile, run the wgmmas on it, and write the tile (or this split's partial,
+// and the sum of all splits in the block that arrives last). A warpgroup
+// whose 64 rows all lie past M (M <= 64) runs no MMA, only its share of the
+// dequant.
+template <int NB, bool ROPE, int FMT>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint64_t* bars, int m_tile, int n_tile,
+                                        int split, int nsteps) {
+  using C = Cfg;
+  constexpr int BM = C::BM, SX = C::SX, SP = C::SP, CT = C::CT;
+  uint64_t *xfull = bars, *xempty = bars + SX, *pfull = bars + 2 * SX, *pempty = bars + 2 * SX + SP;
+  int* last_flag = reinterpret_cast<int*>(bars + 2 * (SX + SP));
+  const int m0 = m_tile * BM, n0 = n_tile * (WT / NB);
+  constexpr int WN = WT / NB, NACC = WN / 2;
+  const int ct = threadIdx.x, wg = ct >> 7, lane = ct & 31, wq = (ct & 127) >> 5;
+  const bool mma = m0 + 64 * wg < p.M;
+  const Dq<NB> dq(ct);
+  float acc[NB][NACC];
 #pragma unroll
-  for (int j = 0; j < NB; ++j)
+  for (int w = 0; w < NB; ++w)
 #pragma unroll
-    for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-      for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[j][fm][fn], 0.0f);
+    for (int i = 0; i < NACC; ++i) acc[w][i] = 0.f;
+  const uint32_t sx = smem_u32(smem), sb = smem_u32(smem + C::OFF_B);
+  // step i's planes into weight tile buf; the plane stage is free afterwards
+  auto stage_dequant = [&](int i, int buf) {
+    const int slot = i % SP;
+    mbar_wait(&pfull[slot], (i / SP) & 1);
+    dequant<NB, FMT>(smem + C::OFF_HI + slot * C::HI_BYTES, smem + C::OFF_LO + slot * C::LO_BYTES,
+                     reinterpret_cast<const float*>(smem + C::OFF_SC + slot * C::SC_BYTES),
+                     smem + C::OFF_B + buf * C::B_BYTES, dq);
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&pempty[slot]);
+  };
 
-  const uint8_t* const his[2] = {hi0, hi1};
-  const uint8_t* const los[2] = {lo0, lo1};
-  const float* const wss[2] = {ws0, ws1};
-  const int nt = K / BK;
-  Stage<BM, NB, FMT> st;
-  load_stage(st, x, his, los, wss, M, K, ldw, m0, n0, 0);
-  for (int t = 0; t < nt; ++t) {
-    store_stage(st, As, Bs);
-    __syncthreads();
-    // the next step's loads are in flight while the tensor cores run this one
-    if (t + 1 < nt) load_stage(st, x, his, los, wss, M, K, ldw, m0, n0, t + 1);
+  stage_dequant(0, 0);
+  consumers_sync<CT>();
+  for (int i = 0; i < nsteps; ++i) {
+    const int slot = i % SX, buf = i % C::NBUF;
+    mbar_wait(&xfull[slot], (i / SX) & 1);
+    if (mma) {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[FM];
+      for (int w = 0; w < NB; ++w) fence_regs(acc[w]);
 #pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-        wmma::load_matrix_sync(a[fm], As + (wm * 32 + fm * 16) * LDA + kk, LDA);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // x: this warpgroup's 64 rows of the K half kk / 4, 16 columns in
+        const uint64_t da =
+            desc_sw128(sx + slot * C::X_BYTES + (kk >> 2) * (BM * 128) + wg * (64 * 128) + (kk & 3) * 32, 16, 1024);
 #pragma unroll
-      for (int j = 0; j < NB; ++j)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, Bs + j * BK * LDB + kk * LDB + wn * WN + fn * 16, LDB);
-#pragma unroll
-          for (int fm = 0; fm < FM; ++fm) wmma::mma_sync(acc[j][fm][fn], a[fm], b, acc[j][fm][fn]);
+        for (int w = 0; w < NB; ++w) {
+          // weight: K rows 16 kk .. 16 kk + 15; 64-column atoms 16 KB apart
+          const uint64_t db =
+              desc_sw128(sb + buf * C::B_BYTES + w * (BK * WN * 2) + kk * (16 * 128), BK * 128, 1024);
+          if constexpr (WN == 128)
+            wgmma_n128(acc[w], da, db);
+          else
+            wgmma_n64(acc[w], da, db);
         }
+      }
     }
-    __syncthreads();  // the tiles are rewritten by the next step (and by Cs)
+    wgmma_commit();
+    // the next step's weight tile, while this step's wgmmas run; its buffer
+    // was last read by step i - 2, which every warpgroup has finished
+    if (i + 1 < nsteps) stage_dequant(i + 1, (i + 1) % C::NBUF);
+    wgmma_wait<1>();  // this warpgroup's step i - 1 is done: its x stage is free
+#pragma unroll
+    for (int w = 0; w < NB; ++w) fence_regs(acc[w]);
+    if (i >= 1 && lane == 0) mbar_arrive(&xempty[(i - 1) % SX]);
+    consumers_sync<CT>();  // tile i + 1 is written, and every warpgroup is done with step i - 1
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int w = 0; w < NB; ++w) fence_regs(acc[w]);
+
+  // fragment: rows r and r + 8, columns 8 j + cq and + 1, at acc[4 j + {0, 1}] and acc[4 j + {2, 3}]
+  const int rt = wg * 64 + wq * 16 + (lane >> 2);  // row within the tile
+  const int cq = 2 * (lane & 3);
+  const float2 zero = make_float2(0.f, 0.f);
+  if (p.splits == 1) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + rt + 8 * hr;
+      if (m >= p.M) continue;
+      float4 cs[WN / 8];  // the row's RoPE operands, all loads in flight at once
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) cs[j] = ROPE ? rope_pair(p, m, 8 * j + cq) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j) {
+        const float2 t = make_float2(acc[0][4 * j + 2 * hr], acc[0][4 * j + 2 * hr + 1]);
+        float2 rot = zero, u = zero;
+        if constexpr (ROPE) rot = make_float2(acc[0][4 * (j ^ 8) + 2 * hr], acc[0][4 * (j ^ 8) + 2 * hr + 1]);
+        if constexpr (NB == 2) u = make_float2(acc[NB - 1][4 * j + 2 * hr], acc[NB - 1][4 * j + 2 * hr + 1]);
+        emit<NB, ROPE>(p, m, n0 + 8 * j + cq, t, rot, cs[j], u);
+      }
+    }
+    return;
   }
 
+  // split K: this split's partial (rows below M; weight w at columns w WN ..)
+  const int tile_id = m_tile * p.n_tiles + n_tile;
+  float* tile_part = p.part + (size_t)tile_id * p.splits * BM * WT;
 #pragma unroll
-  for (int j = 0; j < NB; ++j)
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = rt + 8 * hr;
+    if (m0 + r >= p.M) continue;
 #pragma unroll
-    for (int fm = 0; fm < FM; ++fm)
+    for (int w = 0; w < NB; ++w)
 #pragma unroll
-      for (int fn = 0; fn < FN; ++fn)
-        wmma::store_matrix_sync(Cs + j * BM * LDC + (wm * 32 + fm * 16) * LDC + wn * WN + fn * 16,
-                                acc[j][fm][fn], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-#pragma unroll 8
-  for (int j = 0; j < BM * BN / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / BN, c = i % BN;
-    const int m = m0 + r;
-    if (m >= M) continue;
-    float v = Cs[r * LDC + c];
-    if (ROPE) {
-      const float rot = Cs[r * LDC + (c ^ 64)];  // column (c + 64) mod 128 of this head
-      v = __fadd_rn(__fmul_rn(v, cosv[(size_t)m * 128 + c]), __fmul_rn(rot, sin2[(size_t)m * 128 + c]));
+      for (int j = 0; j < WN / 8; ++j)
+        *reinterpret_cast<float2*>(tile_part + ((size_t)split * BM + r) * WT + w * WN + 8 * j + cq) =
+            make_float2(acc[w][4 * j + 2 * hr], acc[w][4 * j + 2 * hr + 1]);
+  }
+  __threadfence();  // the partial is visible to the block that combines
+  consumers_sync<CT>();
+  if (ct == 0) {
+    const int last = atomicAdd(p.counters + tile_id, 1) == p.splits - 1;
+    if (last) p.counters[tile_id] = 0;  // ready for the next call
+    *last_flag = last;
+  }
+  consumers_sync<CT>();
+  if (!*last_flag) return;
+  __threadfence();
+  // the last block: the sums in split order, then the epilogue; four
+  // columns a thread, four such groups in flight
+  const int rows = min(BM, p.M - m0);
+  auto sum4 = [&](int r, int c) {
+    float4 v = __ldcg(reinterpret_cast<const float4*>(tile_part + (size_t)r * WT + c));
+    for (int sp = 1; sp < p.splits; ++sp) {
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(tile_part + ((size_t)sp * BM + r) * WT + c));
+      v = make_float4(__fadd_rn(v.x, a.x), __fadd_rn(v.y, a.y), __fadd_rn(v.z, a.z), __fadd_rn(v.w, a.w));
     }
-    if (NB == 2) v = __fmul_rn(act_f32(v, act), Cs[BM * LDC + r * LDC + c]);
-    const size_t o = (size_t)m * N + n0 + c;
-    if (out_bf16)
-      reinterpret_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(v);
-    else
-      reinterpret_cast<float*>(out)[o] = v;
+    return v;
+  };
+  constexpr int G4 = WN / 4;  // four-column groups of a row
+  for (int e0 = ct; e0 < rows * G4; e0 += 4 * CT) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = e0 + k * CT;
+      if (e < rows * G4) {
+        const int r = e / G4, c = 4 * (e % G4);
+        const float4 t = sum4(r, c);
+        float4 rot = make_float4(0.f, 0.f, 0.f, 0.f), u = rot;
+        if constexpr (ROPE) rot = sum4(r, c ^ 64);
+        if constexpr (NB == 2) u = sum4(r, WN + c);
+        const float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        emit<NB, ROPE>(p, m0 + r, n0 + c, make_float2(t.x, t.y), make_float2(rot.x, rot.y),
+                       ROPE ? rope_pair(p, m0 + r, c) : z4, make_float2(u.x, u.y));
+        emit<NB, ROPE>(p, m0 + r, n0 + c + 2, make_float2(t.z, t.w), make_float2(rot.z, rot.w),
+                       ROPE ? rope_pair(p, m0 + r, c + 2) : z4, make_float2(u.z, u.w));
+      }
+    }
   }
 }
 
-template <int BM, int NB, bool ROPE, int FMT>
-int launch(const void* x, const void* hi0, const void* lo0, const void* ws0, const void* hi1,
-           const void* lo1, const void* ws1, const void* cosv, const void* sin2, void* out,
-           int M, int N, int K, int ldw, int out_bf16, int act, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<BM, NB>();
-  cudaError_t e = cudaFuncSetAttribute(w6_bf16_kernel<BM, NB, ROPE, FMT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  w6_bf16_kernel<BM, NB, ROPE, FMT><<<grid, THREADS, smem, s>>>(
-      (const __nv_bfloat16*)x, (const uint8_t*)hi0, (const uint8_t*)lo0, (const float*)ws0,
-      (const uint8_t*)hi1, (const uint8_t*)lo1, (const float*)ws1, (const float*)cosv,
-      (const float*)sin2, out, M, N, K, ldw, out_bf16, act);
+// NB = 1: K7 / K11 (ROPE optional); NB = 2: K8 (weight 0 = gate, weight 1
+// = up). FMT: 6 (hi + lo planes) or 4 (the nibble plane in the hi maps).
+template <int NB, bool ROPE, int FMT>
+__global__ void __launch_bounds__(Cfg::THREADS, 1)
+wa16_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th0,
+            const __grid_constant__ CUtensorMap tl0, const __grid_constant__ CUtensorMap ts0,
+            const __grid_constant__ CUtensorMap th1, const __grid_constant__ CUtensorMap tl1,
+            const __grid_constant__ CUtensorMap ts1, const Params p) {
+  using C = Cfg;
+  constexpr int BM = C::BM, SX = C::SX, SP = C::SP, CT = C::CT;
+  constexpr int WN = WT / NB;  // columns of one weight in a tile (= output columns)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t *xfull = bars, *xempty = bars + SX, *pfull = bars + 2 * SX, *pempty = bars + 2 * SX + SP;
+
+  // this block's tile (row tiles walked in groups of GROUP_M) and K split
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int per_group = GROUP_M * p.n_tiles;
+  const int first_m = tile / per_group * GROUP_M;
+  const int gm = min(p.m_tiles - first_m, GROUP_M);
+  const int m_tile = first_m + (tile % per_group) % gm, n_tile = (tile % per_group) / gm;
+  const int m0 = m_tile * BM, n0 = n_tile * WN;
+  const int t0 = split * p.sps, nsteps = min(p.K / BK - t0, p.sps);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < SX; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], CT / 32);
+    }
+#pragma unroll
+    for (int s = 0; s < SP; ++s) {
+      mbar_init(&pfull[s], 1);
+      mbar_init(&pempty[s], CT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x == CT) {  // x producer: the step's two 64-wide K halves
+    for (int i = 0; i < nsteps; ++i) {
+      const int slot = i % SX, t = t0 + i;
+      if (i >= SX) mbar_wait(&xempty[slot], ((i / SX) + 1) & 1);  // its last step's wgmmas are done
+      mbar_expect_tx(&xfull[slot], BM * BK * 2);
+      uint8_t* xs = smem + slot * C::X_BYTES;
+      tma_load(xs, &tx, t * BK, m0, &xfull[slot]);
+      tma_load(xs + BM * 128, &tx, t * BK + 64, m0, &xfull[slot]);
+    }
+  } else if (threadIdx.x == CT + 32) {  // plane producer: runs up to SP steps ahead of the dequant
+    const CUtensorMap* hm[2] = {&th0, &th1};
+    const CUtensorMap* lm[2] = {&tl0, &tl1};
+    const CUtensorMap* sm[2] = {&ts0, &ts1};
+    constexpr uint32_t TX = NB * (64 * WN + (FMT == 6 ? 32 * WN : 0) + WN * 4);
+    for (int i = 0; i < nsteps; ++i) {
+      const int slot = i % SP, t = t0 + i;
+      if (i >= SP) mbar_wait(&pempty[slot], ((i / SP) + 1) & 1);  // its last step is dequantized
+      mbar_expect_tx(&pfull[slot], TX);
+#pragma unroll
+      for (int w = 0; w < NB; ++w) {
+        tma_load(smem + C::OFF_HI + slot * C::HI_BYTES + w * 64 * WN, hm[w], n0, t * 64, &pfull[slot]);
+        if (FMT == 6)
+          tma_load(smem + C::OFF_LO + slot * C::LO_BYTES + w * 32 * WN, lm[w], n0, t * 32, &pfull[slot]);
+        tma_load(smem + C::OFF_SC + slot * C::SC_BYTES + w * WN * 4, sm[w], n0, t, &pfull[slot]);
+      }
+    }
+  } else if (threadIdx.x < CT) {
+    consume<NB, ROPE, FMT>(p, smem, bars, m_tile, n_tile, split, nsteps);
+  }
+}
+
+// ---- host side ----------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link flag)
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// a 2-D map of a row-major [rows, cols] array with row stride row_bytes,
+// read in boxes of [box_rows, box_cols]; elements past the edges read 0
+bool make_map(CUtensorMap* map, CUtensorMapDataType dt, const void* base, uint64_t cols, uint64_t rows,
+              uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_fn();
+  if (fn == nullptr || base == nullptr || reinterpret_cast<uintptr_t>(base) % 16 || row_bytes % 16) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, dt, 2, const_cast<void*>(base), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The launch's geometry, the one place it is computed: tiles of 128 rows and
+// 128 / NB output columns. While the tiles alone leave SMs idle (fewer tiles
+// than SMs), K is split into the fewest splits that fill the card as well as
+// any up to MAX_SPLITS (waves of one block an SM, per split); a launch of as
+// many tiles as SMs or more is never split,
+// so its rows sum in the same order at every such M (a chunked prefill gives
+// the whole prompt's bits).
+struct Geometry {
+  int m_tiles, n_tiles, splits, sps;
+};
+
+Geometry geometry(int M, int N, int K, int nb) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  Geometry g;
+  g.m_tiles = (M + Cfg::BM - 1) / Cfg::BM;
+  g.n_tiles = N / (WT / nb);
+  const long long tiles = (long long)g.m_tiles * g.n_tiles;
+  const int steps = K / BK;
+  int best = 1;
+  long long best_waves = (tiles + sms - 1) / sms;
+  for (int s = 2; tiles < sms && s <= MAX_SPLITS && s <= steps; ++s) {
+    const long long waves = (tiles * s + sms - 1) / sms;
+    if (waves * best < best_waves * s) {  // waves / s < best_waves / best
+      best = s;
+      best_waves = waves;
+    }
+  }
+  g.sps = (steps + best - 1) / best;
+  g.splits = (steps + g.sps - 1) / g.sps;
+  return g;
+}
+
+long long scratch_floats(const Geometry& g) {
+  return g.splits > 1 ? (long long)g.m_tiles * g.n_tiles * g.splits * Cfg::BM * WT : 0;
+}
+
+struct Maps {
+  CUtensorMap x, h[2], l[2], s[2];
+};
+
+template <int NB, bool ROPE, int FMT>
+int launch(const Maps& m, const Params& p, cudaStream_t s) {
+  auto kern = wa16_kernel<NB, ROPE, FMT>;
+  constexpr int smem = Cfg::SMEM;
+  static bool attr_set = false;  // once per instance: above 48 KB only after this
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  dim3 grid(p.m_tiles * p.n_tiles, p.splits);
+  kern<<<grid, Cfg::THREADS, smem, s>>>(m.x, m.h[0], m.l[0], m.s[0], m.h[1], m.l[1], m.s[1], p);
   return (int)cudaGetLastError();
 }
 
-// One launch of the format's kernel; glu (K8) is W6 only.
-template <int FMT>
-int dispatch(const void* x, const void* hi0, const void* lo0, const void* ws0, const void* hi1,
-             const void* lo1, const void* ws1, const void* cosv, const void* sin2, void* out, int M,
-             int N, int K, int ldw, int out_bf16, int glu, int act, int bm, cudaStream_t s) {
-  const bool rope = cosv != nullptr;
-  if (glu) {
-    if constexpr (FMT == 6) {
-      if (bm != 64 || rope || (act != 0 && act != 1)) return (int)cudaErrorInvalidValue;
-      return launch<64, 2, false, FMT>(x, hi0, lo0, ws0, hi1, lo1, ws1, nullptr, nullptr, out, M, N,
-                                       K, ldw, out_bf16, act, s);
-    }
-    return (int)cudaErrorInvalidValue;
-  }
-  if (bm == 64 && rope)
-    return launch<64, 1, true, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out, M,
-                                    N, K, ldw, out_bf16, 0, s);
-  if (bm == 64)
-    return launch<64, 1, false, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                     out, M, N, K, ldw, out_bf16, 0, s);
-  if (bm == 128 && rope)
-    return launch<128, 1, true, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, cosv, sin2, out,
-                                     M, N, K, ldw, out_bf16, 0, s);
-  if (bm == 128)
-    return launch<128, 1, false, FMT>(x, hi0, lo0, ws0, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                      out, M, N, K, ldw, out_bf16, 0, s);
-  return (int)cudaErrorInvalidValue;
+int dispatch(const Maps& m, const Params& p, int glu, int fmt, bool rope, cudaStream_t s) {
+  if (glu) return launch<2, false, 6>(m, p, s);
+  if (fmt == 6) return rope ? launch<1, true, 6>(m, p, s) : launch<1, false, 6>(m, p, s);
+  return rope ? launch<1, true, 4>(m, p, s) : launch<1, false, 4>(m, p, s);
+}
+
+bool bad_args(int M, int N, int K, int glu, int fmt) {
+  return M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || N % WT != 0 || (fmt != 6 && fmt != 4) || (glu && fmt != 6);
 }
 
 }  // namespace
 
-// fmt 6 (K7 / K8): weight j is hi [K/2, ldw], lo [K/4, ldw], ws f32
+// fmt 6 (K7 / K8): weight j is hi [K/2, ldw] bytes, lo [K/4, ldw], ws f32
 // [K/128, ldw]; fmt 4 (K11): the nibble plane [K/2, ldw] in hi, lo null.
-// Pointers at the weight's first column; x: bf16 [M, K]; out: [M, N] bf16
-// or f32. glu = 0: K7 / K11 over weight 0, with RoPE when cos / sin2 (f32
-// [M, 128]) are not null; glu = 1 (fmt 6 only): K8, weight 0 = gate, weight
-// 1 = up, act 0 = silu, 1 = gelu. bm: rows per block, 64 or 128 (K8: 64).
-// Returns cudaGetLastError() after the launch.
+// Pointers at the weight's first column (16-byte aligned; ldw % 16 == 0); x:
+// bf16 [M, K] (16-byte aligned); out: [M, N] bf16 or f32. glu = 0: K7 / K11
+// over weight 0, with RoPE when cos / sin2 (f32 [M, 128]) are not null;
+// glu = 1 (fmt 6 only): K8, weight 0 = gate, weight 1 = up, act 0 = silu,
+// 1 = gelu. part: f32 scratch of part_size floats and counters: int32, zero
+// before the first call (each call leaves them zero), at least the sizes
+// flexq_wa16_matmul_sizes gives. Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for arguments it refuses.
 extern "C" int flexq_wa16_matmul(const void* x, const void* hi0, const void* lo0, const void* ws0,
-                                 const void* hi1, const void* lo1, const void* ws1,
-                                 const void* cosv, const void* sin2, void* out, int M, int N, int K,
-                                 int ldw, int out_bf16, int glu, int act, int bm, int fmt, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (M <= 0 || N <= 0 || K % BK != 0 || N % BN != 0 || ldw % 4 != 0 || ldw < N)
+                                 const void* hi1, const void* lo1, const void* ws1, const void* cosv,
+                                 const void* sin2, void* out, void* part, long long part_size, void* counters,
+                                 int M, int N, int K, int ldw, int out_bf16, int glu, int act, int fmt,
+                                 void* stream) {
+  if (bad_args(M, N, K, glu, fmt) || ldw < N || ldw % 16 != 0 || (glu && act != 0 && act != 1))
     return (int)cudaErrorInvalidValue;
-  if (fmt == 6)
-    return dispatch<6>(x, hi0, lo0, ws0, hi1, lo1, ws1, cosv, sin2, out, M, N, K, ldw, out_bf16, glu,
-                       act, bm, s);
-  if (fmt == 4)
-    return dispatch<4>(x, hi0, lo0, ws0, hi1, lo1, ws1, cosv, sin2, out, M, N, K, ldw, out_bf16, glu,
-                       act, bm, s);
-  return (int)cudaErrorInvalidValue;
+  const bool rope = cosv != nullptr;
+  if (glu && rope) return (int)cudaErrorInvalidValue;
+  const int nb = glu ? 2 : 1;
+  const Geometry g = geometry(M, N, K, nb);
+  if (part_size < scratch_floats(g)) return (int)cudaErrorInvalidValue;
+  const uint32_t wn = WT / nb, bm = Cfg::BM;
+  Maps m;
+  bool ok = make_map(&m.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, 64, bm,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  const void* his[2] = {hi0, glu ? hi1 : hi0};
+  const void* los[2] = {fmt == 6 ? lo0 : hi0, glu ? lo1 : (fmt == 6 ? lo0 : hi0)};
+  const void* wss[2] = {ws0, glu ? ws1 : ws0};
+  for (int w = 0; w < 2; ++w) {
+    ok = ok && make_map(&m.h[w], CU_TENSOR_MAP_DATA_TYPE_UINT8, his[w], N, K / 2, ldw, wn, 64,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && make_map(&m.l[w], CU_TENSOR_MAP_DATA_TYPE_UINT8, los[w], N, fmt == 6 ? K / 4 : K / 2, ldw, wn,
+                        32, CU_TENSOR_MAP_SWIZZLE_NONE);
+    ok = ok && make_map(&m.s[w], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wss[w], N, K / BK, (uint64_t)ldw * 4, wn, 1,
+                        CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const Params p{(const float*)cosv, (const float*)sin2, out, (float*)part, (int*)counters,
+                 M, N, K, out_bf16, act, g.m_tiles, g.n_tiles, g.splits, g.sps};
+  cudaStream_t s = (cudaStream_t)stream;
+  return dispatch(m, p, glu, fmt, rope, s);
+}
+
+// The sizes a launch needs for these arguments: *part_floats floats of f32
+// scratch (0 when K is not split) and *counters int32 arrival counters (one
+// per tile). Returns 0, or cudaErrorInvalidValue for arguments that
+// flexq_wa16_matmul refuses.
+extern "C" int flexq_wa16_matmul_sizes(int M, int N, int K, int glu, int fmt, long long* part_floats,
+                                       int* counters) {
+  if (bad_args(M, N, K, glu, fmt)) return (int)cudaErrorInvalidValue;
+  const Geometry g = geometry(M, N, K, glu ? 2 : 1);
+  *part_floats = scratch_floats(g);
+  *counters = g.m_tiles * g.n_tiles;
+  return 0;
 }

@@ -1,12 +1,14 @@
 """Causal attention over the KV cache: the plain PyTorch version shared by
 ``flash_decode`` (K6, Lq == 1), ``flash_prefill`` (K9, Lq >= 1) and
 ``flash_decode_paged`` (K13, Lq == 1 over a page pool through a page
-table), the argument checks of their kernels, and K6's launch.
+table), the argument checks of their kernels, and the launch of K9's
+short-prompt kernel.
 
-Kernels: csrc/attend_cache.cu (one warp per query: K6, and K9 below 64
-queries), csrc/flash_prefill.cu (K9's tensor-core tiles) and
-csrc/flash_decode_paged.cu (K13), CUDA C++ for sm_90a over a bf16 or an int8
-cache (see each source's header for its design and its bound).
+Kernels: csrc/attend_cache.cu (one warp per query: K9 below 64 queries
+only), csrc/flash_prefill.cu (K9's tensor-core tiles) and
+csrc/flash_decode.cu (K6 and K13: split-KV over the dense cache or the
+pool), CUDA C++ for sm_90a over a bf16 or an int8 cache (see each source's
+header for its design and its bound).
 ``attend_cache_plain`` computes the function the way the TPU kernels do:
 keys in blocks of ``pick_bs(S)``, the online-softmax update per block
 (``bs``; the paged kernel's block is one page), and q, K, V and p rounded to
@@ -17,8 +19,8 @@ dot; int8 K and V upcast to bf16 exactly. Processing a block in which
 a query has no valid key leaves that query's state unchanged in the TPU
 kernels (or is wiped by the first valid block's alpha == 0), so the plain
 version updates a query only on the blocks between its window start and its
-diagonal. K9's tiles and K13 take their online-softmax steps over other key
-blocks than ``bs`` (64-key tiles; one split of the keys per block), so they
+diagonal. K6 and K13 take their online-softmax steps over other key blocks
+than ``bs`` (one 128-key split of the keys per block), so past 128 keys they
 round p against another running max (ROADMAP Queue 3).
 """
 
@@ -35,7 +37,7 @@ from flexq_tpu_torch.kernels.common import check_tensor
 
 NEG = -1e30  # finite -inf stand-in, as in the TPU kernels
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _P]
 
 
 def pick_bs(s: int, cap: int = 512) -> int:
@@ -155,19 +157,19 @@ def check_rc(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int], clip_len: bool, k_scale=None,
+def launch(q, k_cache, v_cache, lengths, layer_idx: int, window: Optional[int], k_scale=None,
            v_scale=None) -> torch.Tensor:
-    """Launch csrc/attend_cache.cu (one warp per query): q bf16 [B, Lq, H, D]
-    over the bf16 cache, or the int8 cache with its f32 scales,
-    [L, B, KVH, S, D] at ``layer_idx``; ``clip_len`` clips lengths to
-    [1, S] (decode). Returns bf16 [B, Lq, H*D]."""
+    """Launch csrc/attend_cache.cu (one warp per query; K9's prompts below
+    64 queries): q bf16 [B, Lq, H, D] over the bf16 cache, or the int8 cache
+    with its f32 scales, [L, B, KVH, S, D] at ``layer_idx``. Returns bf16
+    [B, Lq, H*D]."""
     b, lq, h, d = q.shape
     s = k_cache.shape[3]
     ptrs = layer_pointers(q, k_cache, v_cache, lengths, layer_idx, k_scale, v_scale)
     out = torch.empty((b, lq, h * d), dtype=torch.bfloat16, device=q.device)
     fn = _build.function("attend_cache", "flexq_attend_cache", _ARGS)
     rc = fn(q.data_ptr(), *ptrs, lengths.data_ptr(), out.data_ptr(), b, lq, h, k_cache.shape[2], s, d,
-            window if window is not None else 0, pick_bs(s), 1.0 / math.sqrt(d), int(clip_len),
-            int(k_scale is not None), torch.cuda.current_stream(q.device).cuda_stream)
+            window if window is not None else 0, pick_bs(s), 1.0 / math.sqrt(d), int(k_scale is not None),
+            torch.cuda.current_stream(q.device).cuda_stream)
     check_rc(rc, "attend_cache")
     return out

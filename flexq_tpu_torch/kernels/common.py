@@ -7,6 +7,8 @@ for the card on a machine without one is an error, never a silent fallback.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 GROUP_SIZE = 128  # quant group along K; fixed, like the reference
@@ -54,3 +56,19 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+_counters: Dict[torch.device, torch.Tensor] = {}
+
+
+def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
+    """The int32 arrival counters of the kernels that combine their splits
+    in the same launch (csrc/flash_decode.cu, csrc/wa16_matmul.cu): zeroed
+    once, here, and left zero by every call (the combining block resets its
+    counter), so a call needs no memset launch. Calls on one stream run one
+    after another and share them."""
+    c = _counters.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
+        _counters[dev] = c
+    return c

@@ -2,14 +2,14 @@
 flexq_tpu/kernels/flash_decode.py::flash_decode (K6) over the dense cache and
 flash_decode_paged (K13) over a page pool, bf16 or int8).
 
-On the card ``flash_decode`` launches csrc/attend_cache.cu (one warp per
-(row, head)) and ``flash_decode_paged`` csrc/flash_decode_paged.cu (the keys
-split over blocks, combined by the last block in the same launch); see
-each source's header for the design and its bound. The reference kernel
-rounds q, K, V and p to bf16 whatever the cache dtype, clips lengths to
-[1, S] and returns ``out_dtype`` (bf16 by default); the plain versions here
-do the same. Passing the scales selects the int8 cache (scales folded
-into the math).
+On the card both launch csrc/flash_decode.cu, one split-KV kernel whose
+chunk address is a template parameter (the dense cache, or the pool through
+the page table): the keys split over blocks, combined by the last block in
+the same launch; see the source's header for the design and its bound. The
+reference kernel rounds q, K, V and p to bf16 whatever the cache dtype,
+clips lengths to [1, S] and returns ``out_dtype`` (bf16 by default); the
+plain versions here do the same. Passing the scales selects the int8 cache
+(scales folded into the math).
 """
 
 from __future__ import annotations
@@ -17,15 +17,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from flexq_tpu_torch.kernels import _build, attend_cache
-from flexq_tpu_torch.kernels.common import check_tensor
+from flexq_tpu_torch.kernels.common import arrival_counters, check_tensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_PAGED_ARGS = [_P] * 7 + [_I, _P, _P, ctypes.c_longlong, _P] + [_I] * 6 + [ctypes.c_float, _I, _P]
+_ARGS = [_P] * 7 + [_I, _P, _P, ctypes.c_longlong, _P] + [_I] * 6 + [ctypes.c_float, _I, _P]
 _SIZES_ARGS = [_I] * 6 + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
 
 
@@ -54,10 +54,11 @@ def flash_decode(
         return out.reshape(b, h * d)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = attend_cache.launch(q.to(torch.bfloat16).reshape(b, 1, h, d).contiguous(), k, v, lengths, layer_idx,
-                              window, clip_len=True, k_scale=k_scale, v_scale=v_scale)
+    if k.shape[3] % 128:
+        raise ValueError(f"cache length {k.shape[3]} must be a multiple of 128")
+    out = _launch(q.to(torch.bfloat16).contiguous(), k, v, None, lengths, k_scale, v_scale, layer_idx, window)
     flash_decode.launches += 1
-    return out.reshape(b, h * d).to(out_dtype)
+    return out.to(out_dtype)
 
 
 flash_decode.launches = 0
@@ -108,61 +109,48 @@ def flash_decode_paged(
                                         layer_idx=layer_idx, window=window, out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = _launch_paged(q.to(torch.bfloat16).contiguous(), pool_k, pool_v, page_table, lengths, k_scale,
-                        v_scale, layer_idx, window)
+    out = _launch(q.to(torch.bfloat16).contiguous(), pool_k, pool_v, page_table, lengths, k_scale, v_scale,
+                  layer_idx, window)
     flash_decode_paged.launches += 1
     return out.to(out_dtype)
 
 
 flash_decode_paged.launches = 0
 
-_counters: Dict[torch.device, torch.Tensor] = {}
-
-
-def _paged_counters(dev: torch.device, n: int) -> torch.Tensor:
-    """The kernel's arrival counters, one per (row, kv head, head group):
-    zeroed once, here, and left zero by every call (the combining block
-    resets its counter), so a call needs no memset launch. Calls on one
-    stream run one after another and may share them."""
-    c = _counters.get(dev)
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
-        _counters[dev] = c
-    return c
-
-
 @functools.lru_cache(maxsize=64)
-def _paged_sizes(b: int, h: int, kvh: int, ps: int, d: int, max_pages: int) -> Tuple[int, int]:
+def _sizes(b: int, h: int, kvh: int, ps: int, d: int, max_pages: int) -> Tuple[int, int]:
     """(f32 scratch floats, arrival counters) of a launch, as the kernel's
-    own geometry gives them."""
+    own geometry gives them (the dense cache: ps = S, max_pages = 1)."""
     part, counters = ctypes.c_longlong(), ctypes.c_int()
-    fn = _build.function("flash_decode_paged", "flexq_flash_decode_paged_sizes", _SIZES_ARGS)
+    fn = _build.function("flash_decode", "flexq_flash_decode_sizes", _SIZES_ARGS)
     attend_cache.check_rc(fn(b, h, kvh, ps, d, max_pages, ctypes.byref(part), ctypes.byref(counters)),
-                          "flash_decode_paged")
+                          "flash_decode")
     return part.value, counters.value
 
 
-def _launch_paged(q, pool_k, pool_v, page_table, lengths, k_scale, v_scale, layer_idx: int,
-                  window: Optional[int]) -> torch.Tensor:
-    """Launch csrc/flash_decode_paged.cu: q bf16 [B, H, D] over the pool's
-    layer ``layer_idx`` through ``page_table``; returns bf16 [B, H*D]. The
+def _launch(q, k, v, page_table, lengths, k_scale, v_scale, layer_idx: int, window: Optional[int]) -> torch.Tensor:
+    """Launch csrc/flash_decode.cu: q bf16 [B, H, D] over layer ``layer_idx``
+    of the dense cache [L, B, KVH, S, D] (``page_table`` None) or of the pool
+    [L, P, KVH, PS, D] through ``page_table``; returns bf16 [B, H*D]. The
     kernel reads the table's entries as given: each must be a page of the
     pool. Its f32 scratch holds each split's (acc, m, l)."""
     b, h, d = q.shape
-    nl, npages, kvh, ps, _ = pool_k.shape
+    _, rows, kvh, ps, _ = k.shape
     dev = q.device
-    max_pages = page_table.shape[1]
-    check_tensor(page_table, "page_table", torch.int32, (b, max_pages), dev)
-    ptrs = attend_cache.layer_pointers(q.view(b, 1, h, d), pool_k, pool_v, lengths, layer_idx, k_scale, v_scale,
-                                       rows=npages)
-    part_floats, n_counters = _paged_sizes(b, h, kvh, ps, d, max_pages)
+    if page_table is None:
+        max_pages, table = 1, None
+        ptrs = attend_cache.layer_pointers(q.view(b, 1, h, d), k, v, lengths, layer_idx, k_scale, v_scale)
+    else:
+        max_pages = page_table.shape[1]
+        check_tensor(page_table, "page_table", torch.int32, (b, max_pages), dev)
+        table = page_table.data_ptr()
+        ptrs = attend_cache.layer_pointers(q.view(b, 1, h, d), k, v, lengths, layer_idx, k_scale, v_scale, rows=rows)
+    part_floats, n_counters = _sizes(b, h, kvh, ps, d, max_pages)
     part = torch.empty(part_floats, dtype=torch.float32, device=dev)
-    counters = _paged_counters(dev, n_counters)
     out = torch.empty((b, h * d), dtype=torch.bfloat16, device=dev)
-    fn = _build.function("flash_decode_paged", "flexq_flash_decode_paged", _PAGED_ARGS)
-    rc = fn(q.data_ptr(), *ptrs, lengths.data_ptr(), page_table.data_ptr(), max_pages, out.data_ptr(),
-            part.data_ptr(), part.numel(), counters.data_ptr(), b, h, kvh, ps, d,
-            window if window is not None else 0, 1.0 / math.sqrt(d), int(k_scale is not None),
-            torch.cuda.current_stream(dev).cuda_stream)
-    attend_cache.check_rc(rc, "flash_decode_paged")
+    fn = _build.function("flash_decode", "flexq_flash_decode", _ARGS)
+    rc = fn(q.data_ptr(), *ptrs, lengths.data_ptr(), table, max_pages, out.data_ptr(), part.data_ptr(), part.numel(),
+            arrival_counters(dev, n_counters).data_ptr(), b, h, kvh, ps, d, window if window is not None else 0,
+            1.0 / math.sqrt(d), int(k_scale is not None), torch.cuda.current_stream(dev).cuda_stream)
+    attend_cache.check_rc(rc, "flash_decode")
     return out

@@ -63,8 +63,7 @@ def flash_prefill(
         raise ValueError(f"cache length {s} must be a multiple of 128")
     q = q.to(torch.bfloat16).contiguous()
     if lq < TILE_ROWS:
-        out = attend_cache.launch(q, k, v, lengths, layer_idx, window, clip_len=False, k_scale=k_scale,
-                                  v_scale=v_scale)
+        out = attend_cache.launch(q, k, v, lengths, layer_idx, window, k_scale=k_scale, v_scale=v_scale)
         flash_prefill.launches += 1
         return out.to(out_dtype)
     ptrs = attend_cache.layer_pointers(q, k, v, lengths, layer_idx, k_scale, v_scale)

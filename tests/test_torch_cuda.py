@@ -375,3 +375,107 @@ def test_rope_table_matches_cpu(gen):
     pos = torch.arange(cfg.max_seq_len)[None]
     for got, want in zip(rope_for_cfg(pos.cuda(), cfg), rope_for_cfg(pos, cfg)):
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("quant,window,kvh,d", [
+    (False, None, 32, 128),  # the main path's shape: one split up to 128 keys, then a split per 128
+    (True, None, 32, 128),   # int8
+    (False, 300, 8, 128),    # GQA (G = 4) with a window
+    (True, 200, 8, 64),      # D = 64, int8, GQA, a window
+    (False, None, 8, 256),   # D = 256
+    (True, 100, 32, 256),    # D = 256, int8, a window inside a split
+])
+def test_flash_decode_kernel_edges(gen, quant, window, kvh, d):
+    """K6 (split-KV over the dense cache) against its plain version per
+    (b, h) row: rows whose keys fit one split (1, 64, 65, 128) beside rows
+    that need several (129, S = 512); one launch per call, and a second call
+    (its counters left at zero by the first) gives the same bits."""
+    b, h, s = 6, 32, 512
+    shape = (2, b, kvh, s, d)
+    if quant:
+        kc, vc = (torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        scales = [torch.rand(shape[:-1], generator=gen, device="cuda") * 0.05 + 1e-3 for _ in "kv"]
+    else:
+        kc, vc = randn(gen, *shape), randn(gen, *shape)
+        scales = []
+    q = randn(gen, b, h, d)
+    lengths = torch.tensor([1, 64, 65, 128, 129, s], dtype=torch.int32, device="cuda")
+    got = flash_decode(q, kc, vc, lengths, *scales, layer_idx=1, window=window)
+    assert launch_counts()["flash_decode"] == 1
+    assert torch.equal(got, flash_decode(q, kc, vc, lengths, *scales, layer_idx=1, window=window))
+    want = attend_cache_plain(q[:, None], kc, vc, lengths, 1, window, torch.bfloat16, True, torch.bfloat16, *scales)
+    got, want = got.float().reshape(b, h, d), want.float().reshape(b, h, d)
+    err = (got - want).abs().amax(-1)
+    assert bool((err <= 2e-2 * want.abs().amax(-1)).all()), err.max().item()
+
+
+WA16_CASES = [  # (fmt, M, K, N, rope): M around the 64- and 128-row tiles, N = one tile and 88 tiles
+    (6, 1, 256, 128, False),
+    (6, 4, 4096, 4096, True),      # weight-only decode: K split over blocks
+    (4, 4, 11264, 4096, False),    # down_proj's K
+    (6, 63, 512, 11264, False),
+    (4, 64, 1024, 256, True),
+    (6, 65, 384, 384, True),       # the first 128-row tile, 63 rows of it past M
+    (4, 130, 512, 256, False),
+    (6, 256, 4096, 4096, True),    # the scheduler's chunk
+    (6, 2048, 11264, 128, False),
+    (4, 2048, 4096, 4096, True),   # the 512-token prefill
+]
+
+
+@pytest.mark.parametrize("fmt,m,k,n,rope", WA16_CASES)
+def test_wa16_matmul_kernel_edges(gen, fmt, m, k, n, rope):
+    """K7 (fmt 6) and K11 (fmt 4) against their plain versions at the
+    tolerance above, f32 and bf16 output, one launch a call."""
+    x = randn(gen, m, k)
+    if fmt == 6:
+        w = w6_planes(gen, k, n)
+        fn, plain = w6_matmul_bf16, w6_matmul_bf16_plain
+    else:
+        q4 = pack4(torch.randint(-8, 8, (k, n), generator=gen, device="cuda", dtype=torch.int8))
+        w = (q4, torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4)
+        fn, plain = w4_matmul_bf16, w4_matmul_bf16_plain
+    kw = {}
+    if rope:
+        kw = dict(rope_cos=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1,
+                  rope_sin2=torch.rand((m, 128), generator=gen, device="cuda") * 2 - 1)
+    want = plain(x, *w, torch.float32, **kw)
+    for dt in (torch.float32, torch.bfloat16):
+        assert_w6a16_close(fn(x, *w, out_dtype=dt, **kw), want)
+    assert launch_counts()[fn.__name__] == 2
+
+
+@pytest.mark.parametrize("fused,act,m,k,n", [
+    (False, "silu", 4, 4096, 11264),   # decode: K split over blocks
+    (True, "gelu", 65, 512, 256),      # the up half read at a column offset, ldw = 2 N
+    (False, "gelu", 256, 1024, 384),
+    (True, "silu", 2048, 4096, 1024),
+    (False, "silu", 130, 11264, 128),
+])
+def test_wa16_glu_kernel_edges(gen, fused, act, m, k, n):
+    """K8 (separate and fused gate | up planes) against its plain version,
+    f32 and bf16 output, one launch a call."""
+    x = randn(gen, m, k)
+    g, u = w6_planes(gen, k, n), w6_planes(gen, k, n)
+    want = w6_glu_bf16_plain(x, *g, *u, act, torch.float32)
+    for dt in (torch.float32, torch.bfloat16):
+        if fused:
+            w = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
+            got = w6_glu_fused_bf16(x, *w, act=act, out_dtype=dt)
+        else:
+            got = w6_glu_matmul_bf16(x, *g, *u, act=act, out_dtype=dt)
+        assert_w6a16_close(got, want)
+    assert launch_counts()["w6_glu_fused_bf16" if fused else "w6_glu_matmul_bf16"] == 2
+
+
+def test_wa16_kernel_refuses_unaligned_planes(gen):
+    """TMA reads the planes: a base that is not 16-byte aligned raises, it
+    never falls back or launches."""
+    m, k, n = 8, 256, 128
+    x = randn(gen, m, k)
+    hi, lo, ws = w6_planes(gen, k, n)
+    shifted = torch.empty(hi.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(hi.shape)
+    shifted.copy_(hi)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        w6_matmul_bf16(x, shifted, lo, ws)
+    assert launch_counts()["w6_matmul_bf16"] == 0
