@@ -11,7 +11,8 @@ exits nonzero without the final line:
      version at LLaMA-2-7B and OPT-6.7B shapes (the exact W6Ax, W4A8 and
      W8A8 GEMMs at M = 4 and 128 for the three 7B (K, N) and at M = 4 for the
      packed head's 4096 x 32768; W6Ax at OPT's fc1 / fc2 at M = 4 and at its
-     three (K, N) at M = 2048; the producers at K = 4096 and F = 11264, and
+     three (K, N) at M = 2048, and at the 7B (K, N) at M = 8, 32, 64 and 256,
+     across its two routes (streaming, tensor cores); the producers at K = 4096 and F = 11264, and
      OPT's LayerNorm (K14) and ReLU (K15) producers at K = 4096 and
      F = 16384, M = 4 and 2048; attention
      at Lq = 1, 32 and 512 over a bf16 cache and at Lq = 1 and 512 over an
@@ -70,7 +71,8 @@ exits nonzero without the final line:
      profiled), the paged BatchScheduler over the same 16-request mix, and
      weight-only W4A16 with 32-token prompts. Each run's launch counts are
      zeroed just before it and read just after; every kernel of its path
-     must launch.
+     must launch. K2's launches are also logged by M (decode, prompts,
+     scheduler chunks, OPT's 2048-row prompt).
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -137,8 +139,8 @@ SEED = 0
 # wrapper -> (route, source, the TPU kernel it replaces)
 KERNELS = {
     "rmsnorm_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:119"),
-    "w6_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:190"),
-    "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
+    "w6_matmul": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:190"),
+    "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
     "quant_act": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:59"),
     "glu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:287"),
     "flash_decode": ("cuda", "flexq_tpu_torch/csrc/flash_decode.cu", "flexq_tpu/kernels/flash_decode.py:193"),
@@ -182,6 +184,8 @@ REPORT_SHAPE = {
 ALSO_REPORT = {
     # the 512-token prefill over a bf16 and an int8 cache: flash_prefill.cu's tensor-core tiles
     "flash_prefill": ("B=4 Lq=512 H=32 D=128 S=2048 len=512", "B=4 Lq=512 H=32 D=128 S=2048 len=512 int8"),
+    # the exact GEMM on the tensor cores: a 4 x 32-token W6Ax prompt, OPT's 4 x 512-token prompt
+    "w6_matmul": ("M=128 K=4096 N=4096", "M=2048 K=4096 N=4096"),
 }
 
 
@@ -293,14 +297,23 @@ def check_int_gemms(results, dev, gen, timer):
     OPT-6.7B's shapes that LLaMA's do not reach: fc1 (4096 -> 16384) and
     fc2 (16384 -> 4096, K3) at M = 4, and q/k/v/o, fc1 and fc2 at M = 2048
     (OPT never takes the W*A16 layer: a 4 x 512-token prompt runs the exact
-    GEMMs), at opt_flex's activation bits."""
+    GEMMs), at opt_flex's activation bits. Last, K2 / K3 at the 7B shapes on
+    both sides of w6ax_route's threshold: M = 8 (the scheduler's decode
+    ticks), 32, 64 and 256 (its prefill chunks)."""
     for fmt in INT_GEMMS:
         for m, k, n in [(m, k, n) for m in (4, 128) for k, n in SHAPES_7B] + [(4, *HEAD_7B)]:
-            bits = 6 if fmt == 6 and (k, n) in SHAPES_7B[:2] else 8  # down_proj and the head take 8 bits
-            int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer)
+            int_gemm_case(results, fmt, m, k, n, gemm_bits(fmt, k, n), dev, gen, timer)
     (kq, nq), (k1, n1), (k2, n2) = SHAPES_OPT
     for m, k, n, bits in ((4, k1, n1, 6), (4, k2, n2, 6), (2048, kq, nq, 8), (2048, k1, n1, 6), (2048, k2, n2, 6)):
         int_gemm_case(results, 6, m, k, n, bits, dev, gen, timer)
+    for m, k, n in [(m, k, n) for m in (8, 32, 64, 256) for k, n in SHAPES_7B]:
+        int_gemm_case(results, 6, m, k, n, gemm_bits(6, k, n), dev, gen, timer)
+
+
+def gemm_bits(fmt, k, n) -> int:
+    """The activation bits at a 7B (K, N): llama_flex's 6 for W6Ax but at
+    down_proj and the head (8); 8 for the other formats."""
+    return 6 if fmt == 6 and (k, n) in SHAPES_7B[:2] else 8
 
 
 def _quant_err(name, shape, got, want):
@@ -1221,15 +1234,40 @@ PATH_KERNELS = {
 }
 
 
-def generate_run(label, path, eng, prompts, new, dev, mode="fused"):
+W6_BY_M = {}  # M -> K2 launches over phase 4's main-path runs
+
+
+def add_w6_by_m() -> None:
+    """Add the last run's K2 launches by M (read just after the run, as the
+    counts are) to W6_BY_M."""
+    for m, v in w6_matmul.launches_by_m.items():
+        W6_BY_M[m] = W6_BY_M.get(m, 0) + v
+
+
+def log_w6_by_m() -> None:
+    """K2's launches over phase 4 by M: decode (M <= 8), the 4 x 32-token
+    prompts (128), the scheduler's other chunks (<= 256), OPT's 4 x
+    512-token prompt (2048), the rest."""
+    bins = {"M<=8": 0, "M=128": 0, "M<=256": 0, "M=2048": 0, "other": 0}
+    for m, v in W6_BY_M.items():
+        key = "M<=8" if m <= 8 else "M=128" if m == 128 else "M<=256" if m <= 256 else "M=2048" if m == 2048 else "other"
+        bins[key] += v
+    log("e2e w6_matmul launches by M: " + " ".join(f"{k}={v}" for k, v in bins.items()))
+
+
+def generate_run(label, path, eng, prompts, new, dev, mode="fused", counted=True):
     """One greedy generate (after a short warm-up), its launch counts zeroed
-    just before and read just after; returns (tokens, counts, stats)."""
+    just before and read just after; returns (tokens, counts, stats).
+    ``counted``: the caller adds the counts to the phase's (K2's launches by
+    M go to W6_BY_M then)."""
     eng.generate(prompts, max_new_tokens=2, eos_id=-1, mode=mode)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     out, stats = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True, mode=mode)
     counts = launch_counts()
+    if counted:
+        add_w6_by_m()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     b, l = prompts.shape
     if [len(r) for r in out] != [new] * b or not all(0 <= t < eng.cfg.vocab_size for r in out for t in r):
@@ -1288,6 +1326,7 @@ def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    add_w6_by_m()
     tokens = [out[i] for i in ids]
     bad = [r for r, (t, (_, n)) in enumerate(zip(tokens, reqs)) if len(t) != n or not all(0 <= x < cfg.vocab_size for x in t)]
     if bad:
@@ -1402,7 +1441,7 @@ def end_to_end(dev, gen):
     prompts = rng.integers(0, cfg.vocab_size, (b, 32))
     out, counts, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev)
     add(counts)
-    step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step")
+    step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step", counted=False)
     if out != step_out:
         raise AssertionError("fused and step decode loops disagree")
     log(f"e2e 32-token first row tokens: {out[0][:8]}; fused and step loops equal: True")
@@ -1615,6 +1654,7 @@ def main() -> int:
         counts[k] += v
     log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0:.1f}s; whole script after the build "
         f"{time.perf_counter() - t_start:.1f}s")
+    log_w6_by_m()
     missing = [n for n, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")

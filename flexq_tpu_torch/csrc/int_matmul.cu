@@ -1,22 +1,19 @@
-// Exact grouped integer GEMMs for Hopper (sm_90a), plain C interface: the
-// W6Ax kernel and, with the weight format as a template parameter, W4A8 and
-// W8A8.
+// Exact grouped integer GEMMs for Hopper (sm_90a), plain C interface: W4A8
+// and W8A8, the weight format a template parameter. (The 6-bit format, K2 /
+// K3, has its own source: w6ax_matmul.cu.)
 //
 // Replaces the TPU kernels
-//   flexq_tpu/kernels/w6_matmul.py::w6_matmul        (_w6_matmul_kernel, K2)
-//   flexq_tpu/kernels/w6_stream.py::w6_matmul_stream (_kernel, K3)
 //   flexq_tpu/kernels/w4_matmul.py::w4_matmul        (_w4_matmul_kernel, K10)
 //   flexq_tpu/kernels/w8_matmul.py::w8_matmul        (_w8_kernel, K12)
-// one body, three weight formats (FMT), two launch shapes (KS below).
+// one body, two weight formats (FMT), two launch shapes (KS below).
 //
 //   out[m, n] = sum over 128-groups g, in order g = 0, 1, ..., of
 //               float(P[m,g,n] - BIAS * Sx[m,g]) * (xs[m,g] * ws[g,n])
 //   P[m,g,n]  = sum_{k in g} xq[m,k] * u[k,n]   (u = the stored weight)
 //   Sx[m,g]   = sum_{k in g} xq[m,k]
 //
-//   FMT 6: u biased 6-bit, BIAS 32, nibble + crumb planes (pack6.py);
-//   FMT 4: u biased 4-bit, BIAS 8, the nibble plane alone (pack4.py: the
-//          layout of pack6's hi plane with the nibble holding the value);
+//   FMT 4: u biased 4-bit, BIAS 8, the nibble plane (pack4.py: the layout of
+//          pack6's hi plane with the nibble holding the value);
 //   FMT 8: u the signed int8 weight, BIAS 0, a dense N-minor [K, N] plane.
 //
 // The integer part is exact (|P - BIAS Sx| < 2^24, so its float is exact
@@ -25,17 +22,18 @@
 // plain PyTorch version (grouped_matmul_plain) bit for bit.
 //
 // Bound on this card: bytes. At decode (M <= 32) every weight is used by at
-// most 32 rows; LLaMA-2-7B streams 0.5 / 0.75 / 1 B per weight (W4 / W6 /
-// W8) plus 4 B of scale per 128 weights, e.g. 23.1 MB of nibbles + 1.4 MB of
-// scales for a 4096 x 11264 W4 matrix, 7.3 us at 3.35 TB/s. The design keeps
-// the N-minor plane layouts as stored, so lane n of a warp reads column n:
-// the 32 lanes read 32 consecutive bytes of each plane row, one sector per
+// most 32 rows; LLaMA-2-7B streams 0.5 / 1 B per weight (W4 / W8) plus 4 B
+// of scale per 128 weights, e.g. 23.1 MB of nibbles + 1.4 MB of scales for
+// a 4096 x 11264 W4 matrix, 7.3 us at 3.35 TB/s. The design keeps the
+// N-minor plane layouts as stored, so lane n of a warp reads column n: the
+// 32 lanes read 32 consecutive bytes of each plane row, one sector per
 // load. To put enough bytes in flight, each block splits K across KS warps
 // (warp w takes group g0 + w of each round of KS groups) and the per-group
 // f32 terms go through shared memory to one owner thread per output, which
 // adds them in group order. No tensor cores: dp4a on the unpacked words
-// (four K rows per 32-bit word, packed with __byte_perm). A wgmma repack of
-// the planes is later work.
+// (four K rows per 32-bit word, packed with __byte_perm). Moving these
+// formats onto w6ax_matmul.cu's routes (TMA rings of the planes, wgmma for
+// prompts) is later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,12 +73,6 @@ __device__ __forceinline__ void group_partials(const uint8_t* __restrict__ p0,
     return;
   }
   const uint8_t* hp = p0 + (size_t)g * 64 * N + n;
-  uint32_t lw[8];  // FMT 6: lo bytes of rows r = 0..31, four rows per word
-  if (FMT == 6) {
-    const uint8_t* lp = p1 + (size_t)g * 32 * N + n;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) lw[j] = rows4(lp + (size_t)(4 * j) * N, N);
-  }
   // half 0: nibble rows 0..31 hold k 0..31 (low nibble) and k 64..95 (high
   // nibble); half 1: nibble rows 32..63 hold k 32..63 and k 96..127.
 #pragma unroll
@@ -90,13 +82,8 @@ __device__ __forceinline__ void group_partials(const uint8_t* __restrict__ p0,
     for (int j = 0; j < 8; ++j) hw[j] = rows4(hp + (size_t)(32 * half + 4 * j) * N, N);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      // quarter qa = half holds k = 32*half + 4j .., crumbs at bits 2*half
-      // quarter qb = half + 2 holds k = 64 + 32*half + 4j .., bits 2*(half+2)
-      uint32_t ua = hw[j] & 0x0F0F0F0Fu, ub = (hw[j] >> 4) & 0x0F0F0F0Fu;
-      if (FMT == 6) {
-        ua = (ua << 2) | ((lw[j] >> (2 * half)) & 0x03030303u);
-        ub = (ub << 2) | ((lw[j] >> (2 * half + 4)) & 0x03030303u);
-      }
+      // the low nibbles hold k = 32*half + 4j .., the high ones k + 64
+      const uint32_t ua = hw[j] & 0x0F0F0F0Fu, ub = (hw[j] >> 4) & 0x0F0F0F0Fu;
       const int wa = 8 * half + j, wb = 16 + 8 * half + j;  // word index in group
 #pragma unroll
       for (int m = 0; m < BM; ++m) {
@@ -109,7 +96,7 @@ __device__ __forceinline__ void group_partials(const uint8_t* __restrict__ p0,
       }
     }
   }
-  constexpr int BIAS = FMT == 6 ? 32 : 8;
+  constexpr int BIAS = 8;
 #pragma unroll
   for (int m = 0; m < BM; ++m) part[m] = dot[m] - BIAS * sx[m];
 }
@@ -190,8 +177,7 @@ int launch_shape(const void* xq, const void* xs, const void* p0, const void* p1,
 
 }  // namespace
 
-// fmt: 6 (p0 = hi plane [K/2, N], p1 = lo plane [K/4, N]), 4 (p0 = nibble
-// plane [K/2, N], p1 unused) or 8 (p0 = int8 [K, N], p1 unused); xq int8
+// fmt: 4 (p0 = nibble plane [K/2, N]) or 8 (p0 = int8 [K, N]); p1 unused; xq int8
 // [M, K], xs f32 [M, K/128], ws f32 [K/128, N], out [M, N] bf16 or f32.
 // ks: warps splitting K in a block (8: grid kernel, 16: K-tall decode
 // shapes); bm: rows per block (4 or 8). Returns cudaGetLastError() after
@@ -201,7 +187,6 @@ extern "C" int flexq_int_matmul(int fmt, const void* xq, const void* xs, const v
                                 int out_bf16, int ks, int bm, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K % 128 != 0 || M <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  if (fmt == 6) return launch_shape<6>(xq, xs, p0, p1, ws, out, M, N, K, out_bf16, ks, bm, s);
   if (fmt == 4) return launch_shape<4>(xq, xs, p0, p1, ws, out, M, N, K, out_bf16, ks, bm, s);
   if (fmt == 8) return launch_shape<8>(xq, xs, p0, p1, ws, out, M, N, K, out_bf16, ks, bm, s);
   return (int)cudaErrorInvalidValue;

@@ -31,3 +31,4 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
+    w6_matmul.launches_by_m.clear()

@@ -72,3 +72,19 @@ def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
         c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
         _counters[dev] = c
     return c
+
+
+_scratch: Dict[torch.device, torch.Tensor] = {}
+
+
+def split_scratch(dev: torch.device, n: int) -> torch.Tensor:
+    """A float32 scratch of at least ``n`` floats for a kernel that splits K
+    over blocks and keeps the splits' terms between them
+    (csrc/w6ax_matmul.cu's streaming route): kept, not allocated per call.
+    Every call writes what it reads back; calls on one stream run one after
+    another and share it."""
+    buf = _scratch.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(n, dtype=torch.float32, device=dev)
+        _scratch[dev] = buf
+    return buf

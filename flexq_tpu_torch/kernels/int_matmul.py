@@ -1,13 +1,15 @@
-"""The exact grouped integer GEMM shared by the W6Ax (K2, K3), W4A8 (K10)
-and W8A8 (K12) wrappers:
+"""The exact grouped integer GEMM of the W6Ax (K2, K3), W4A8 (K10) and
+W8A8 (K12) wrappers:
 
     out[m, n] = sum_g (sum_{k in g} x_q * w) * x_scale[m, g] * w_scale[g, n]
 
 over a signed integer weight ``w`` (the unpacked 6-bit, 4-bit or int8
-plane). The kernel is ``csrc/int_matmul.cu`` (CUDA C++ for sm_90a, the
-weight format a template parameter; see its header for the design and its
-bound); ``grouped_matmul_plain`` is the same function in PyTorch, with the
-same rounding: the per-group integer partials are exact, and the f32
+plane). Two CUDA sources (sm_90a; see each header for the design and its
+bound): ``csrc/w6ax_matmul.cu`` serves the 6-bit format (K2, K3: a
+streaming kernel up to ``W6AX_STREAM_MAX_M`` rows, int8 tensor cores above;
+``w6ax_route`` decides), ``csrc/int_matmul.cu`` the 4- and 8-bit formats
+(K10, K12; ``launch`` here). ``grouped_matmul_plain`` is the same function
+in PyTorch, with the same rounding: the per-group integer partials are exact, and the f32
 accumulation runs over the groups in order, ``acc = acc + part * (x_scale *
 w_scale)``, as the TPU kernels (``_w6_matmul_kernel``, ``_w4_matmul_kernel``,
 ``_w8_kernel``) do (not the einsum order of the reference's ``w*_matmul_ref``
@@ -54,9 +56,9 @@ def check_activations(x_q, x_scale) -> None:
 
 
 def launch(fmt: int, x_q, x_scale, p0, p1, w_scale, out_dtype, ks: int) -> torch.Tensor:
-    """Launch csrc/int_matmul.cu for weight format ``fmt`` (6: planes p0 = hi,
-    p1 = lo; 4: p0 = nibble plane; 8: p0 = int8 [K, N]) with ``ks`` warps
-    splitting K per block."""
+    """Launch csrc/int_matmul.cu for weight format ``fmt`` (4: p0 = nibble
+    plane; 8: p0 = int8 [K, N]; p1 unused) with ``ks`` warps splitting K per
+    block."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype {out_dtype} not supported by the kernel")
     if x_q.data_ptr() % 16:
@@ -77,5 +79,23 @@ def launch(fmt: int, x_q, x_scale, p0, p1, w_scale, out_dtype, ks: int) -> torch
 
 def split_k_warps(m: int, k: int, n: int) -> int:
     """Warps splitting K per block: 16 for K-tall decode shapes (M <= 32,
-    K > N: down_proj), where few column blocks cover the card, else 8."""
+    K > N: down_proj), where few column blocks cover the card, else 8. For
+    the W6 format this is also the reference's dispatch to K3."""
     return 16 if m <= 32 and k > n else 8
+
+
+W6AX_MMA, W6AX_STREAM = 0, 1  # csrc/w6ax_matmul.cu's routes
+
+
+# The largest M the W6Ax GEMM streams at: measured with
+# scripts/torch_w6ax_parts.py routes on the main path's (K, N) (PERF.md, PR 9):
+# the streaming route is the faster up to M = 8 at every shape, the tensor
+# cores from M = 16 at all but 4096^2 (4 % apart there) and from M = 32 at all.
+W6AX_STREAM_MAX_M = 8
+
+
+def w6ax_route(m: int, k: int, n: int) -> int:
+    """The W6Ax GEMM's route for an [M, K] x [K, N] call: the streaming
+    kernel (bytes bound: decode) up to W6AX_STREAM_MAX_M rows, the int8
+    tensor cores above."""
+    return W6AX_STREAM if m <= W6AX_STREAM_MAX_M else W6AX_MMA

@@ -4,7 +4,7 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerances: the exact integer kernels (W6Ax, W4A8, W8A8) are bit-exact; the
+Tolerances: the exact integer kernels (W6Ax on both routes, W4A8, W8A8) are bit-exact; the
 producers may move a quantized value by 1 on at most 0.1 % of entries (the
 RMS and LayerNorm sum orders differ; relu_quant has no sum and is bit-exact); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
 their plain versions only in the order of f32 sums: f32 output within 1e-4
@@ -53,7 +53,8 @@ from flexq_tpu_torch.kernels.fused_quant import (
 )
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_plain
-from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
+from flexq_tpu_torch.kernels.int_matmul import W6AX_MMA, W6AX_STREAM, W6AX_STREAM_MAX_M, w6ax_route
+from flexq_tpu_torch.kernels.w6_matmul import launch_w6ax, w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.models.llama import rope_for_cfg
 from flexq_tpu_torch.packing.pack4 import pack4
@@ -132,6 +133,59 @@ def test_w6_matmul_kernel_bit_exact(gen, m, k, n):
         assert torch.equal(got, w6_matmul_plain(xq, xs, hi, lo, ws, dt))
     stream = m <= 32 and k > n
     assert launch_counts()["w6_matmul_stream" if stream else "w6_matmul"] == 2
+
+
+def w6ax_operands(gen, m, k, n, ends):
+    """Codes and weights for the W6Ax GEMM; ``ends``: 8-bit codes and 6-bit
+    weights at both ends of their ranges (the largest |P|), else random
+    6-bit codes."""
+    lim = 128 if ends else 32
+    xq = torch.randint(-lim, lim, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    w = torch.randint(-32, 32, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    if ends:
+        xq[:, ::3], xq[:, 1::3] = -128, 127
+        w[::2], w[1::4] = -32, 31
+    xs = torch.rand((m, k // 128), generator=gen, device="cuda") * 0.05 + 1e-3
+    ws = torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4
+    return (xq, xs, *pack6(w), ws)
+
+
+@pytest.mark.parametrize("ends", [False, True])
+@pytest.mark.parametrize("k", [128, 384, 11264, 16384])  # one group, an odd count, LLaMA's and OPT's FFN
+@pytest.mark.parametrize("m", [1, 8, 32, 33, 64, 130, 256, 2048])
+def test_w6ax_kernel_bit_exact(gen, m, k, ends):
+    """K2 / K3 on csrc/w6ax_matmul.cu, whichever route w6ax_route picks,
+    equal to the plain version in f32 and bf16; K > N at M <= 32 is K3's."""
+    n = 256
+    ops = w6ax_operands(gen, m, k, n, ends)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(w6_matmul(*ops, out_dtype=dt), w6_matmul_plain(*ops, dt))
+    assert launch_counts()["w6_matmul_stream" if m <= 32 and k > n else "w6_matmul"] == 2
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (11264, 4096), (4096, 11264)])
+def test_w6ax_routes_meet_at_the_threshold(gen, k, n):
+    """Both routes bit-exact on both sides of the route threshold, and the
+    wrapper takes the route w6ax_route gives."""
+    t = W6AX_STREAM_MAX_M
+    for m in (t, t + 1):
+        ops = w6ax_operands(gen, m, k, n, ends=True)
+        want = w6_matmul_plain(*ops, torch.bfloat16)
+        for route in (W6AX_MMA, W6AX_STREAM):
+            assert torch.equal(launch_w6ax(*ops, torch.bfloat16, route=route), want)
+        assert w6ax_route(m, k, n) == (W6AX_STREAM if m <= t else W6AX_MMA)
+
+
+def test_w6ax_kernel_refuses_unaligned_planes(gen):
+    """TMA reads the planes: a base that is not 16-byte aligned raises, it
+    never falls back or launches, on either route."""
+    for m in (8, 256):
+        xq, xs, hi, lo, ws = w6ax_operands(gen, m, 256, 128, ends=False)
+        shifted = torch.empty(hi.numel() + 1, dtype=torch.int8, device="cuda")[1:].view(hi.shape)
+        shifted.copy_(hi)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            w6_matmul(xq, xs, shifted, lo, ws)
+    assert launch_counts()["w6_matmul"] == 0 and launch_counts()["w6_matmul_stream"] == 0
 
 
 @pytest.mark.parametrize("fmt", [4, 8])

@@ -34,6 +34,7 @@ from flexq_tpu_torch.kernels import (
     rmsnorm_quant,
     w6_matmul,
 )
+from flexq_tpu_torch.kernels.int_matmul import W6AX_MMA, W6AX_STREAM, W6AX_STREAM_MAX_M, w6ax_route
 from flexq_tpu_torch.packing.pack6 import pack6
 
 
@@ -83,13 +84,18 @@ def test_glu_quant_matches_jax(act):
     np.testing.assert_allclose(st.numpy(), np.asarray(sj), rtol=1e-5)
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (40, 256, 384), (4, 512, 256)])
+@pytest.mark.parametrize("m,k,n", [(4, 256, 384), (40, 256, 384), (4, 512, 256), (72, 384, 256)])
 def test_w6_matmul_matches_jax(m, k, n):
-    # (4, 512, 256) is K-tall: both packages dispatch it to the stream kernel
+    # (4, 512, 256) is K-tall: both packages dispatch it to the stream kernel;
+    # (72, 384, 256) holds more rows than a 64-row tile, three groups, and
+    # codes at the ends of the 8-bit and 6-bit ranges
     rng = np.random.default_rng(m + k)
     xq = rng.integers(-128, 128, (m, k)).astype(np.int8)
     xs = rng.uniform(0.001, 0.1, (m, k // 128)).astype(np.float32)
     w = rng.integers(-32, 32, (k, n)).astype(np.int8)
+    if m > 64:
+        xq[:, ::3], xq[:, 1::3] = -128, 127
+        w[::2], w[1::4] = -32, 31
     ws = rng.uniform(0.001, 0.05, (k // 128, n)).astype(np.float32)
     hi, lo = pack6(torch.from_numpy(w))
     ref = np.asarray(j_w6_matmul(jnp.asarray(xq), jnp.asarray(xs), jnp.asarray(hi.numpy()),
@@ -97,6 +103,14 @@ def test_w6_matmul_matches_jax(m, k, n):
     got = w6_matmul(to_t(xq), to_t(xs), hi, lo, to_t(ws), out_dtype=torch.float32).numpy()
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
     assert sum(launch_counts().values()) == 0  # CPU tensors never launch a kernel
+
+
+@pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11264), (11264, 4096), (4096, 16384), (4096, 32768)])
+def test_w6ax_route_threshold(k, n):
+    """The W6Ax GEMM's route at the main path's (K, N): the streaming kernel
+    up to the measured threshold, the tensor cores above it."""
+    t = W6AX_STREAM_MAX_M
+    assert [w6ax_route(m, k, n) for m in (1, 4, 8, t, t + 1, 128, 2048)] == [W6AX_STREAM] * 4 + [W6AX_MMA] * 3
 
 
 def _attention_inputs(dtype, lq, seed):
