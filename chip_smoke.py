@@ -8,13 +8,18 @@ exits nonzero without the final line:
   1. device: the card's name and power limit (nvidia-smi), the kernel build
      (one nvcc per CUDA source, all started together);
   2. kernels: every kernel of the serve path against its plain PyTorch
-     version at LLaMA-2-7B and OPT-6.7B shapes (the exact W6Ax, W4A8 and
-     W8A8 GEMMs at M = 4 and 128 for the three 7B (K, N) and at M = 4 for the
-     packed head's 4096 x 32768; W6Ax at OPT's fc1 / fc2 at M = 4 and at its
+     version at LLaMA-2-7B and OPT-6.7B shapes (the exact W6Ax GEMM at M = 4
+     and 128, and the W4A8 and W8A8 GEMMs at M = 4, 8, 16, 32, 128 and 256,
+     for the three 7B (K, N), and each at M = 4 for the packed head's 4096 x
+     32768, each case also through the route its wrapper does not take
+     where that route takes M; W6Ax at OPT's fc1 / fc2 at M = 4 and at its
      three (K, N) at M = 2048, and at the 7B (K, N) at M = 8, 32, 64 and 256,
-     across its two routes (streaming, tensor cores); the producers at K = 4096 and F = 11264, and
-     OPT's LayerNorm (K14) and ReLU (K15) producers at K = 4096 and
-     F = 16384, M = 4 and 2048; attention
+     across its two routes (streaming, tensor cores); the producers at
+     K = 4096 and F = 11264, and OPT's LayerNorm (K14) and ReLU (K15)
+     producers at K = 4096 and F = 16384, each at M = 4, 8, 128, 256 and
+     2048, beside an empty kernel's time (the launch floor); the registers
+     and local-memory bytes of every instance of the exact GEMM's and the
+     producers' kernels; attention
      at Lq = 1, 32 and 512 over a bf16 cache and at Lq = 1 and 512 over an
      int8 cache, H = 32, D = 128, S = 2048 (K6 and K9 also with the share of
      their bf16 outputs that part from the CPU's); the W6A16 and W4A16 GEMMs
@@ -71,12 +76,13 @@ exits nonzero without the final line:
      profiled), the paged BatchScheduler over the same 16-request mix, and
      weight-only W4A16 with 32-token prompts. Each run's launch counts are
      zeroed just before it and read just after; every kernel of its path
-     must launch. K2's launches are also logged by M (decode, prompts,
-     scheduler chunks, OPT's 2048-row prompt).
+     must launch. The launches of K2, K10, K12 and the producers are also
+     logged by M (decode, prompts, scheduler chunks, OPT's 2048-row prompt).
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import json
 import math
 import statistics
@@ -122,6 +128,7 @@ from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_pl
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
+from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, launch as int_launch, stream_takes
 from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
 from flexq_tpu_torch.models import quantized
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear
@@ -138,22 +145,22 @@ SEED = 0
 
 # wrapper -> (route, source, the TPU kernel it replaces)
 KERNELS = {
-    "rmsnorm_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:119"),
+    "rmsnorm_quant": ("cuda", "flexq_tpu_torch/csrc/row_quant.cu", "flexq_tpu/kernels/fused_quant.py:119"),
     "w6_matmul": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:190"),
     "w6_matmul_stream": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w6_stream.py:108"),
-    "quant_act": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:59"),
-    "glu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:287"),
+    "quant_act": ("cuda", "flexq_tpu_torch/csrc/row_quant.cu", "flexq_tpu/kernels/fused_quant.py:59"),
+    "glu_quant": ("cuda", "flexq_tpu_torch/csrc/row_quant.cu", "flexq_tpu/kernels/fused_quant.py:287"),
     "flash_decode": ("cuda", "flexq_tpu_torch/csrc/flash_decode.cu", "flexq_tpu/kernels/flash_decode.py:193"),
     "flash_prefill": ("cuda", "flexq_tpu_torch/csrc/flash_prefill.cu", "flexq_tpu/kernels/flash_prefill.py:181"),
     "w6_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:612"),
     "w6_glu_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:433"),
     "w6_glu_fused_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w6_matmul.py:524"),
-    "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
+    "w4_matmul": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:103"),
     "w4_matmul_bf16": ("cuda", "flexq_tpu_torch/csrc/wa16_matmul.cu", "flexq_tpu/kernels/w4_matmul.py:220"),
-    "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/int_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
+    "w8_matmul": ("cuda", "flexq_tpu_torch/csrc/w6ax_matmul.cu", "flexq_tpu/kernels/w8_matmul.py:61"),
     "flash_decode_paged": ("cuda", "flexq_tpu_torch/csrc/flash_decode.cu", "flexq_tpu/kernels/flash_decode.py:354"),
-    "layernorm_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:205"),
-    "relu_quant": ("triton", "flexq_tpu_torch/kernels/fused_quant.py", "flexq_tpu/kernels/fused_quant.py:334"),
+    "layernorm_quant": ("cuda", "flexq_tpu_torch/csrc/row_quant.cu", "flexq_tpu/kernels/fused_quant.py:205"),
+    "relu_quant": ("cuda", "flexq_tpu_torch/csrc/row_quant.cu", "flexq_tpu/kernels/fused_quant.py:334"),
 }
 # the shape whose times go into the JSON line (the main path's decode shape)
 REPORT_SHAPE = {
@@ -186,6 +193,15 @@ ALSO_REPORT = {
     "flash_prefill": ("B=4 Lq=512 H=32 D=128 S=2048 len=512", "B=4 Lq=512 H=32 D=128 S=2048 len=512 int8"),
     # the exact GEMM on the tensor cores: a 4 x 32-token W6Ax prompt, OPT's 4 x 512-token prompt
     "w6_matmul": ("M=128 K=4096 N=4096", "M=2048 K=4096 N=4096"),
+    # W4A8 / W8A8 on the tensor cores: the 4 x 32-token prompt's gate / up
+    "w4_matmul": ("M=128 K=4096 N=11264",),
+    "w8_matmul": ("M=128 K=4096 N=11264",),
+    # the producers at a 4 x 512-token prompt (OPT's; LLaMA's 512-token prefill takes the W*A16 layer)
+    "rmsnorm_quant": ("M=2048 K=4096",),
+    "quant_act": ("M=2048 K=4096",),
+    "glu_quant": ("M=2048 F=11264",),
+    "layernorm_quant": ("M=2048 K=4096",),
+    "relu_quant": ("M=2048 F=16384",),
 }
 
 
@@ -279,6 +295,11 @@ def int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer):
     err = (out.float() - ref.float()).abs().max().item()
     if not torch.equal(out, ref):  # tolerance: bit-exact
         raise AssertionError(f"{name} M={m} K={k} N={n}: differs from plain (max {err})")
+    # the route the wrapper does not take, where it takes M: bit-exact too
+    other = W6AX_MMA if m <= STREAM_MAX_M[fmt] else W6AX_STREAM
+    checked = "both routes" if other == W6AX_MMA or stream_takes(fmt, m, k, n) else "its route"
+    if checked == "both routes" and not torch.equal(int_launch(fmt, xq, xs, w, ws, torch.bfloat16, route=other), ref):
+        raise AssertionError(f"{name} M={m} K={k} N={n}: route {'AB'[other]} differs from plain")
     del ref
     xb = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     wb = torch.randn((k, n), generator=gen, device=dev).to(torch.bfloat16)
@@ -286,14 +307,20 @@ def int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer):
     plain_ms = timer(lambda: plain(xq, xs, *w, ws, torch.bfloat16), iters=3, warmup=1)
     dense_ms = timer(lambda: xb @ wb)
     nbytes = m * k + m * (k // 128) * 4 + k * n * fmt // 8 + (k // 128) * n * 4 + m * n * 2
+    route = "AB"[W6AX_STREAM if m <= STREAM_MAX_M[fmt] else W6AX_MMA]
     record(results, name, f"M={m} K={k} N={n}", err, ms, plain_ms, nbytes, 2 * m * n * k,
-           PEAK_INT8, None, dense_ms=dense_ms, extra=" (tolerance: bit-exact)")
+           PEAK_INT8, None, dense_ms=dense_ms, extra=f" route={route} (tolerance: bit-exact, {checked})")
+
+
+INT_MS = {6: (4, 128), 4: (4, 8, 16, 32, 128, 256), 8: (4, 8, 16, 32, 128, 256)}
 
 
 def check_int_gemms(results, dev, gen, timer):
-    """The exact integer GEMMs: W6Ax (K2/K3), W4A8 (K10) and W8A8 (K12) at
-    M = 4 and 128 for the three 7B (K, N), and at the packed head's shape
-    at M = 4; each bit-exact against its plain version. Then K2 / K3 at
+    """The exact integer GEMMs: W6Ax (K2/K3) at M = 4 and 128, W4A8 (K10)
+    and W8A8 (K12) at M = 4, 8, 16, 32, 128 and 256 (both sides of each
+    format's route threshold) for the three 7B (K, N), and each at the
+    packed head's shape at M = 4; each bit-exact against its plain version,
+    on the route its wrapper takes and on the other. Then K2 / K3 at
     OPT-6.7B's shapes that LLaMA's do not reach: fc1 (4096 -> 16384) and
     fc2 (16384 -> 4096, K3) at M = 4, and q/k/v/o, fc1 and fc2 at M = 2048
     (OPT never takes the W*A16 layer: a 4 x 512-token prompt runs the exact
@@ -301,7 +328,7 @@ def check_int_gemms(results, dev, gen, timer):
     both sides of w6ax_route's threshold: M = 8 (the scheduler's decode
     ticks), 32, 64 and 256 (its prefill chunks)."""
     for fmt in INT_GEMMS:
-        for m, k, n in [(m, k, n) for m in (4, 128) for k, n in SHAPES_7B] + [(4, *HEAD_7B)]:
+        for m, k, n in [(m, k, n) for m in INT_MS[fmt] for k, n in SHAPES_7B] + [(4, *HEAD_7B)]:
             int_gemm_case(results, fmt, m, k, n, gemm_bits(fmt, k, n), dev, gen, timer)
     (kq, nq), (k1, n1), (k2, n2) = SHAPES_OPT
     for m, k, n, bits in ((4, k1, n1, 6), (4, k2, n2, 6), (2048, kq, nq, 8), (2048, k1, n1, 6), (2048, k2, n2, 6)):
@@ -383,10 +410,20 @@ def opt_producer_cases(m, dev, gen):
     return cases
 
 
+PRODUCER_MS = (4, 8, 128, 256, 2048)
+LAUNCH_FLOOR = {}  # "ms": an empty kernel's time under the same Timer
+
+
 def check_producers(results, dev, gen, timer):
-    cases = [c + (None,) for c in producer_cases(4, dev, gen) + producer_cases(128, dev, gen)]
-    cases += opt_producer_cases(4, dev, gen) + opt_producer_cases(2048, dev, gen)
-    # every specialization is compiled and launched before any is timed
+    """The producers (csrc/row_quant.cu) at PRODUCER_MS rows, LLaMA's and
+    OPT-6.7B's widths, each within its tolerance and timed beside an empty
+    kernel's time under the same Timer (the launch floor)."""
+    floor = timer(lambda: fused_quant.empty_kernel(dev))
+    LAUNCH_FLOOR["ms"] = floor
+    log(f"launch floor: an empty kernel through the producers' host path ms={floor:.4f}")
+    cases = []
+    for m in PRODUCER_MS:
+        cases += [c + (None,) for c in producer_cases(m, dev, gen)] + opt_producer_cases(m, dev, gen)
     errs = []
     for name, shape, kern, plain, _, _, _ in cases:
         got, want = kern(), plain()
@@ -400,10 +437,28 @@ def check_producers(results, dev, gen, timer):
         yardstick = None if yard is None else (yard[0], timer(yard[1]))
         tol = "bit-exact" if name == "relu_quant" else "|dq|<=1 on <=0.1% of q"
         record(results, name, shape, err, ms, plain_ms, nbytes, ops, PEAK_F32, None,
-               extra=f" (tolerance: {tol})", yardstick=yardstick)
-    log("producer specializations (MODE, BLOCK, dtype) -> (registers, spilled registers): "
-        + "; ".join(f"{m} {b} {str(d)[6:]}: {v}" for (m, b, d), v in sorted(fused_quant._launch.compiled.items(),
-                                                                          key=lambda kv: kv[0][:2])))
+               extra=f" floor_x={ms / floor:.2f} (tolerance: {tol})", yardstick=yardstick)
+
+
+# the kernel instances whose registers are logged: (library, C function)
+ATTRIBUTES = (("w6ax_matmul", "flexq_w6ax_kernel_attributes"), ("row_quant", "flexq_row_quant_kernel_attributes"))
+
+
+def log_kernel_attributes() -> None:
+    """Registers a thread and local-memory bytes a thread (spills) of every
+    instance of the exact GEMM's and the producers' kernels
+    (cudaFuncGetAttributes)."""
+    ci = ctypes.c_int
+    for lib, sym in ATTRIBUTES:
+        fn = _build.function(lib, sym, [ci, ctypes.c_char_p, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)])
+        name, regs, local = ctypes.create_string_buffer(64), ci(), ci()
+        rows, i = [], 0
+        while (rc := fn(i, name, 64, ctypes.byref(regs), ctypes.byref(local))) == 0:
+            rows.append(f"{name.value.decode()} {regs.value}/{local.value}")
+            i += 1
+        if rc != 1:
+            raise RuntimeError(f"{sym}({i}): CUDA error {rc}")
+        log(f"kernel attributes {lib} (registers / local bytes a thread): " + "; ".join(rows))
 
 
 def check_attention(results, dev, gen, timer):
@@ -1234,32 +1289,40 @@ PATH_KERNELS = {
 }
 
 
-W6_BY_M = {}  # M -> K2 launches over phase 4's main-path runs
+# the wrappers that count their launches by M: K2, K10, K12 and the producers
+BY_M_WRAPPERS = (w6_matmul, w4_matmul, w8_matmul, rmsnorm_quant, quant_act, glu_quant, layernorm_quant, relu_quant)
+BY_M = {fn.__name__: {} for fn in BY_M_WRAPPERS}  # name -> {M: launches} over phase 4's main-path runs
 
 
-def add_w6_by_m() -> None:
-    """Add the last run's K2 launches by M (read just after the run, as the
-    counts are) to W6_BY_M."""
-    for m, v in w6_matmul.launches_by_m.items():
-        W6_BY_M[m] = W6_BY_M.get(m, 0) + v
+def add_by_m() -> None:
+    """Add the last run's launches by M (read just after the run, as the
+    counts are) to BY_M."""
+    for fn in BY_M_WRAPPERS:
+        for m, v in fn.launches_by_m.items():
+            BY_M[fn.__name__][m] = BY_M[fn.__name__].get(m, 0) + v
 
 
-def log_w6_by_m() -> None:
-    """K2's launches over phase 4 by M: decode (M <= 8), the 4 x 32-token
-    prompts (128), the scheduler's other chunks (<= 256), OPT's 4 x
-    512-token prompt (2048), the rest."""
+def by_m_bins(name: str) -> dict:
+    """A wrapper's launches over phase 4 by M: decode (M <= 8), the 4 x
+    32-token prompts (128), the scheduler's other chunks (<= 256), OPT's
+    4 x 512-token prompt (2048), the rest."""
     bins = {"M<=8": 0, "M=128": 0, "M<=256": 0, "M=2048": 0, "other": 0}
-    for m, v in W6_BY_M.items():
+    for m, v in BY_M[name].items():
         key = "M<=8" if m <= 8 else "M=128" if m == 128 else "M<=256" if m <= 256 else "M=2048" if m == 2048 else "other"
         bins[key] += v
-    log("e2e w6_matmul launches by M: " + " ".join(f"{k}={v}" for k, v in bins.items()))
+    return bins
+
+
+def log_by_m() -> None:
+    for name in BY_M:
+        log(f"e2e {name} launches by M: " + " ".join(f"{k}={v}" for k, v in by_m_bins(name).items()))
 
 
 def generate_run(label, path, eng, prompts, new, dev, mode="fused", counted=True):
     """One greedy generate (after a short warm-up), its launch counts zeroed
     just before and read just after; returns (tokens, counts, stats).
-    ``counted``: the caller adds the counts to the phase's (K2's launches by
-    M go to W6_BY_M then)."""
+    ``counted``: the caller adds the counts to the phase's (the launches by
+    M go to BY_M then)."""
     eng.generate(prompts, max_new_tokens=2, eos_id=-1, mode=mode)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1267,7 +1330,7 @@ def generate_run(label, path, eng, prompts, new, dev, mode="fused", counted=True
     out, stats = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True, mode=mode)
     counts = launch_counts()
     if counted:
-        add_w6_by_m()
+        add_by_m()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     b, l = prompts.shape
     if [len(r) for r in out] != [new] * b or not all(0 <= t < eng.cfg.vocab_size for r in out for t in r):
@@ -1326,7 +1389,7 @@ def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    add_w6_by_m()
+    add_by_m()
     tokens = [out[i] for i in ids]
     bad = [r for r, (t, (_, n)) in enumerate(zip(tokens, reqs)) if len(t) != n or not all(0 <= x < cfg.vocab_size for x in t)]
     if bad:
@@ -1621,12 +1684,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"build: nvcc of {len(_build.SOURCES)} CUDA sources in parallel {time.perf_counter() - t0:.1f}s")
+    log_kernel_attributes()
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     timer = Timer(dev)
     results = {}
     t_start = t0 = time.perf_counter()
-    check_producers(results, dev, gen, timer)  # first: includes the Triton JIT
+    check_producers(results, dev, gen, timer)
     check_int_gemms(results, dev, gen, timer)
     check_wa16(results, dev, gen, timer)
     check_attention(results, dev, gen, timer)
@@ -1654,7 +1718,7 @@ def main() -> int:
         counts[k] += v
     log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0:.1f}s; whole script after the build "
         f"{time.perf_counter() - t_start:.1f}s")
-    log_w6_by_m()
+    log_by_m()
     missing = [n for n, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -1671,6 +1735,10 @@ def main() -> int:
             "library_ms": r["library_ms"], "bf16_dense_ms": r["bf16_dense_ms"],
             "yardstick_ms": r["yardstick_ms"], "shape": r["shape"], "also": r["also"],
         })
+        if name in BY_M:
+            kernels[-1]["launches_by_m"] = by_m_bins(name)
+        if name in PRODUCERS + OPT_PRODUCERS:
+            kernels[-1]["launch_floor_ms"] = LAUNCH_FLOOR["ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,17 +1,25 @@
-// The exact W6Ax GEMM for Hopper (sm_90a), plain C interface, in two routes
-// from one source: int8 tensor cores (wgmma) for prompts, a streaming
-// kernel for decode.
+// The exact grouped integer GEMM for Hopper (sm_90a), plain C interface, in
+// two routes from one source: int8 tensor cores (wgmma) for prompts, a
+// streaming kernel for decode; the weight format (6, 4 or 8 bits) a template
+// parameter of both.
 //
 // Replaces the TPU kernels
 //   flexq_tpu/kernels/w6_matmul.py::w6_matmul        (_w6_matmul_kernel, K2)
 //   flexq_tpu/kernels/w6_stream.py::w6_matmul_stream (_kernel, K3)
+//   flexq_tpu/kernels/w4_matmul.py::w4_matmul        (_w4_matmul_kernel, K10)
+//   flexq_tpu/kernels/w8_matmul.py::w8_matmul        (_w8_kernel, K12)
 //
 //   out[m, n] = sum over 128-groups g, in order g = 0, 1, ..., of
 //               acc = acc + float(P[m,g,n]) * (xs[m,g] * ws[g,n])
-//   P[m,g,n]  = sum_{k in g} xq[m,k] * (u[k,n] - 32)
-// with u in [0, 63] the biased 6-bit weight of pack6's planes (pack6.cuh)
-// and xq the 6- or 8-bit activation codes. P is an exact integer (|P| <
-// 2^20, so its float is exact too) and the scale algebra uses __fmul_rn /
+//   P[m,g,n]  = sum_{k in g} xq[m,k] * w[k,n]
+// with xq the 6- or 8-bit activation codes and w the signed weight as one of
+//   FMT 6: u - 32, u in [0, 63] from pack6's hi and lo planes (pack6.cuh);
+//   FMT 4: u - 8, u in [0, 15] from pack4's nibble plane (pack4.cuh: pack6's
+//          hi layout with the nibble holding the value);
+//   FMT 8: the int8 weight itself, a dense N-minor [K, N] plane.
+// Only the planes a stage holds, its bytes (96, 64 or 128 rows of a group)
+// and the unpack to s8 differ by format. P is an exact integer (|P| <
+// 2^22, so its float is exact too) and the scale algebra uses __fmul_rn /
 // __fadd_rn in the reference's order, so the result equals the plain
 // PyTorch version (grouped_matmul_plain) bit for bit.
 // No split of K ever adds f32 sums in another order: every output's terms
@@ -23,16 +31,18 @@
 // tiles leave SMs idle), one 128-deep group at a time:
 // - TMA rings: 3 stages of the x codes (one [128 rows][128 bytes] box in the
 //   128-byte swizzle, zero past M) and 3 of the raw plane tiles as stored
-//   (hi [64][BN], lo [32][BN], the scale row), loaded by consumer thread 0
-//   right after the group barrier that frees a stage: with no producer
-//   warps the block is 256 threads, whose registers (up to 255) hold the
-//   accumulators without spills (a 320-thread block was held to 168);
+//   (W6: hi [64][BN], lo [32][BN]; W4: [64][BN]; W8: [128][BN]; and the
+//   scale row), loaded by consumer thread 0 right after the group barrier
+//   that frees a stage: with no producer warps the block is 256 threads,
+//   whose registers (up to 255) hold the accumulators without spills (a
+//   320-thread block was held to 168);
 // - two consumer warpgroups build the group's K-major s8 weight tile
 //   [BN][128] in the 128-byte swizzle wgmma reads (8-bit operands must be
 //   K-major): a thread loads plane words (four columns of a row), unpacks
-//   u - 32 four bytes at a time, turns four K rows x four columns into four
-//   K-contiguous words with __byte_perm and stores them; each thread's
-//   columns are rotated by its lane so the stores spread over the banks;
+//   them to s8 four bytes at a time (W8's bytes are s8 already), turns four
+//   K rows x four columns into four K-contiguous words with __byte_perm and
+//   stores them; each thread's columns are rotated by its lane so the stores
+//   spread over the banks;
 // - each warpgroup runs wgmma m64nBNk32 s8.s8 -> s32 on its 64 rows (a
 //   warpgroup whose rows all lie past M runs none), four per group, while
 //   the next group's tile is built; then the epilogue adds the group's f32
@@ -41,23 +51,25 @@
 //   1.3 G CUDA-core operations at M = 2048, 4096^2;
 // - three weight tiles rotate: one consumer barrier per group.
 //
-// Route B (streaming; decode): bytes bound (0.75 B a weight, 4 B of scale per
-// 128 weights: 12.6 MB for a 4096^2 matrix, 3.8 us at 3.35 TB/s). A block
-// owns 128 output columns of all rows and streams a contiguous range of
-// groups: each group is one ring stage (hi [64][128], lo [32][128] bytes:
-// 128-byte row segments by TMA, its scale row and the x codes), 8 stages in
-// flight per block. Each compute warp owns SB / nw stages and takes their
-// groups: lane l unpacks columns 4l .. 4l + 3, transposes them with
-// __byte_perm into words of four K rows and runs dp4a against the x words
-// (rows in passes of RP), then writes the group's f32 terms. With one block
-// a tile the terms go to a ring of slots in shared memory, and a fold warp
-// adds them in group order. While the column tiles fill at most half the
-// SMs (N = 4096), K is split over C blocks instead: every block writes its
-// groups' terms to a scratch in global memory, and the last block of the
-// tile to arrive (an arrival counter, left zero) adds all of them in group
-// order. Thread block clusters, which would keep the terms on chip, were
-// measured first: a cluster of 4 at this shared-memory size gets 30 active
-// clusters on 132 SMs, so a split into fours runs in two waves.
+// Route B (streaming; decode): bytes bound (0.75 / 0.5 / 1 B a weight for
+// W6 / W4 / W8, 4 B of scale per 128 weights: 12.6 MB for a 4096^2 W6
+// matrix, 3.8 us at 3.35 TB/s). A block owns 128 output columns of all rows
+// and streams a contiguous range of groups: each group is one ring stage
+// (the group's plane rows as 128-byte row segments by TMA, its scale row
+// and the x codes), 8 stages in flight per block. Each compute warp owns
+// SB / nw stages and takes their groups: lane l unpacks columns 4l .. 4l + 3,
+// transposes them with __byte_perm into words of four K rows and runs dp4a
+// against the x words (rows in passes of RP; a biased format subtracts
+// BIAS times the row's code sum), then writes the group's f32 terms. With
+// one block a tile the terms go to a ring of slots in shared memory, and a
+// fold warp adds them in group order. While the column tiles fill at most
+// half the SMs (N = 4096), K is split over C blocks instead: every block
+// writes its groups' terms to a scratch in global memory, and the last block
+// of the tile to arrive (an arrival counter, left zero) adds all of them in
+// group order. Thread block clusters, which would keep the terms on chip,
+// were measured first: a cluster of 4 at this shared-memory size gets 30
+// active clusters on 132 SMs, so a split into fours runs in two waves. W8's
+// 128-row stages leave room for at most 32 rows (B_MAX_M).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -65,6 +77,7 @@
 
 #include <algorithm>
 
+#include "pack4.cuh"
 #include "pack6.cuh"
 #include "tma.cuh"
 
@@ -86,8 +99,32 @@ __device__ __forceinline__ void transpose4(const uint32_t (&in)[4], uint32_t (&o
   out[3] = __byte_perm(b, d, 0x7632);
 }
 
-// s8 bytes u - 32 from biased bytes u in [0, 63]: (u + 0x60) ^ 0x80, no carry between bytes
-__device__ __forceinline__ uint32_t to_s8(uint32_t u4) { return (u4 + 0x60606060u) ^ 0x80808080u; }
+// The weight formats: plane rows of one group in a stage, and the bias of
+// the stored value (W6 and W4 store u = w + BIAS, W8 stores w)
+template <int FMT>
+struct Fmt;
+template <>
+struct Fmt<6> {
+  static constexpr int ROWS = 96, BIAS = pack6::BIAS;  // hi [64] + lo [32]
+};
+template <>
+struct Fmt<4> {
+  static constexpr int ROWS = 64, BIAS = pack4::BIAS;  // the nibble plane
+};
+template <>
+struct Fmt<8> {
+  static constexpr int ROWS = 128, BIAS = 0;  // the int8 weight
+};
+
+__host__ __device__ constexpr int plane_rows(int fmt) { return fmt == 6 ? 96 : fmt == 4 ? 64 : 128; }
+
+// s8 bytes u - BIAS from biased bytes u in [0, 2 BIAS): (u + 0x80 - BIAS) ^ 0x80, no carry between bytes
+template <int BIAS>
+__device__ __forceinline__ uint32_t to_s8(uint32_t u4) {
+  return (u4 + (0x80u - BIAS) * 0x01010101u) ^ 0x80808080u;
+}
+
+constexpr uint32_t NIBBLES = 0x0F0F0F0Fu;
 
 // biased values of the four columns of a plane word: K row r (low nibble of
 // hi byte r, crumb pair sh / 2 of lo byte r % 32) or K row r + 64 (high nibble)
@@ -160,7 +197,7 @@ __device__ __forceinline__ void wgmma_s8_n64(int (&d)[32], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(acc));
 }
 
-template <int BN>
+template <int FMT, int BN>
 struct ACfg {
   static constexpr int BM = 128;               // rows of a tile: a consumer warpgroup per 64
   static constexpr int SX = 3, SP = 3;         // stages of the x ring and of the plane ring
@@ -171,15 +208,15 @@ struct ACfg {
   static constexpr int RB = 64 * QN / CT;      // hi rows a thread unpacks (8 or 4)
   static constexpr int X_BYTES = BM * KT;      // x stage: [128 rows][128 bytes], swizzled
   static constexpr int B_BYTES = BN * KT;      // weight tile: [BN][128 bytes], swizzled
-  static constexpr int HI_BYTES = 64 * BN, LO_BYTES = 32 * BN, SC_BYTES = BN * 4;
+  static constexpr int PL_BYTES = Fmt<FMT>::ROWS * BN, SC_BYTES = BN * 4;  // a group's plane rows, scales
   static constexpr int OFF_B = SX * X_BYTES;   // offsets from the 1024-byte aligned base
   static constexpr int OFF_WS = OFF_B + NBUF * B_BYTES;  // each weight tile's scale row
-  static constexpr int OFF_HI = OFF_WS + NBUF * SC_BYTES;
-  static constexpr int OFF_LO = OFF_HI + SP * HI_BYTES;
-  static constexpr int OFF_SC = OFF_LO + SP * LO_BYTES;
+  static constexpr int OFF_PL = OFF_WS + NBUF * SC_BYTES;
+  static constexpr int OFF_SC = OFF_PL + SP * PL_BYTES;
   static constexpr int OFF_BAR = OFF_SC + SP * SC_BYTES;  // x full, plane full
   static constexpr int SMEM = OFF_BAR + (SX + SP) * 8 + 1024;  // + room to align the base
   static_assert(RB == 8 || RB == 4, "a thread unpacks 8 or 4 hi rows");
+  static_assert(SMEM <= 227 * 1024, "route A's stages must fit the shared memory");
 };
 
 struct AParams {
@@ -189,13 +226,14 @@ struct AParams {
 };
 
 // Build group t's s8 weight tile from its plane stage. Thread ct takes
-// column quad q = ct % QN and hi rows r0 .. r0 + RB - 1 (r0 = RB * (ct / QN)):
-// K rows r0 .. (low nibbles) and r0 + 64 .. (high nibbles). Its four columns
+// column quad q = ct % QN and rows r0 .. r0 + RB - 1 (r0 = RB * (ct / QN)) of
+// the group's first 64: K rows r0 .. and r0 + 64 .. (W6 / W4: the low and
+// high nibbles of hi row r; W8: plane rows r and r + 64). Its four columns
 // are rotated by rot = (q / 2) % 4 (byte s of a rotated plane word is column
 // (s + rot) % 4), so a half warp's stores land in eight swizzle chunks.
-template <int BN>
+template <int FMT, int BN>
 struct Unpacker {
-  using C = ACfg<BN>;
+  using C = ACfg<FMT, BN>;
   int ld;       // byte offset of its first plane word in a hi / lo tile row
   int r0, sh;   // first hi row; crumb shift of its low-nibble rows
   int rot8;     // 8 * rot
@@ -217,30 +255,38 @@ struct Unpacker {
     }
   }
 
-  // 4 K rows (hi rows r0 + 4 j4 ..) of the four columns: words w_lo[s] (K
-  // rows r0 + 4 j4 ..), w_hi[s] (+ 64), column slot s
-  __device__ __forceinline__ void rows4(const uint8_t* hi, const uint8_t* lo, int j4, uint32_t (&w_lo)[4],
-                                        uint32_t (&w_hi)[4]) const {
+  // 4 K rows (r0 + 4 j4 ..) of the four columns as s8: words w_lo[s] (K
+  // rows r0 + 4 j4 ..), w_hi[s] (+ 64), column slot s; pl: the plane stage
+  __device__ __forceinline__ void rows4(const uint8_t* pl, int j4, uint32_t (&w_lo)[4], uint32_t (&w_hi)[4]) const {
     uint32_t a[4], b[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = r0 + 4 * j4 + j;
-      uint32_t h = *reinterpret_cast<const uint32_t*>(hi + r * BN + ld);
-      uint32_t l = *reinterpret_cast<const uint32_t*>(lo + (r & 31) * BN + ld);
+      uint32_t h = *reinterpret_cast<const uint32_t*>(pl + r * BN + ld);
       h = __funnelshift_r(h, h, rot8);
-      l = __funnelshift_r(l, l, rot8);
-      a[j] = to_s8(u_low(h, l, sh));
-      b[j] = to_s8(u_high(h, l, sh));
+      if constexpr (FMT == 6) {  // lo rows follow the 64 hi rows
+        uint32_t l = *reinterpret_cast<const uint32_t*>(pl + (64 + (r & 31)) * BN + ld);
+        l = __funnelshift_r(l, l, rot8);
+        a[j] = to_s8<Fmt<6>::BIAS>(u_low(h, l, sh));
+        b[j] = to_s8<Fmt<6>::BIAS>(u_high(h, l, sh));
+      } else if constexpr (FMT == 4) {
+        a[j] = to_s8<Fmt<4>::BIAS>(h & NIBBLES);
+        b[j] = to_s8<Fmt<4>::BIAS>((h >> 4) & NIBBLES);
+      } else {  // W8: s8 already; K row r + 64 is plane row r + 64
+        uint32_t h64 = *reinterpret_cast<const uint32_t*>(pl + (r + 64) * BN + ld);
+        a[j] = h;
+        b[j] = __funnelshift_r(h64, h64, rot8);
+      }
     }
     transpose4(a, w_lo);
     transpose4(b, w_hi);
   }
 
-  __device__ __forceinline__ void build(const uint8_t* hi, const uint8_t* lo, uint8_t* tile) const {
+  __device__ __forceinline__ void build(const uint8_t* pl, uint8_t* tile) const {
     if constexpr (C::RB == 8) {  // 8 K rows a column: 8-byte stores
       uint32_t l0[4], h0[4], l1[4], h1[4];
-      rows4(hi, lo, 0, l0, h0);
-      rows4(hi, lo, 1, l1, h1);
+      rows4(pl, 0, l0, h0);
+      rows4(pl, 1, l1, h1);
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         *reinterpret_cast<uint2*>(tile + off_lo[s]) = make_uint2(l0[s], l1[s]);
@@ -248,7 +294,7 @@ struct Unpacker {
       }
     } else {
       uint32_t l0[4], h0[4];
-      rows4(hi, lo, 0, l0, h0);
+      rows4(pl, 0, l0, h0);
 #pragma unroll
       for (int s = 0; s < 4; ++s) {
         *reinterpret_cast<uint32_t*>(tile + off_lo[s]) = l0[s];
@@ -258,18 +304,18 @@ struct Unpacker {
   }
 };
 
-template <int BN>
+template <int FMT, int BN>
 __device__ __forceinline__ void a_consume(const AParams& p, uint8_t* smem, uint64_t* bars, int m_tile, int n_tile,
                                           const CUtensorMap* tx, const CUtensorMap* th, const CUtensorMap* tl,
                                           const CUtensorMap* ts) {
-  using C = ACfg<BN>;
+  using C = ACfg<FMT, BN>;
   constexpr int SX = C::SX, SP = C::SP, CT = C::CT, NACC = BN / 2;
   uint64_t *xfull = bars, *pfull = bars + SX;
   const int G = p.K / KT;
   const int m0 = m_tile * C::BM, n0 = n_tile * BN;
   const int ct = threadIdx.x, wg = ct >> 7, lane = ct & 31, wq = (ct & 127) >> 5;
   const bool mma = m0 + 64 * wg < p.M;
-  const Unpacker<BN> up(ct);
+  const Unpacker<FMT, BN> up(ct);
   // fragment: rows rt and rt + 8 of the tile, columns 8 j + cq and + 1
   const int rt = wg * 64 + wq * 16 + (lane >> 2), cq = 2 * (lane & 3);
   const int row0 = m0 + rt, row1 = row0 + 8;
@@ -284,8 +330,7 @@ __device__ __forceinline__ void a_consume(const AParams& p, uint8_t* smem, uint6
   auto build = [&](int t, int buf) {
     const int slot = t % SP;
     mbar_wait(&pfull[slot], (t / SP) & 1);
-    up.build(smem + C::OFF_HI + slot * C::HI_BYTES, smem + C::OFF_LO + slot * C::LO_BYTES,
-             smem + C::OFF_B + buf * C::B_BYTES);
+    up.build(smem + C::OFF_PL + slot * C::PL_BYTES, smem + C::OFF_B + buf * C::B_BYTES);
     if (ct < BN / 4)
       reinterpret_cast<float4*>(smem + C::OFF_WS + buf * C::SC_BYTES)[ct] =
           reinterpret_cast<const float4*>(smem + C::OFF_SC + slot * C::SC_BYTES)[ct];
@@ -301,9 +346,14 @@ __device__ __forceinline__ void a_consume(const AParams& p, uint8_t* smem, uint6
   };
   auto load_planes = [&](int t) {
     const int slot = t % SP;
-    mbar_expect_tx(&pfull[slot], C::HI_BYTES + C::LO_BYTES + C::SC_BYTES);
-    tma_load(smem + C::OFF_HI + slot * C::HI_BYTES, th, n0, t * 64, &pfull[slot]);
-    tma_load(smem + C::OFF_LO + slot * C::LO_BYTES, tl, n0, t * 32, &pfull[slot]);
+    uint8_t* pl = smem + C::OFF_PL + slot * C::PL_BYTES;
+    mbar_expect_tx(&pfull[slot], C::PL_BYTES + C::SC_BYTES);
+    if constexpr (FMT == 6) {
+      tma_load(pl, th, n0, t * 64, &pfull[slot]);
+      tma_load(pl + 64 * BN, tl, n0, t * 32, &pfull[slot]);
+    } else {
+      tma_load(pl, th, n0, t * Fmt<FMT>::ROWS, &pfull[slot]);
+    }
     tma_load(smem + C::OFF_SC + slot * C::SC_BYTES, ts, n0, t, &pfull[slot]);
   };
   if (ct == 0) {
@@ -384,11 +434,11 @@ __device__ __forceinline__ void a_consume(const AParams& p, uint8_t* smem, uint6
 
 constexpr int GROUP_M = 8;  // row tiles walked together, so blocks in flight share weight tiles in the L2
 
-template <int BN>
-__global__ void __launch_bounds__(ACfg<BN>::THREADS, 1)
+template <int FMT, int BN>
+__global__ void __launch_bounds__(ACfg<FMT, BN>::THREADS, 1)
 w6ax_mma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th,
                 const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap ts, const AParams p) {
-  using C = ACfg<BN>;
+  using C = ACfg<FMT, BN>;
   constexpr int SX = C::SX, SP = C::SP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
@@ -406,7 +456,7 @@ w6ax_mma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ 
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  a_consume<BN>(p, smem, bars, m_tile, n_tile, &tx, &th, &tl, &ts);
+  a_consume<FMT, BN>(p, smem, bars, m_tile, n_tile, &tx, &th, &tl, &ts);
 }
 
 // ---- route B: streaming ---------------------------------------------------
@@ -415,7 +465,12 @@ constexpr int SBN = 128;       // columns of a block
 constexpr int NW = 8;          // compute warps at most
 constexpr int SB = 8;          // ring stages (one group each)
 constexpr int B_THREADS = NW * 32 + 64;  // + the producer warp and the fold warp
-constexpr int PLANE_BYTES = 64 * SBN + 32 * SBN + SBN * 4;  // hi, lo, scale row of a group
+
+// a group's plane rows and scale row in a ring stage (the x rows follow)
+__host__ __device__ constexpr int plane_bytes(int fmt) { return plane_rows(fmt) * SBN + SBN * 4; }
+
+// route B's rows at most: W8's 128-row stages leave room for 32
+__host__ __device__ constexpr int b_max_m(int fmt) { return fmt == 8 ? 32 : 64; }
 
 struct BParams {
   const float* xs;  // f32 [M, G]
@@ -432,47 +487,73 @@ struct BParams {
 };
 
 // One group's terms for rows m0 .. m0 + RP - 1 and lane l's columns 4l ..
-// 4l + 3 (stage: hi, lo, scale row, x rows), written to tsl (row pitch SBN
-// floats: a term slot in shared memory, or the group's rows of the scratch).
-template <int RP>
+// 4l + 3 (stage: the plane rows, the scale row, x rows), written to tsl (row
+// pitch SBN floats: a term slot in shared memory, or the group's rows of the
+// scratch).
+template <int FMT, int RP>
 __device__ __forceinline__ void b_group(const BParams& p, const uint8_t* st, float* tsl, int g, int m0, int lane) {
-  const uint32_t* hi = reinterpret_cast<const uint32_t*>(st);
-  const uint32_t* lo = reinterpret_cast<const uint32_t*>(st + 64 * SBN);
-  const float* sc = reinterpret_cast<const float*>(st + 96 * SBN);
-  const int* x = reinterpret_cast<const int*>(st + PLANE_BYTES) + m0 * (KT / 4);
+  constexpr int BIAS = Fmt<FMT>::BIAS;
+  const uint32_t* pl = reinterpret_cast<const uint32_t*>(st);  // W6: hi rows, then lo rows at 64
+  const float* sc = reinterpret_cast<const float*>(st + Fmt<FMT>::ROWS * SBN);
+  const int* x = reinterpret_cast<const int*>(st + plane_bytes(FMT)) + m0 * (KT / 4);
   const int G = p.K / KT;
   float xsv[RP];
   int sx[RP], dot[RP][4];
 #pragma unroll
   for (int m = 0; m < RP; ++m) {
     xsv[m] = m0 + m < p.M ? __ldg(p.xs + (size_t)(m0 + m) * G + g) : 0.f;
-    int s = __dp4a(x[m * 32 + lane], 0x01010101, 0);  // the row's code sum, 4 K a lane
+    sx[m] = 0;
+    if constexpr (BIAS != 0) {  // the row's code sum, 4 K a lane
+      int s = __dp4a(x[m * 32 + lane], 0x01010101, 0);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
-    sx[m] = s;
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, o);
+      sx[m] = s;
+    }
 #pragma unroll
     for (int c = 0; c < 4; ++c) dot[m][c] = 0;
   }
 #pragma unroll 2
   for (int a = 0; a < 8; ++a) {
-    // lo rows 4a .. 4a + 3 and hi rows 4a .., 4a + 32 ..: K rows 4a + 32 i .. (i = 0..3)
-    uint32_t h0[4], h1[4], l[4], th0[4], th1[4], tl[4];
+    uint32_t u[4][4];  // [i][c]: stored values of K rows 4a + 32 i .. 4a + 32 i + 3, column 4 lane + c
+    if constexpr (FMT == 8) {  // plane rows are K rows
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      h0[j] = hi[(4 * a + j) * (SBN / 4) + lane];
-      h1[j] = hi[(4 * a + 32 + j) * (SBN / 4) + lane];
-      l[j] = lo[(4 * a + j) * (SBN / 4) + lane];
-    }
-    transpose4(h0, th0);  // column c: hi bytes of K rows 4a .. 4a + 3 (low nibbles; high: + 64)
-    transpose4(h1, th1);  // + 32
-    transpose4(l, tl);    // crumb pair i: K rows 4a + 32 i ..
-    uint32_t u[4][4];     // [i][c]: biased values of K rows 4a + 32 i .. 4a + 32 i + 3
+      for (int i = 0; i < 4; ++i) {
+        uint32_t w[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      u[0][c] = u_low(th0[c], tl[c], 0);
-      u[1][c] = u_low(th1[c], tl[c], 2);
-      u[2][c] = u_high(th0[c], tl[c], 0);
-      u[3][c] = u_high(th1[c], tl[c], 2);
+        for (int j = 0; j < 4; ++j) w[j] = pl[(4 * a + 32 * i + j) * (SBN / 4) + lane];
+        transpose4(w, u[i]);
+      }
+    } else {
+      // hi rows 4a .., 4a + 32 .. (and W6's lo rows 4a ..): K rows 4a + 32 i ..
+      uint32_t h0[4], h1[4], th0[4], th1[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        h0[j] = pl[(4 * a + j) * (SBN / 4) + lane];
+        h1[j] = pl[(4 * a + 32 + j) * (SBN / 4) + lane];
+      }
+      transpose4(h0, th0);  // column c: hi bytes of K rows 4a .. 4a + 3 (low nibbles; high: + 64)
+      transpose4(h1, th1);  // + 32
+      if constexpr (FMT == 6) {
+        uint32_t l[4], tl[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) l[j] = pl[(64 + 4 * a + j) * (SBN / 4) + lane];
+        transpose4(l, tl);  // crumb pair i: K rows 4a + 32 i ..
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          u[0][c] = u_low(th0[c], tl[c], 0);
+          u[1][c] = u_low(th1[c], tl[c], 2);
+          u[2][c] = u_high(th0[c], tl[c], 0);
+          u[3][c] = u_high(th1[c], tl[c], 2);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          u[0][c] = th0[c] & NIBBLES;
+          u[1][c] = th1[c] & NIBBLES;
+          u[2][c] = (th0[c] >> 4) & NIBBLES;
+          u[3][c] = (th1[c] >> 4) & NIBBLES;
+        }
+      }
     }
 #pragma unroll
     for (int m = 0; m < RP; ++m) {
@@ -488,7 +569,7 @@ __device__ __forceinline__ void b_group(const BParams& p, const uint8_t* st, flo
 #pragma unroll
   for (int m = 0; m < RP; ++m) {
     if (m0 + m >= p.M) break;
-    const int bias = pack6::BIAS * sx[m];
+    const int bias = BIAS * sx[m];
     float4 t;
     t.x = __fmul_rn(__int2float_rn(dot[m][0] - bias), __fmul_rn(xsv[m], w.x));
     t.y = __fmul_rn(__int2float_rn(dot[m][1] - bias), __fmul_rn(xsv[m], w.y));
@@ -578,7 +659,7 @@ __device__ __forceinline__ void b_fold_scratch(const BParams& p, int tile) {
   }
 }
 
-template <int RP>
+template <int FMT, int RP>
 __global__ void __launch_bounds__(B_THREADS, 1)
 w6ax_stream_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap th,
                    const __grid_constant__ CUtensorMap tl, const __grid_constant__ CUtensorMap ts, const BParams p) {
@@ -617,10 +698,14 @@ w6ax_stream_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
         if (i >= SB) mbar_wait(&empty[slot], ((i / SB) + 1) & 1);
         uint8_t* st = smem + slot * p.stage;
         mbar_expect_tx(&full[slot], p.stage);
-        tma_load(st, &th, n0, g * 64, &full[slot]);
-        tma_load(st + 64 * SBN, &tl, n0, g * 32, &full[slot]);
-        tma_load(st + 96 * SBN, &ts, n0, g, &full[slot]);
-        tma_load(st + PLANE_BYTES, &tx, g * KT, 0, &full[slot]);
+        if constexpr (FMT == 6) {
+          tma_load(st, &th, n0, g * 64, &full[slot]);
+          tma_load(st + 64 * SBN, &tl, n0, g * 32, &full[slot]);
+        } else {
+          tma_load(st, &th, n0, g * Fmt<FMT>::ROWS, &full[slot]);
+        }
+        tma_load(st + Fmt<FMT>::ROWS * SBN, &ts, n0, g, &full[slot]);
+        tma_load(st + plane_bytes(FMT), &tx, g * KT, 0, &full[slot]);
       }
     }
   } else if (warp < p.nw) {
@@ -637,7 +722,7 @@ w6ax_stream_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant
       } else {
         dst = p.scratch + ((size_t)tile * G + g0 + i) * p.mp * SBN;
       }
-      for (int m0 = 0; m0 < p.M; m0 += RP) b_group<RP>(p, smem + slot * p.stage, dst, g0 + i, m0, lane);
+      for (int m0 = 0; m0 < p.M; m0 += RP) b_group<FMT, RP>(p, smem + slot * p.stage, dst, g0 + i, m0, lane);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[slot]);
       if (p.C == 1) mbar_arrive(&tfull[tsi]);
@@ -691,16 +776,16 @@ int b_smem(const BParams& p) { return p.off_bar + (2 * SB + 2 * p.ts) * 8 + 16 +
 // (up to 8) as many as fill the SMs once; C > 1 keeps every group's terms in
 // the scratch, and the last block of a column tile to arrive folds them.
 // C = 1 folds from term slots in shared memory (a slot for every group, or a
-// multiple of the compute warps). Route B takes M <= 64: its 8 ring stages
-// hold each group's x rows.
-BParams b_geometry(int M, int N, int K) {
+// multiple of the compute warps). Route B takes M <= b_max_m(fmt): its 8
+// ring stages hold each group's plane rows and x rows.
+BParams b_geometry(int fmt, int M, int N, int K) {
   BParams p{};
   const int rp = row_pass(M);
   p.M = M;
   p.N = N;
   p.K = K;
   p.mp = (M + rp - 1) / rp * rp;
-  p.stage = PLANE_BYTES + p.mp * KT;
+  p.stage = plane_bytes(fmt) + p.mp * KT;
   p.term = p.mp * SBN * 4;
   const int G = K / KT, tiles = (N + SBN - 1) / SBN, sms = sm_count();
   const int ring = SB * p.stage;
@@ -736,9 +821,9 @@ long long b_scratch_floats(const BParams& p) {
   return p.C > 1 ? (long long)((p.N + SBN - 1) / SBN) * (p.K / KT) * p.mp * SBN : 0;
 }
 
-template <int RP>
+template <int FMT, int RP>
 int launch_stream(const CUtensorMap (&maps)[4], const BParams& p, cudaStream_t s) {
-  auto kern = w6ax_stream_kernel<RP>;
+  auto kern = w6ax_stream_kernel<FMT, RP>;
   const int smem = b_smem(p);
   if (smem > SMEM_MAX || (p.C == 1 && p.ts < 1)) return (int)cudaErrorInvalidValue;
   static bool attr_set = false;  // once per instance: above 48 KB only after this
@@ -751,17 +836,17 @@ int launch_stream(const CUtensorMap (&maps)[4], const BParams& p, cudaStream_t s
   return (int)cudaGetLastError();
 }
 
-template <int BN>
+template <int FMT, int BN>
 int launch_mma(const CUtensorMap (&maps)[4], const AParams& p, cudaStream_t s) {
-  auto kern = w6ax_mma_kernel<BN>;
-  constexpr int smem = ACfg<BN>::SMEM;
+  auto kern = w6ax_mma_kernel<FMT, BN>;
+  constexpr int smem = ACfg<FMT, BN>::SMEM;
   static bool attr_set = false;  // once per instance: above 48 KB only after this
   if (!attr_set) {
     const int e = set_smem(kern, smem);
     if (e != 0) return e;
     attr_set = true;
   }
-  kern<<<p.m_tiles * p.n_tiles, ACfg<BN>::THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3], p);
+  kern<<<p.m_tiles * p.n_tiles, ACfg<FMT, BN>::THREADS, smem, s>>>(maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
 }
 
@@ -771,39 +856,42 @@ int a_tile_n(int M, int N) {
   return tiles128 >= sm_count() ? 128 : 64;
 }
 
-bool bad_args(int M, int N, int K, int route) {
-  return M <= 0 || N <= 0 || K <= 0 || K % KT != 0 || N % 16 != 0 || (route != 0 && route != 1) ||
-         (route == 1 && M > 64);
+bool bad_args(int fmt, int M, int N, int K, int route) {
+  return (fmt != 6 && fmt != 4 && fmt != 8) || M <= 0 || N <= 0 || K <= 0 || K % KT != 0 || N % 16 != 0 ||
+         (route != 0 && route != 1) || (route == 1 && M > b_max_m(fmt));
 }
 
-}  // namespace
-
-// xq int8 [M, K] (16-byte aligned), xs f32 [M, K/128], hi [K/2, N] and lo
-// [K/4, N] bytes (pack6), ws f32 [K/128, N]; planes and scales 16-byte
-// aligned with N % 16 == 0 (TMA reads them); out [M, N] bf16 or f32.
-// route 0: tensor cores (any M); route 1: streaming (M <= 64), with
-// scratch (f32, scratch_floats) and counters (int32, zero before the first
-// call, left zero by every call) of at least the sizes flexq_w6ax_geometry
-// gives. Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for arguments it refuses.
-extern "C" int flexq_w6ax_matmul(const void* xq, const void* xs, const void* hi, const void* lo, const void* ws,
-                                 void* out, void* scratch, long long scratch_floats, void* counters, int M, int N,
-                                 int K, int out_bf16, int route, void* stream) {
-  if (bad_args(M, N, K, route)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  CUtensorMap maps[4];  // x, hi, lo, scales
+// The weight plane maps (box: bn columns, a group's rows): W6's hi and lo,
+// W4's nibble plane or W8's bytes (maps[2] then repeats maps[1]); false for
+// a base or stride TMA refuses.
+bool plane_maps(int fmt, CUtensorMap* maps, const void* p0, const void* p1, int N, int K, int bn) {
   const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  const uint32_t rows = fmt == 6 ? 64 : plane_rows(fmt);  // a group's rows of p0
+  if (!make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, p0, N, (uint64_t)K / KT * rows, N, bn, rows, none))
+    return false;
+  if (fmt != 6) {
+    maps[1] = maps[0];
+    return true;
+  }
+  return make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, p1, N, K / 4, N, bn, 32, none);
+}
+
+template <int FMT>
+int run(const void* xq, const void* xs, const CUtensorMap (&pm)[2], const void* ws, void* out, void* scratch,
+        long long scratch_floats, void* counters, int M, int N, int K, int out_bf16, int route, cudaStream_t s) {
+  CUtensorMap maps[4];  // x, the plane maps, scales
+  const CUtensorMapSwizzle none = CU_TENSOR_MAP_SWIZZLE_NONE;
+  maps[1] = pm[0];
+  maps[2] = pm[1];
   if (route == 0) {
     const int bn = a_tile_n(M, N);
     bool ok = make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K, KT, 128, CU_TENSOR_MAP_SWIZZLE_128B);
-    ok = ok && make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, hi, N, K / 2, N, bn, 64, none);
-    ok = ok && make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, lo, N, K / 4, N, bn, 32, none);
     ok = ok && make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N, K / KT, (uint64_t)N * 4, bn, 1, none);
     if (!ok) return (int)cudaErrorInvalidValue;
     AParams p{(const float*)xs, out, M, N, K, out_bf16, (M + 127) / 128, (N + bn - 1) / bn};
-    return bn == 128 ? launch_mma<128>(maps, p, s) : launch_mma<64>(maps, p, s);
+    return bn == 128 ? launch_mma<FMT, 128>(maps, p, s) : launch_mma<FMT, 64>(maps, p, s);
   }
-  BParams p = b_geometry(M, N, K);
+  BParams p = b_geometry(FMT, M, N, K);
   if (scratch_floats < b_scratch_floats(p) || (p.C > 1 && counters == nullptr)) return (int)cudaErrorInvalidValue;
   p.xs = (const float*)xs;
   p.out = out;
@@ -811,28 +899,68 @@ extern "C" int flexq_w6ax_matmul(const void* xq, const void* xs, const void* hi,
   p.counters = (int*)counters;
   p.out_bf16 = out_bf16;
   bool ok = make_map(&maps[0], CU_TENSOR_MAP_DATA_TYPE_UINT8, xq, K, M, K, KT, p.mp, none);
-  ok = ok && make_map(&maps[1], CU_TENSOR_MAP_DATA_TYPE_UINT8, hi, N, K / 2, N, SBN, 64, none);
-  ok = ok && make_map(&maps[2], CU_TENSOR_MAP_DATA_TYPE_UINT8, lo, N, K / 4, N, SBN, 32, none);
   ok = ok && make_map(&maps[3], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws, N, K / KT, (uint64_t)N * 4, SBN, 1, none);
   if (!ok) return (int)cudaErrorInvalidValue;
   const int rp = row_pass(M);
-  if (rp == 4) return launch_stream<4>(maps, p, s);
-  if (rp == 8) return launch_stream<8>(maps, p, s);
-  return launch_stream<16>(maps, p, s);
+  if (rp == 4) return launch_stream<FMT, 4>(maps, p, s);
+  if (rp == 8) return launch_stream<FMT, 8>(maps, p, s);
+  return launch_stream<FMT, 16>(maps, p, s);
+}
+
+// every kernel instance: (name, function), for flexq_w6ax_kernel_attributes
+struct Instance {
+  const char* name;
+  const void* fn;
+};
+const Instance INSTANCES[] = {
+    {"mma<6,128>", (const void*)w6ax_mma_kernel<6, 128>},     {"mma<6,64>", (const void*)w6ax_mma_kernel<6, 64>},
+    {"stream<6,4>", (const void*)w6ax_stream_kernel<6, 4>},   {"stream<6,8>", (const void*)w6ax_stream_kernel<6, 8>},
+    {"stream<6,16>", (const void*)w6ax_stream_kernel<6, 16>}, {"mma<4,128>", (const void*)w6ax_mma_kernel<4, 128>},
+    {"mma<4,64>", (const void*)w6ax_mma_kernel<4, 64>},       {"stream<4,4>", (const void*)w6ax_stream_kernel<4, 4>},
+    {"stream<4,8>", (const void*)w6ax_stream_kernel<4, 8>},   {"stream<4,16>", (const void*)w6ax_stream_kernel<4, 16>},
+    {"mma<8,128>", (const void*)w6ax_mma_kernel<8, 128>},     {"mma<8,64>", (const void*)w6ax_mma_kernel<8, 64>},
+    {"stream<8,4>", (const void*)w6ax_stream_kernel<8, 4>},   {"stream<8,8>", (const void*)w6ax_stream_kernel<8, 8>},
+    {"stream<8,16>", (const void*)w6ax_stream_kernel<8, 16>},
+};
+
+}  // namespace
+
+// fmt 6: p0 = hi [K/2, N], p1 = lo [K/4, N] bytes (pack6); fmt 4: p0 = the
+// nibble plane [K/2, N] (pack4); fmt 8: p0 = the int8 weight [K, N]; p1 is
+// unused but for fmt 6. xq int8 [M, K] (16-byte aligned), xs f32 [M, K/128],
+// ws f32 [K/128, N]; planes and scales 16-byte aligned with N % 16 == 0 (TMA
+// reads them); out [M, N] bf16 or f32. route 0: tensor cores (any M);
+// route 1: streaming (M <= 64, W8: <= 32), with scratch (f32,
+// scratch_floats) and counters (int32, zero before the first call, left zero
+// by every call) of at least the sizes flexq_w6ax_geometry gives. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it refuses.
+extern "C" int flexq_w6ax_matmul(int fmt, const void* xq, const void* xs, const void* p0, const void* p1,
+                                 const void* ws, void* out, void* scratch, long long scratch_floats, void* counters,
+                                 int M, int N, int K, int out_bf16, int route, void* stream) {
+  if (bad_args(fmt, M, N, K, route)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  CUtensorMap pm[2];
+  if (!plane_maps(fmt, pm, p0, p1, N, K, route == 0 ? a_tile_n(M, N) : SBN)) return (int)cudaErrorInvalidValue;
+  if (fmt == 6) return run<6>(xq, xs, pm, ws, out, scratch, scratch_floats, counters, M, N, K, out_bf16, route, s);
+  if (fmt == 4) return run<4>(xq, xs, pm, ws, out, scratch, scratch_floats, counters, M, N, K, out_bf16, route, s);
+  return run<8>(xq, xs, pm, ws, out, scratch, scratch_floats, counters, M, N, K, out_bf16, route, s);
 }
 
 // The geometry a launch takes: info[0] = route A's column tile (route 0), or
 // route B's blocks splitting K, groups a block, compute warps, term slots,
 // shared-memory bytes (route 1); info[5] = the scratch floats and info[6]
-// the arrival counters a call needs. Returns 0, or cudaErrorInvalidValue.
-extern "C" int flexq_w6ax_geometry(int M, int N, int K, int route, long long* info) {
-  if (bad_args(M, N, K, route)) return (int)cudaErrorInvalidValue;
+// the arrival counters a call needs. Returns 0, or cudaErrorInvalidValue
+// (also where route B's stages would not fit the shared memory).
+extern "C" int flexq_w6ax_geometry(int fmt, int M, int N, int K, int route, long long* info) {
+  if (bad_args(fmt, M, N, K, route)) return (int)cudaErrorInvalidValue;
   for (int i = 0; i < 7; ++i) info[i] = 0;
   if (route == 0) {
     info[0] = a_tile_n(M, N);
     return 0;
   }
-  const BParams p = b_geometry(M, N, K);
+  const BParams p = b_geometry(fmt, M, N, K);
+  if (b_smem(p) > SMEM_MAX || (p.C == 1 && p.ts < 1)) return (int)cudaErrorInvalidValue;
   info[0] = p.C;
   info[1] = p.gps;
   info[2] = p.nw;
@@ -840,5 +968,21 @@ extern "C" int flexq_w6ax_geometry(int M, int N, int K, int route, long long* in
   info[4] = b_smem(p);
   info[5] = b_scratch_floats(p);
   info[6] = p.C > 1 ? (N + SBN - 1) / SBN : 0;
+  return 0;
+}
+
+// Kernel instance i's name (into name, at most len bytes with the NUL), its
+// registers a thread and its local-memory bytes a thread (spills): 0, or 1
+// past the last instance, or the CUDA error of cudaFuncGetAttributes.
+extern "C" int flexq_w6ax_kernel_attributes(int i, char* name, int len, int* regs, int* local_bytes) {
+  if (i < 0 || i >= (int)(sizeof(INSTANCES) / sizeof(INSTANCES[0]))) return 1;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, INSTANCES[i].fn);
+  if (e != cudaSuccess) return (int)e;
+  int n = 0;
+  for (; INSTANCES[i].name[n] && n + 1 < len; ++n) name[n] = INSTANCES[i].name[n];
+  name[n] = 0;
+  *regs = a.numRegs;
+  *local_bytes = (int)a.localSizeBytes;
   return 0;
 }

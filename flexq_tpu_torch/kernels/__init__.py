@@ -2,7 +2,8 @@
 
 Every wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version for a CPU tensor; ``launch_counts()`` reads the
-per-wrapper launch counters and ``reset_launch_counts()`` zeroes them.
+per-wrapper launch counters and ``reset_launch_counts()`` zeroes them (and
+the counts by M that the exact GEMMs and the producers keep beside them).
 """
 
 from typing import Dict
@@ -31,4 +32,5 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0
-    w6_matmul.launches_by_m.clear()
+        if hasattr(fn, "launches_by_m"):
+            fn.launches_by_m.clear()

@@ -24,7 +24,7 @@ from typing import Callable, Dict, List, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-SOURCES = ("int_matmul", "w6ax_matmul", "attend_cache", "wa16_matmul", "flash_prefill", "flash_decode")
+SOURCES = ("row_quant", "w6ax_matmul", "attend_cache", "wa16_matmul", "flash_prefill", "flash_decode")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -58,6 +58,13 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def count_launch(fn, m: int) -> None:
+    """Add one launch at M rows to a wrapper's count and to its count by M
+    (``fn.launches_by_m``, kept by the exact GEMMs and the producers)."""
+    fn.launches += 1
+    fn.launches_by_m[m] = fn.launches_by_m.get(m, 0) + 1
+
+
 _counters: Dict[torch.device, torch.Tensor] = {}
 
 

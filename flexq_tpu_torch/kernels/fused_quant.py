@@ -2,10 +2,10 @@
 flexq_tpu/kernels/fused_quant.py: rmsnorm_quant, quant_act, glu_quant,
 layernorm_quant, relu_quant).
 
-One Triton kernel, ``_row_quant_kernel``, replaces five TPU kernels: its
-constexpr MODE selects the row producer and a shared epilogue quantizes the
-row in 128-wide groups (symmetric, scale = absmax / qmax clamped to
-[CLIPMIN, CLIPMAX], q = rint(y / scale) clamped to [-qmax-1, qmax]):
+One CUDA kernel, ``csrc/row_quant.cu``, replaces five TPU kernels: its MODE
+selects the row producer and a shared epilogue quantizes the row in
+128-wide groups (symmetric, scale = absmax / qmax clamped to [CLIPMIN,
+CLIPMAX], q = rint(y / scale) clamped to [-qmax-1, qmax]):
 
   MODE 0  identity                       flexq_tpu quant_act     (K4)
   MODE 1  RMSNorm                        flexq_tpu rmsnorm_quant (K1)
@@ -15,135 +15,89 @@ row in 128-wide groups (symmetric, scale = absmax / qmax clamped to
   MODE 5  residual add, then LayerNorm   flexq_tpu layernorm_quant (K14, residual)
   MODE 6  ReLU                           flexq_tpu relu_quant    (K15)
 
-Bound on this card: bytes. Each row is read once and written once as int8
-plus one f32 scale per 128 values (a few flops per byte; no tensor cores).
-Design: one program per row holds the whole row in registers, so the RMS
-reduction (LayerNorm: the mean, then the variance of the centred row, a
-second pass over the registers), the 128-wide absmax reductions and the
-stores need one pass over memory. The widest row on the serve path is
-OPT-6.7B's FFN (16384 values: BLOCK 16384 at 16 warps, 32 f32 a thread per
-live array, as glu_quant at LLaMA's 11264); ``_launch.compiled`` keeps each
-specialization's registers and spills. The arithmetic mirrors the plain versions below operation by
-operation: IEEE division (tl.div_rn) where the compiled reference divides,
-a multiply by the f32 reciprocal where it divides by a constant (qmax, K),
-half-to-even rounding (libdevice rint), libdevice exp / tanh / rsqrt (the
-functions torch's CUDA ops call), RMSNorm's cast to the model dtype before
-the gamma multiply (LayerNorm has none: y * gamma + beta in f32), and no FMA
-contraction (enable_fp_fusion=False). What can still differ from the plain
-version is the order of the RMS and LayerNorm sums.
-
-Triton is imported only when a kernel is launched: ``tl`` and ``libdevice``
-below are bound then, and the kernel is jitted from the plain function.
+Bound on this card: bytes. A warp owns 128-groups (four values a lane);
+the modes without a row statistic give every (row, group) its own warp over
+the whole grid, the RMS and LayerNorm modes hold a row in registers in one
+block between the statistic and the quant (see the source's header). The
+arithmetic mirrors the plain versions below operation by operation: IEEE
+division where the compiled reference divides, a multiply by the f32
+reciprocal where it divides by a constant (qmax, K), half-to-even rounding,
+expf / tanhf without fast math (the functions torch's CUDA ops call),
+RMSNorm's cast to the model dtype before the gamma multiply (LayerNorm has
+none: y * gamma + beta in f32), 1 / sqrt rounded twice (PyTorch's CPU
+rsqrt), and no FMA contraction. The RMS and LayerNorm sums run in another order than the plain version's, so a row's
+statistic may part from it by an ulp. The statistic modes take rows of up
+to ``STAT_MAX_K`` values; the others any multiple of 128.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
+from flexq_tpu_torch.kernels import _build
+from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, count_launch, on_card
 from flexq_tpu_torch.quant.quantizer import CLIPMAX, CLIPMIN
 
 _MODE_IDENT, _MODE_RMS, _MODE_RMS_RES, _MODE_GLU, _MODE_LN, _MODE_LN_RES, _MODE_RELU = range(7)
+_STAT_MODES = (_MODE_RMS, _MODE_RMS_RES, _MODE_LN, _MODE_LN_RES)
 _ACTS = {"silu": 0, "gelu": 1}
 _GELU_C = 0.7978845608028654  # sqrt(2 / pi)
+# the widest row of the RMS / LayerNorm modes: one block of 16 warps x 8 groups a warp
+# (csrc/row_quant.cu's MAX_WARPS, MAXG)
+STAT_MAX_K = 16 * 8 * GROUP_SIZE
 
-# bound at the first launch (triton is not importable without a GPU stack)
-tl = None
-libdevice = None
-_jitted = None
-
-
-def _row_quant_kernel(
-    x_ptr, r_ptr, g_ptr, b_ptr, q_ptr, s_ptr, ro_ptr, K, rk, eps, qmax, rq,
-    MODE: "tl.constexpr", ACT: "tl.constexpr", MODEL_BF16: "tl.constexpr",
-    BLOCK: "tl.constexpr",
-):
-    row = tl.program_id(0).to(tl.int64)
-    offs = tl.arange(0, BLOCK)
-    mask = offs < K
-    base = row * K
-    x = tl.load(x_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-    if MODE == 0:
-        y = x
-    elif MODE == 6:
-        y = tl.maximum(x, 0.0)
-    elif MODE == 3:
-        u = tl.load(r_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-        if ACT == 0:
-            y = x * tl.div_rn(1.0, 1.0 + libdevice.exp(-x)) * u
-        else:
-            # 0.7978845608028654 == _GELU_C (a kernel reads no float globals)
-            cdf = 0.5 * (1.0 + libdevice.tanh(0.7978845608028654 * (x + 0.044715 * (x * x * x))))
-            y = x * cdf * u
-    else:
-        h = x
-        if MODE == 2 or MODE == 5:
-            h = h + tl.load(r_ptr + base + offs, mask=mask, other=0.0).to(tl.float32)
-            tl.store(ro_ptr + base + offs, h.to(ro_ptr.dtype.element_ty), mask=mask)
-        g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        if MODE >= 4:
-            mu = tl.sum(h, axis=0) * rk
-            d = tl.where(mask, h - mu, 0.0)  # lanes past K would read -mu
-            var = tl.sum(d * d, axis=0) * rk
-            y = d * libdevice.rsqrt(var + eps)
-            y = y * g + tl.load(b_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        else:
-            var = tl.sum(h * h, axis=0) * rk
-            y = h * libdevice.rsqrt(var + eps)
-            if MODEL_BF16:
-                y = y.to(tl.bfloat16).to(tl.float32)
-            y = y * g
-    yg = tl.reshape(y, (BLOCK // 128, 128))
-    absmax = tl.max(tl.abs(yg), axis=1)
-    scale = tl.minimum(tl.maximum(absmax * rq, 1e-5), 1e4)
-    qf = libdevice.rint(tl.div_rn(yg, scale[:, None]))
-    qf = tl.minimum(tl.maximum(qf, -qmax - 1.0), qmax)
-    tl.store(q_ptr + base + offs, tl.reshape(qf, (BLOCK,)).to(tl.int8), mask=mask)
-    goffs = tl.arange(0, BLOCK // 128)
-    ng = K // 128
-    tl.store(s_ptr + row * ng + goffs, scale, mask=goffs < ng)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_I, _I] + [_P] * 7 + [_I] * 5 + [_F, _I, _F, _F, _P]
 
 
-def _kernel():
-    global tl, libdevice, _jitted
-    if _jitted is None:
-        import triton
-        import triton.language as tl_
-        from triton.language.extra import libdevice as libdevice_
+def check_width(mode: int, k: int) -> None:
+    """Raise for a row width the kernel's MODE does not take."""
+    if k % GROUP_SIZE:
+        raise ValueError(f"K={k} must be a multiple of {GROUP_SIZE}")
+    if mode in _STAT_MODES and k > STAT_MAX_K:
+        raise ValueError(f"K={k}: the RMS / LayerNorm producers hold a row of at most {STAT_MAX_K} values")
 
-        tl, libdevice = tl_, libdevice_
-        _jitted = triton.jit(_row_quant_kernel)
-    return _jitted
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(mode: int, x, other, gamma, bits: int, eps: float, act: str, with_ro: bool, beta=None):
+    """Launch csrc/row_quant.cu in MODE on checked CUDA operands; returns
+    (q, scales, residual out or None)."""
     m, k = x.shape
+    check_width(mode, k)
+    if any(t is not None and t.data_ptr() % 16 for t in (x, other, gamma, beta)):
+        raise ValueError("the producer's inputs must be 16-byte aligned")
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     s = torch.empty((m, k // GROUP_SIZE), dtype=torch.float32, device=x.device)
-    ro = torch.empty_like(x) if with_ro else x
+    ro = torch.empty_like(x) if with_ro else None
     qmax = 2 ** (bits - 1) - 1
-    block = max(128, 1 << (k - 1).bit_length())
-    warps = 4 if block <= 1024 else (8 if block <= 4096 else 16)
-    with torch.cuda.device(x.device):
-        compiled = _kernel()[(m,)](
-            x, other if other is not None else x, gamma if gamma is not None else x,
-            beta if beta is not None else x,
-            q, s, ro, k, f32_reciprocal(k), float(eps), float(qmax), f32_reciprocal(qmax),
-            MODE=mode, ACT=_ACTS[act], MODEL_BF16=x.dtype == torch.bfloat16,
-            BLOCK=block, num_warps=warps, enable_fp_fusion=False,
-        )
-    key = (mode, block, x.dtype)
-    if key not in _launch.compiled:
-        _launch.compiled[key] = (getattr(compiled, "n_regs", None), getattr(compiled, "n_spills", None))
+    bf16 = torch.bfloat16
+    fn = _build.function("row_quant", "flexq_row_quant", _ARGS)
+    rc = fn(
+        mode, _ACTS[act], x.data_ptr(), _ptr(other), _ptr(gamma), _ptr(beta), q.data_ptr(), s.data_ptr(), _ptr(ro),
+        m, k, int(x.dtype == bf16), int(gamma is not None and gamma.dtype == bf16),
+        int(beta is not None and beta.dtype == bf16), float(eps), qmax, f32_reciprocal(qmax), f32_reciprocal(k),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"row_quant kernel launch failed (MODE {mode}, M={m} K={k}): CUDA error {rc}")
     return q, s, ro
 
 
-# (MODE, BLOCK, dtype) -> (registers a thread, spilled registers) of each
-# specialization launched, as Triton reports them
-_launch.compiled = {}
+def empty_kernel(device) -> None:
+    """Launch csrc/row_quant.cu's empty kernel through the same host path
+    (the launch floor the producers are held against)."""
+    fn = _build.function("row_quant", "flexq_empty_kernel", [_P])
+    rc = fn(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
 
 
 def _check_rows(x: torch.Tensor, name: str) -> None:
@@ -155,6 +109,7 @@ def _check_rows(x: torch.Tensor, name: str) -> None:
 # ---- plain PyTorch versions (the same arithmetic, used on the CPU) -------
 
 
+@functools.lru_cache(maxsize=None)
 def f32_reciprocal(c: int) -> float:
     """1/c rounded once to f32 (exact as a Python float). The reference's
     kernels divide by the constants qmax and K (the mean), and XLA compiles a
@@ -257,7 +212,7 @@ def rmsnorm_quant(
         return rmsnorm_quant_plain(x, gamma, bits, residual=residual, eps=eps)
     mode = _MODE_RMS if residual is None else _MODE_RMS_RES
     q, s, ro = _launch(mode, x, residual, gamma, bits, eps, "silu", residual is not None)
-    rmsnorm_quant.launches += 1
+    count_launch(rmsnorm_quant, x.shape[0])
     return (q, s) if residual is None else (q, s, ro)
 
 
@@ -267,7 +222,7 @@ def quant_act(x: torch.Tensor, bits: int = 8) -> Tuple[torch.Tensor, torch.Tenso
     if not on_card(x):
         return quant_act_plain(x, bits)
     q, s, _ = _launch(_MODE_IDENT, x, None, None, bits, 0.0, "silu", False)
-    quant_act.launches += 1
+    count_launch(quant_act, x.shape[0])
     return q, s
 
 
@@ -282,7 +237,7 @@ def glu_quant(
     if not on_card(gate):
         return glu_quant_plain(gate, up, bits, act=act)
     q, s, _ = _launch(_MODE_GLU, gate, up, None, bits, 0.0, act, False)
-    glu_quant.launches += 1
+    count_launch(glu_quant, gate.shape[0])
     return q, s
 
 
@@ -310,7 +265,7 @@ def layernorm_quant(
         return layernorm_quant_plain(x, gamma, beta, bits, residual=residual, eps=eps)
     mode = _MODE_LN if residual is None else _MODE_LN_RES
     q, s, ro = _launch(mode, x, residual, gamma, bits, eps, "silu", residual is not None, beta=beta)
-    layernorm_quant.launches += 1
+    count_launch(layernorm_quant, x.shape[0])
     return (q, s) if residual is None else (q, s, ro)
 
 
@@ -320,12 +275,17 @@ def relu_quant(x: torch.Tensor, bits: int = 6) -> Tuple[torch.Tensor, torch.Tens
     if not on_card(x):
         return relu_quant_plain(x, bits)
     q, s, _ = _launch(_MODE_RELU, x, None, None, bits, 0.0, "silu", False)
-    relu_quant.launches += 1
+    count_launch(relu_quant, x.shape[0])
     return q, s
 
 
 rmsnorm_quant.launches = 0
+rmsnorm_quant.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)
 quant_act.launches = 0
+quant_act.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)
 glu_quant.launches = 0
+glu_quant.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)
 layernorm_quant.launches = 0
+layernorm_quant.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)
 relu_quant.launches = 0
+relu_quant.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)

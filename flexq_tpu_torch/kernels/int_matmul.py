@@ -4,12 +4,12 @@ W8A8 (K12) wrappers:
     out[m, n] = sum_g (sum_{k in g} x_q * w) * x_scale[m, g] * w_scale[g, n]
 
 over a signed integer weight ``w`` (the unpacked 6-bit, 4-bit or int8
-plane). Two CUDA sources (sm_90a; see each header for the design and its
-bound): ``csrc/w6ax_matmul.cu`` serves the 6-bit format (K2, K3: a
-streaming kernel up to ``W6AX_STREAM_MAX_M`` rows, int8 tensor cores above;
-``w6ax_route`` decides), ``csrc/int_matmul.cu`` the 4- and 8-bit formats
-(K10, K12; ``launch`` here). ``grouped_matmul_plain`` is the same function
-in PyTorch, with the same rounding: the per-group integer partials are exact, and the f32
+plane). One CUDA source serves the three formats (sm_90a; see its header
+for the design and its bound): ``csrc/w6ax_matmul.cu``, in two routes, a
+streaming kernel up to ``STREAM_MAX_M[fmt]`` rows and int8 tensor cores
+above (``w6ax_route`` decides); ``launch`` here calls it.
+``grouped_matmul_plain`` is the same function in PyTorch, with the same
+rounding: the per-group integer partials are exact, and the f32
 accumulation runs over the groups in order, ``acc = acc + part * (x_scale *
 w_scale)``, as the TPU kernels (``_w6_matmul_kernel``, ``_w4_matmul_kernel``,
 ``_w8_kernel``) do (not the einsum order of the reference's ``w*_matmul_ref``
@@ -19,14 +19,17 @@ goldens).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from flexq_tpu_torch.kernels import _build
-from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor
+from flexq_tpu_torch.kernels.common import GROUP_SIZE, arrival_counters, check_tensor, split_scratch
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_ARGS = [_I] + [_P] * 7 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P]
+_GEOMETRY_ARGS = [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
 
 
 def grouped_matmul_plain(x_q, x_scale, w_int, w_scale, out_dtype=torch.float32):
@@ -55,47 +58,80 @@ def check_activations(x_q, x_scale) -> None:
     check_tensor(x_scale, "x_scale", torch.float32, (m, k // GROUP_SIZE), x_q.device)
 
 
-def launch(fmt: int, x_q, x_scale, p0, p1, w_scale, out_dtype, ks: int) -> torch.Tensor:
-    """Launch csrc/int_matmul.cu for weight format ``fmt`` (4: p0 = nibble
-    plane; 8: p0 = int8 [K, N]; p1 unused) with ``ks`` warps splitting K per
-    block."""
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"out_dtype {out_dtype} not supported by the kernel")
-    if x_q.data_ptr() % 16:
-        raise ValueError("x_q must be 16-byte aligned")
-    m, k = x_q.shape
-    n = w_scale.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x_q.device)
-    fn = _build.function("int_matmul", "flexq_int_matmul", _ARGS)
-    rc = fn(
-        fmt, x_q.data_ptr(), x_scale.data_ptr(), p0.data_ptr(), None if p1 is None else p1.data_ptr(),
-        w_scale.data_ptr(), out.data_ptr(), m, n, k, int(out_dtype == torch.bfloat16),
-        ks, 4 if m <= 4 else 8, torch.cuda.current_stream(x_q.device).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"W{fmt} integer matmul kernel launch failed: CUDA error {rc}")
-    return out
-
-
 def split_k_warps(m: int, k: int, n: int) -> int:
-    """Warps splitting K per block: 16 for K-tall decode shapes (M <= 32,
-    K > N: down_proj), where few column blocks cover the card, else 8. For
-    the W6 format this is also the reference's dispatch to K3."""
+    """The reference's dispatch of the W6 format to its stream kernel (K3):
+    16 (its K-splitting warps) for K-tall decode shapes (M <= 32, K > N:
+    down_proj), else 8; ``w6_matmul`` hands the 16 cases to
+    ``w6_matmul_stream``."""
     return 16 if m <= 32 and k > n else 8
 
 
 W6AX_MMA, W6AX_STREAM = 0, 1  # csrc/w6ax_matmul.cu's routes
 
 
-# The largest M the W6Ax GEMM streams at: measured with
-# scripts/torch_w6ax_parts.py routes on the main path's (K, N) (PERF.md, PR 9):
-# the streaming route is the faster up to M = 8 at every shape, the tensor
-# cores from M = 16 at all but 4096^2 (4 % apart there) and from M = 32 at all.
-W6AX_STREAM_MAX_M = 8
+# The largest M each weight format streams at (route B), measured with
+# scripts/torch_w6ax_parts.py routes on the main path's (K, N) (PERF.md §6):
+# up to it the streaming route is the faster at every shape, above it the
+# tensor cores.
+STREAM_MAX_M = {6: 8, 4: 8, 8: 16}
 
 
-def w6ax_route(m: int, k: int, n: int) -> int:
-    """The W6Ax GEMM's route for an [M, K] x [K, N] call: the streaming
-    kernel (bytes bound: decode) up to W6AX_STREAM_MAX_M rows, the int8
-    tensor cores above."""
-    return W6AX_STREAM if m <= W6AX_STREAM_MAX_M else W6AX_MMA
+def w6ax_route(m: int, k: int, n: int, fmt: int = 6) -> int:
+    """The exact GEMM's route for an [M, K] x [K, N] call in weight format
+    ``fmt``: the streaming kernel (bytes bound: decode) up to
+    STREAM_MAX_M[fmt] rows, the int8 tensor cores above."""
+    return W6AX_STREAM if m <= STREAM_MAX_M[fmt] else W6AX_MMA
+
+
+@functools.lru_cache(maxsize=512)
+def geometry(fmt: int, m: int, k: int, n: int, route: int) -> Tuple[int, ...]:
+    """The launch geometry csrc/w6ax_matmul.cu takes for these sizes (its
+    own computation): route A's (column tile,), or route B's (blocks
+    splitting K, groups a block, compute warps, term slots, shared-memory
+    bytes, scratch floats, arrival counters)."""
+    info = (ctypes.c_longlong * 7)()
+    fn = _build.function("w6ax_matmul", "flexq_w6ax_geometry", _GEOMETRY_ARGS)
+    if fn(fmt, m, n, k, route, info) != 0:
+        raise ValueError(f"no W{fmt} geometry for M={m} K={k} N={n} route {route}")
+    return (info[0],) if route == 0 else tuple(info)
+
+
+def stream_takes(fmt: int, m: int, k: int, n: int) -> bool:
+    """Whether route B takes these sizes (its ring stages hold M rows of x;
+    the source's geometry decides)."""
+    try:
+        geometry(fmt, m, k, n, W6AX_STREAM)
+    except ValueError:
+        return False
+    return True
+
+
+def launch(fmt: int, x_q, x_scale, planes, w_scale, out_dtype, route: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/w6ax_matmul.cu on checked CUDA operands of weight format
+    ``fmt`` (``planes``: W6 (hi, lo), W4 (nibble plane,), W8 (int8 [K, N],))
+    in ``route`` (default: ``w6ax_route(M, K, N, fmt)``). TMA reads the codes,
+    planes and scales: a base that is not 16-byte aligned, or N not a
+    multiple of 16, raises."""
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"out_dtype {out_dtype} not supported by the kernel")
+    m, k = x_q.shape
+    n = w_scale.shape[1]
+    if n % 16:
+        raise ValueError(f"N={n}: the planes' row stride must be a multiple of 16 bytes")
+    if any(t.data_ptr() % 16 for t in (x_q, *planes, w_scale)):
+        raise ValueError("x_q, the weight planes and w_scale must be 16-byte aligned")
+    route = w6ax_route(m, k, n, fmt) if route is None else route
+    dev = x_q.device
+    scratch_floats, n_counters = geometry(fmt, m, k, n, route)[5:] if route else (0, 0)
+    scratch = split_scratch(dev, scratch_floats).data_ptr() if scratch_floats else None
+    counters = arrival_counters(dev, n_counters).data_ptr() if n_counters else None
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    fn = _build.function("w6ax_matmul", "flexq_w6ax_matmul", _ARGS)
+    rc = fn(
+        fmt, x_q.data_ptr(), x_scale.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr() if fmt == 6 else None,
+        w_scale.data_ptr(), out.data_ptr(), scratch, scratch_floats, counters, m, n, k,
+        int(out_dtype == torch.bfloat16), route, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"W{fmt} integer matmul kernel launch failed (route {route}): CUDA error {rc}")
+    return out

@@ -8,10 +8,10 @@
 
 with the weights as stored by packing/pack4.py (a biased nibble plane,
 N-minor). The kernels are the format-neutral ones over the nibble plane:
-K10 is ``csrc/int_matmul.cu`` with the format parameter 4 and K11 is
-``csrc/wa16_matmul.cu`` with the format parameter 4 (see their headers for
-the design and the bound). The plain versions follow the kernels'
-order of operations, as the W6 ones do.
+K10 is ``csrc/w6ax_matmul.cu`` with the format parameter 4 (its two routes,
+``int_matmul.w6ax_route`` picks) and K11 is ``csrc/wa16_matmul.cu`` with the
+format parameter 4 (see their headers for the design and the bound). The
+plain versions follow the kernels' order of operations, as the W6 ones do.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Optional
 
 import torch
 
-from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
+from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, count_launch, on_card
 from flexq_tpu_torch.kernels.wa16_matmul import (
     ROPE_HEAD,
     acc_plain,
@@ -29,7 +29,7 @@ from flexq_tpu_torch.kernels.wa16_matmul import (
     launch_bf16,
     rope_epilogue_plain,
 )
-from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch
 from flexq_tpu_torch.packing.pack4 import unpack4
 
 
@@ -52,16 +52,15 @@ def w4_matmul(
     *,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Exact W4A8 GEMM. K-tall decode shapes (M <= 32, K > N) take the
-    16-warp launch of the same kernel (the reference has no stream variant
-    of K10, so they count as w4_matmul launches)."""
+    """Exact W4A8 GEMM (every shape: the reference has no stream variant of
+    K10)."""
     check_activations(x_q, x_scale)
     m, k = x_q.shape
     _check_weight(w_q4, w_scale, k, x_q.device)
     if not on_card(x_q):
         return w4_matmul_plain(x_q, x_scale, w_q4, w_scale, out_dtype)
-    out = launch(4, x_q, x_scale, w_q4, None, w_scale, out_dtype, ks=split_k_warps(m, k, w_q4.shape[1]))
-    w4_matmul.launches += 1
+    out = launch(4, x_q, x_scale, (w_q4,), w_scale, out_dtype)
+    count_launch(w4_matmul, m)
     return out
 
 
@@ -102,4 +101,5 @@ def w4_matmul_bf16(
 
 
 w4_matmul.launches = 0
+w4_matmul.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)
 w4_matmul_bf16.launches = 0

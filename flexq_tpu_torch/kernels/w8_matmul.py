@@ -4,17 +4,18 @@ K12), the SmoothQuant-baseline GEMM:
     out[m, n] = sum_g (sum_{k in g} x_q * w_q) * x_scale[m, g] * w_scale[g, n]
 
 with int8 weights stored dense [K, N] (no bias). The kernel is
-``csrc/int_matmul.cu`` with the format parameter 8 (see its header for the
-design and the bound); the plain version follows its order of operations:
-exact integer partials, f32 accumulation over the groups in order.
+``csrc/w6ax_matmul.cu`` with the format parameter 8 (its two routes,
+``int_matmul.w6ax_route`` picks; see its header for the design and the
+bound); the plain version follows its order of operations: exact integer
+partials, f32 accumulation over the groups in order.
 """
 
 from __future__ import annotations
 
 import torch
 
-from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
-from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
+from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, count_launch, on_card
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch
 
 
 def w8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype=torch.float32):
@@ -30,8 +31,7 @@ def w8_matmul(
     *,
     out_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Exact W8A8 GEMM. K-tall decode shapes (M <= 32, K > N) take the
-    16-warp launch of the same kernel."""
+    """Exact W8A8 GEMM."""
     check_activations(x_q, x_scale)
     m, k = x_q.shape
     n = w_q.shape[1]
@@ -39,9 +39,10 @@ def w8_matmul(
     check_tensor(w_scale, "w_scale", torch.float32, (k // GROUP_SIZE, n), x_q.device)
     if not on_card(x_q):
         return w8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype)
-    out = launch(8, x_q, x_scale, w_q, None, w_scale, out_dtype, ks=split_k_warps(m, k, n))
-    w8_matmul.launches += 1
+    out = launch(8, x_q, x_scale, (w_q,), w_scale, out_dtype)
+    count_launch(w8_matmul, m)
     return out
 
 
 w8_matmul.launches = 0
+w8_matmul.launches_by_m = {}  # M -> launches, beside the count (zeroed with it)

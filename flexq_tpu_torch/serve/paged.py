@@ -20,6 +20,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from flexq_tpu_torch.kernels.common import resolve_device
+
 
 class PagePool:
     """Fixed pool of KV pages and its free-list allocator (the same order
@@ -27,11 +29,12 @@ class PagePool:
     on a fresh pool, and freed pages are reused last-in first-out)."""
 
     def __init__(self, num_layers: int, num_pages: int, kv_heads: int, page_size: int, head_dim: int,
-                 dtype=torch.bfloat16, partitions: int = 1, device="cpu"):
+                 dtype=torch.bfloat16, partitions: int = 1, device="cuda"):
         if partitions != 1:
             raise NotImplementedError("data-parallel pool partitions are a later slice")
         if page_size % 128:
             raise ValueError(f"page size {page_size} must be a multiple of 128")
+        device = resolve_device(device)  # the card unless the caller asks for the CPU, as the Engine's
         shape = (num_layers, num_pages, kv_heads, page_size, head_dim)
         self.page_size = page_size
         self.num_pages = num_pages

@@ -4,9 +4,10 @@ one. This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
-Tolerances: the exact integer kernels (W6Ax on both routes, W4A8, W8A8) are bit-exact; the
+Tolerances: the exact integer kernels (W6Ax, W4A8 and W8A8, each on both routes) are bit-exact; the
 producers may move a quantized value by 1 on at most 0.1 % of entries (the
-RMS and LayerNorm sum orders differ; relu_quant has no sum and is bit-exact); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
+RMS and LayerNorm sum orders differ; quant_act, glu_quant and relu_quant
+have no sum and are bit-exact, and a residual output equals x + r); the W6A16 and W4A16 kernels (K7, K8, K11) differ from
 their plain versions only in the order of f32 sums: f32 output within 1e-4
 of max |out|, bf16 output within one bf16 ulp of the plain f32 result (plus
 that 1e-4 for sums that cancel); attention
@@ -44,6 +45,7 @@ from flexq_tpu_torch.kernels import (
 )
 from flexq_tpu_torch.kernels.attend_cache import attend_cache_plain
 from flexq_tpu_torch.kernels.flash_decode import flash_decode_paged_plain
+from flexq_tpu_torch.kernels import fused_quant
 from flexq_tpu_torch.kernels.fused_quant import (
     glu_quant_plain,
     layernorm_quant_plain,
@@ -53,8 +55,16 @@ from flexq_tpu_torch.kernels.fused_quant import (
 )
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_plain
-from flexq_tpu_torch.kernels.int_matmul import W6AX_MMA, W6AX_STREAM, W6AX_STREAM_MAX_M, w6ax_route
-from flexq_tpu_torch.kernels.w6_matmul import launch_w6ax, w6_matmul_plain
+from flexq_tpu_torch.kernels.int_matmul import (
+    STREAM_MAX_M,
+    W6AX_MMA,
+    W6AX_STREAM,
+    geometry,
+    launch,
+    stream_takes,
+    w6ax_route,
+)
+from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.models.llama import rope_for_cfg
 from flexq_tpu_torch.packing.pack4 import pack4
@@ -122,6 +132,86 @@ def test_relu_quant_kernel(gen, k):
     assert launch_counts()["relu_quant"] == 1
 
 
+PRODUCERS = ("rms", "rms+res", "quant_act", "glu silu", "glu gelu", "ln", "ln+res", "relu")
+
+
+def producer_call(gen, what, m, k, dtype, bits=6):
+    """(kernel call, plain call) of one producer MODE on rows [m, k]."""
+    x = (3 * torch.randn((m, k), generator=gen, device="cuda") + 0.5).to(dtype)
+    r = torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+    g = (1 + 0.1 * torch.randn(k, generator=gen, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(k, generator=gen, device="cuda")).to(torch.float32)  # bf16 rows: another dtype than gamma's
+    res = r if what.endswith("+res") else None
+    if what.startswith("rms"):
+        return (lambda: rmsnorm_quant(x, g, bits, residual=res)), (lambda: rmsnorm_quant_plain(x, g, bits, residual=res))
+    if what.startswith("ln"):
+        return ((lambda: layernorm_quant(x, g, b, bits, residual=res)),
+                (lambda: layernorm_quant_plain(x, g, b, bits, residual=res)))
+    if what.startswith("glu"):
+        act = what.split()[1]
+        return (lambda: glu_quant(x, r, bits, act=act)), (lambda: glu_quant_plain(x, r, bits, act=act))
+    if what == "relu":
+        return (lambda: relu_quant(x, bits)), (lambda: relu_quant_plain(x, bits))
+    return (lambda: quant_act(x, bits)), (lambda: quant_act_plain(x, bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m", [1, 7, 133])
+@pytest.mark.parametrize("k", [128, 384, 4096, 11264, 16384])
+@pytest.mark.parametrize("what", PRODUCERS)
+def test_row_quant_modes(gen, what, k, m, dtype):
+    """Every MODE of csrc/row_quant.cu at one group, an odd group count, the
+    7B hidden and FFN widths and OPT-6.7B's FFN (the widest row one block of
+    the statistic modes holds), ragged M, bf16 and f32 rows: within the
+    producers' tolerance, bit-exact where no sum's order can differ (the
+    identity, the GLU, ReLU), the residual output equal to x + r, one launch
+    counted at M."""
+    kern, plain = producer_call(gen, what, m, k, dtype)
+    got, want = kern(), plain()
+    if what.startswith(("rms", "ln")):
+        assert_quant_close(got, want)
+    else:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if what.endswith("+res"):
+        assert torch.equal(got[2], want[2])
+    name = {"rms": "rmsnorm_quant", "ln": "layernorm_quant", "glu": "glu_quant", "relu": "relu_quant"}.get(
+        what.split("+")[0].split()[0], "quant_act")
+    fn = {f.__name__: f for f in (rmsnorm_quant, layernorm_quant, glu_quant, relu_quant, quant_act)}[name]
+    assert launch_counts()[name] == 1 and fn.launches_by_m == {m: 1}
+
+
+@pytest.mark.parametrize("what", ["rms", "rms+res", "ln", "ln+res"])
+def test_row_quant_rows_do_not_depend_on_m(gen, what):
+    """The statistic modes take another block shape once the rows fill the
+    card (M = 2048) than at decode; a row's codes, scale and residual output
+    are the same bits either way (the sums keep one order)."""
+    x = (3 * torch.randn((2048, 4096), generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+    r = torch.randn((2048, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(4096, generator=gen, device="cuda")).to(torch.bfloat16)
+    b = (0.1 * torch.randn(4096, generator=gen, device="cuda")).to(torch.bfloat16)
+    if what.startswith("rms"):
+        call = lambda rows: rmsnorm_quant(x[:rows], g, 6, residual=r[:rows] if what.endswith("+res") else None)  # noqa: E731
+    else:
+        call = lambda rows: layernorm_quant(x[:rows], g, b, 6, residual=r[:rows] if what.endswith("+res") else None)  # noqa: E731
+    full, few = call(2048), call(4)
+    assert all(torch.equal(f[:4], w) for f, w in zip(full, few))
+
+
+def test_row_quant_widths(gen):
+    """The modes without a row statistic take any multiple of 128 (OPT-66B's
+    FFN, 36864, too); the statistic modes refuse rows wider than they hold,
+    before any launch."""
+    x = (2 * torch.randn((3, 36864), generator=gen, device="cuda")).to(torch.bfloat16)
+    for kern, plain in ((relu_quant, relu_quant_plain), (quant_act, quant_act_plain)):
+        got, want = kern(x, 6), plain(x, 6)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wide = torch.zeros((2, fused_quant.STAT_MAX_K + 128), dtype=torch.bfloat16, device="cuda")
+    gamma = torch.ones(wide.shape[1], dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="at most"):
+        rmsnorm_quant(wide, gamma, 6)
+    assert launch_counts()["rmsnorm_quant"] == 0
+
+
 @pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (40, 512, 1024), (4, 1024, 512)])
 def test_w6_matmul_kernel_bit_exact(gen, m, k, n):
     xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
@@ -167,12 +257,12 @@ def test_w6ax_kernel_bit_exact(gen, m, k, ends):
 def test_w6ax_routes_meet_at_the_threshold(gen, k, n):
     """Both routes bit-exact on both sides of the route threshold, and the
     wrapper takes the route w6ax_route gives."""
-    t = W6AX_STREAM_MAX_M
+    t = STREAM_MAX_M[6]
     for m in (t, t + 1):
         ops = w6ax_operands(gen, m, k, n, ends=True)
         want = w6_matmul_plain(*ops, torch.bfloat16)
         for route in (W6AX_MMA, W6AX_STREAM):
-            assert torch.equal(launch_w6ax(*ops, torch.bfloat16, route=route), want)
+            assert torch.equal(launch(6, ops[0], ops[1], ops[2:4], ops[4], torch.bfloat16, route=route), want)
         assert w6ax_route(m, k, n) == (W6AX_STREAM if m <= t else W6AX_MMA)
 
 
@@ -191,7 +281,7 @@ def test_w6ax_kernel_refuses_unaligned_planes(gen):
 @pytest.mark.parametrize("fmt", [4, 8])
 @pytest.mark.parametrize("m,k,n", [(4, 512, 1024), (40, 512, 1024), (4, 1024, 512)])
 def test_w4_w8_matmul_kernel_bit_exact(gen, fmt, m, k, n):
-    # (4, 1024, 512) is K-tall: the 16-warp launch of the same kernel
+    # (4, 1024, 512) is K-tall: route B splits K over blocks there
     xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
     xs = torch.rand((m, k // 128), generator=gen, device="cuda") * 0.05 + 1e-3
     lim = 2 ** (fmt - 1)
@@ -201,7 +291,65 @@ def test_w4_w8_matmul_kernel_bit_exact(gen, fmt, m, k, n):
     w = pack4(w) if fmt == 4 else w
     for dt in (torch.float32, torch.bfloat16):
         assert torch.equal(fn(xq, xs, w, ws, out_dtype=dt), plain(xq, xs, w, ws, dt))
-    assert launch_counts()[fn.__name__] == 2
+    assert launch_counts()[fn.__name__] == 2 and fn.launches_by_m == {m: 2}
+
+
+def int_operands(gen, fmt, m, k, n):
+    """8-bit codes at both ends of their range beside random ones, and a
+    weight of format ``fmt`` with its extreme values (the largest |P|):
+    (xq, xs, planes, ws, the plain version's bf16 result)."""
+    lim = 2 ** (fmt - 1)
+    xq = torch.randint(-128, 128, (m, k), generator=gen, device="cuda", dtype=torch.int8)
+    xq[:, ::3], xq[:, 1::5] = -128, 127
+    w = torch.randint(-lim, lim, (k, n), generator=gen, device="cuda", dtype=torch.int8)
+    w[::2], w[1::4] = -lim, lim - 1
+    xs = torch.rand((m, k // 128), generator=gen, device="cuda") * 0.05 + 1e-3
+    ws = torch.rand((k // 128, n), generator=gen, device="cuda") * 0.01 + 1e-4
+    planes = pack6(w) if fmt == 6 else (pack4(w),) if fmt == 4 else (w,)
+    plain = {6: w6_matmul_plain, 4: w4_matmul_plain, 8: w8_matmul_plain}[fmt]
+    return xq, xs, planes, ws, plain(xq, xs, *planes, ws, torch.bfloat16)
+
+
+INT_KN = ((384, 256), (4096, 4096), (11264, 4096), (4096, 11264))  # an odd group count; split K; unsplit
+B_ROWS = {6: 64, 4: 64, 8: 32}  # route B's largest M per format (its ring stages; csrc/w6ax_matmul.cu's b_max_m)
+INT_ROUTE_CASES = [(fmt, route, m) for fmt in (6, 4, 8) for route, ms in (
+    (W6AX_STREAM, (1, 3, 8, 13, B_ROWS[fmt])), (W6AX_MMA, (1, 33, 130)))
+    for m in ms]
+
+
+@pytest.mark.parametrize("k,n", INT_KN)
+@pytest.mark.parametrize("fmt,route,m", INT_ROUTE_CASES)
+def test_int_gemm_routes_bit_exact(gen, fmt, route, m, k, n):
+    """Every weight format on both routes of csrc/w6ax_matmul.cu, M not a
+    multiple of 4 beside the route edges (route B's largest M: 64, W8's 32),
+    N = 4096 where route B splits K over blocks: bit-exact against the
+    plain version, in f32 and bf16."""
+    xq, xs, planes, ws, want = int_operands(gen, fmt, m, k, n)
+    if route == W6AX_STREAM and m == B_ROWS[fmt]:  # the source's edge: one row more is refused
+        assert stream_takes(fmt, m, k, n) and not stream_takes(fmt, m + 1, k, n)
+    if route == W6AX_STREAM and n == 4096:
+        assert geometry(fmt, m, k, n, route)[0] > 1  # the split-K class
+    assert torch.equal(launch(fmt, xq, xs, planes, ws, torch.bfloat16, route=route), want)
+    got = launch(fmt, xq, xs, planes, ws, torch.float32, route=route)
+    plain = {6: w6_matmul_plain, 4: w4_matmul_plain, 8: w8_matmul_plain}[fmt]
+    assert torch.equal(got, plain(xq, xs, *planes, ws, torch.float32))
+
+
+@pytest.mark.parametrize("fmt", [4, 8])
+def test_int_gemm_wrapper_takes_the_route_of_its_format(gen, fmt):
+    """w4_matmul / w8_matmul take w6ax_route's route for their format on
+    both sides of its threshold (the route threshold per format), and W8's
+    route B refuses more rows than its stages hold."""
+    t = STREAM_MAX_M[fmt]
+    fn = w4_matmul if fmt == 4 else w8_matmul
+    for m in (t, t + 1):
+        xq, xs, planes, ws, want = int_operands(gen, fmt, m, 4096, 4096)
+        assert torch.equal(fn(xq, xs, *planes, ws), want)
+        assert w6ax_route(m, 4096, 4096, fmt) == (W6AX_STREAM if m <= t else W6AX_MMA)
+    assert fn.launches_by_m == {t: 1, t + 1: 1}
+    if fmt == 8:
+        with pytest.raises(ValueError, match="no W8 geometry"):
+            geometry(8, 33, 4096, 4096, W6AX_STREAM)
 
 
 @pytest.mark.parametrize("lq", [1, 5])

@@ -98,7 +98,7 @@ def test_quantize_linear_byte_identical(bits, k, n, k_pad):
 @pytest.mark.parametrize("fmt", ["w4", "w8"])
 @pytest.mark.parametrize("m,k,n", [(4, 256, 384), (40, 256, 384), (4, 512, 256)])
 def test_int_matmul_matches_jax(fmt, m, k, n):
-    # (4, 512, 256) is K-tall: the kernel takes its 16-warp launch there
+    # (4, 512, 256) is K-tall: on the card, route B splits K over blocks there
     rng = np.random.default_rng(m + k + (fmt == "w8"))
     xq = rng.integers(-128, 128, (m, k)).astype(np.int8)
     xs = rng.uniform(0.001, 0.1, (m, k // 128)).astype(np.float32)

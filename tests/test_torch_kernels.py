@@ -32,9 +32,12 @@ from flexq_tpu_torch.kernels import (
     launch_counts,
     quant_act,
     rmsnorm_quant,
+    w4_matmul,
     w6_matmul,
+    w8_matmul,
 )
-from flexq_tpu_torch.kernels.int_matmul import W6AX_MMA, W6AX_STREAM, W6AX_STREAM_MAX_M, w6ax_route
+from flexq_tpu_torch.kernels.fused_quant import STAT_MAX_K, check_width
+from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, w6ax_route
 from flexq_tpu_torch.packing.pack6 import pack6
 
 
@@ -109,8 +112,38 @@ def test_w6_matmul_matches_jax(m, k, n):
 def test_w6ax_route_threshold(k, n):
     """The W6Ax GEMM's route at the main path's (K, N): the streaming kernel
     up to the measured threshold, the tensor cores above it."""
-    t = W6AX_STREAM_MAX_M
+    t = STREAM_MAX_M[6]
     assert [w6ax_route(m, k, n) for m in (1, 4, 8, t, t + 1, 128, 2048)] == [W6AX_STREAM] * 4 + [W6AX_MMA] * 3
+
+
+def test_int_gemm_route_per_format_and_producer_refusals():
+    """The host-side logic of the exact GEMM's formats and the producers:
+    each format's route threshold (W8's streaming stages hold at most 32
+    rows), the widths each producer MODE takes, and the wrappers' refusals,
+    all before any launch."""
+    for fmt, t in STREAM_MAX_M.items():
+        assert [w6ax_route(m, 4096, 11264, fmt) for m in (1, t, t + 1, 128)] == [W6AX_STREAM] * 2 + [W6AX_MMA] * 2
+    assert STREAM_MAX_M[8] <= 32
+    assert all(w6ax_route(m, 4096, 4096) == w6ax_route(m, 4096, 4096, 6) for m in (1, 8, 9, 64))
+    for mode in (1, 2, 4, 5):  # RMS / LayerNorm: a row held in one block
+        check_width(mode, STAT_MAX_K)
+        with pytest.raises(ValueError, match="at most"):
+            check_width(mode, STAT_MAX_K + 128)
+    for mode in (0, 3, 6):  # no row statistic: any multiple of 128 (OPT-66B's FFN)
+        check_width(mode, 36864)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        check_width(0, 200)
+    x = torch.zeros((2, 256), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported activation"):
+        glu_quant(x, x, 8, act="relu")
+    with pytest.raises(ValueError, match="K % 128"):
+        quant_act(torch.zeros((2, 200), dtype=torch.bfloat16))
+    xq, xs = torch.zeros((2, 256), dtype=torch.int8), torch.ones((2, 2))
+    with pytest.raises(ValueError, match="w_q4: shape"):
+        w4_matmul(xq, xs, torch.zeros((256, 64), dtype=torch.int8), torch.ones((2, 64)))
+    with pytest.raises(TypeError, match="w_q: dtype"):
+        w8_matmul(xq, xs, torch.zeros((256, 64), dtype=torch.uint8), torch.ones((2, 64)))
+    assert sum(launch_counts().values()) == 0
 
 
 def _attention_inputs(dtype, lq, seed):

@@ -137,10 +137,22 @@ def test_kv_write_read_matches_jax(kind):
         np.testing.assert_array_equal(got, want)
 
 
+def test_page_pool_defaults_to_the_card():
+    """PagePool, like the Engine and the BatchScheduler, puts its pages on
+    the card unless the caller asks for the CPU; on a machine without one
+    the default raises and names the device, never falling back."""
+    if torch.cuda.is_available():
+        assert PagePool(1, 2, 1, 128, 128).pool_k.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            PagePool(1, 2, 1, 128, 128)
+    assert PagePool(1, 2, 1, 128, 128, device="cpu").pool_k.device.type == "cpu"
+
+
 def test_page_pool_and_table_match_jax():
     nl, npages, kvh, ps, d = 2, 6, 1, 128, 128
     jpool = JPagePool(nl, npages, kvh, ps, d, dtype=jnp.int8)
-    pool = PagePool(nl, npages, kvh, ps, d, dtype=torch.int8)
+    pool = PagePool(nl, npages, kvh, ps, d, dtype=torch.int8, device="cpu")
     for n in (1, 2):
         assert pool.alloc(n) == jpool.alloc(n)
     for p in ([2], [1]):
