@@ -77,23 +77,51 @@ exits nonzero without the final line:
      weight-only W4A16 with 32-token prompts. Each run's launch counts are
      zeroed just before it and read just after; every kernel of its path
      must launch. The launches of K2, K10, K12 and the producers are also
-     logged by M (decode, prompts, scheduler chunks, OPT's 2048-row prompt).
+     logged by M (decode, prompts, scheduler chunks, OPT's 2048-row prompt);
+  5. checkpoint and HTTP: an HF-layout LLaMA directory at LLaMA-2-7B widths
+     (depth cut to 4 layers), random bf16 weights from a seed written through
+     the port's safetensors writer; exported under llama_flex by
+     `python -m flexq_tpu_torch.export.exporter` (a subprocess, on the card);
+     load_packed on the card, every leaf torch.equal to quantize_params of
+     the same dense weights (but the scales' pad columns) and the 32-token
+     logits of the two trees equal; serve_background over a paged bf16
+     BatchScheduler (8 slots, prefill_chunk 256): 12 concurrent
+     /v1/completions requests with id prompts of 16-300 tokens (launch
+     counts zeroed before and read after; every kernel of the scheduler's
+     path must launch), each stream equal to the same requests run directly
+     through a BatchScheduler, a streamed twin, a chat answer, a beam
+     request's 400, /metrics with every page free and no failed worker tick,
+     HTTP latency p50 / max and tokens/s beside the direct run's tokens/s;
+     `python -m flexq_tpu_torch.serve.http --checkpoint <dir> --port 0
+     --paged` as a subprocess (one completion, /health, stopped); and
+     FlexQCausalLM.from_packed(...).forward on the card against its plain CPU
+     run (2e-2 of max |logit|).
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
 import ctypes
+import http.client
 import json
 import math
+import os
+import queue
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 
+from flexq_tpu_torch.bindings import FlexQCausalLM
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.export import safetensors_io
+from flexq_tpu_torch.export.exporter import load_packed
 from flexq_tpu_torch.kernels import (
     _build,
     flash_decode,
@@ -130,11 +158,13 @@ from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, launch as int_launch, stream_takes
 from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
-from flexq_tpu_torch.models import quantized
-from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear
+from flexq_tpu_torch.models import hf_loader, quantized
+from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear, quantize_params
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
+from flexq_tpu_torch.quant.quantizer import CLIPMIN
 from flexq_tpu_torch.serve import Engine
+from flexq_tpu_torch.serve import http as serve_http
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3
@@ -1629,6 +1659,361 @@ def opt_end_to_end(dev, gen):
     return totals
 
 
+CKPT_LAYERS = 4  # phase 5's depth: LLaMA-2-7B's widths, its 32 layers cut to keep the phase near a minute
+HTTP_REQS = 12
+
+
+def write_hf_checkpoint(d: str, cfg: ModelConfig, gen, dev):
+    """An HF-layout LLaMA directory from ``gen``: config.json and a bf16
+    model.safetensors ([out, in] weights N(0, 0.02), residual outputs scaled
+    by 1/sqrt(2L), norms 1 + N(0, 0.02)) written through the port's
+    safetensors writer. Returns the same weights as the dense serve tree
+    ([in, out], bf16, on the card)."""
+    hf_cfg = {"model_type": "llama", "architectures": ["LlamaForCausalLM"], "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+              "num_key_value_heads": cfg.num_kv_heads, "max_position_embeddings": cfg.max_seq_len,
+              "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.norm_eps, "tie_word_embeddings": False,
+              "torch_dtype": "bfloat16"}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf_cfg, f)
+    std = 0.02
+    res_std = std / math.sqrt(2 * cfg.num_layers)
+    h, f_, nq, nkv = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def randn(*shape, s=std):
+        return (torch.randn(shape, generator=gen, device=dev) * s).to(torch.bfloat16)
+
+    shapes = {"q_proj": (nq, h, std), "k_proj": (nkv, h, std), "v_proj": (nkv, h, std), "o_proj": (h, nq, res_std),
+              "gate_proj": (f_, h, std), "up_proj": (f_, h, std), "down_proj": (h, f_, res_std)}  # HF [out, in]
+    tensors, layers = {}, []
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        lp = {}
+        for name, hf in hf_loader.HF_LLAMA_LINEARS.items():
+            n, k, s = shapes[name]
+            w = randn(n, k, s=s)
+            tensors[p + hf + ".weight"] = w
+            lp[name] = {"w": w.T}
+        for name, hf in hf_loader.HF_LLAMA_NORMS.items():
+            g = (1.0 + randn(h).float()).to(torch.bfloat16)
+            tensors[p + hf + ".weight"] = g
+            lp[name] = g
+        layers.append(lp)
+    embed, head = randn(cfg.vocab_size, h), randn(cfg.vocab_size, h)
+    norm = (1.0 + randn(h).float()).to(torch.bfloat16)
+    tensors.update({"model.embed_tokens.weight": embed, "model.norm.weight": norm, "lm_head.weight": head})
+    safetensors_io.save_file(tensors, os.path.join(d, "model.safetensors"), metadata={"format": "pt"})
+    return {"embed": embed, "final_norm": norm, "layers": layers, "lm_head": head.T}
+
+
+def trees_equal(label, got, want) -> None:
+    """Every leaf of ``got`` torch.equal to ``want``'s, but the pad columns
+    of a scale: the exporter quantizes N padded with zero columns (scale
+    CLIPMIN there), quantize_params pads the scales with 0 (the reference's
+    two paths differ the same way; pad columns multiply zero codes and are
+    sliced off)."""
+    def leaves(t, path=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{path}/{k}")
+        elif isinstance(t, list):
+            for i, v in enumerate(t):
+                yield from leaves(v, f"{path}/{i}")
+        else:
+            yield path, t
+
+    a, b = list(leaves(got)), list(leaves(want))
+    if [k for k, _ in a] != [k for k, _ in b]:
+        raise AssertionError(f"{label}: trees have other leaves")
+    padded = 0
+    for (k, x), (_, y) in zip(a, b):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"{label}: {k} {x.dtype}{tuple(x.shape)} vs {y.dtype}{tuple(y.shape)}")
+        if torch.equal(x, y):
+            continue
+        n = int((x != y).any(0).int().argmax()) if k.endswith("/scale") else -1
+        if n < 0 or not (torch.equal(x[:, :n], y[:, :n]) and bool((x[:, n:] == CLIPMIN).all())
+                         and bool((y[:, n:] == 0).all())):
+            raise AssertionError(f"{label}: leaf {k} differs")
+        padded += 1
+    log(f"ckpt {label}: {len(a)} leaves torch.equal ({padded} scales differ only in their pad columns: "
+        f"CLIPMIN exported, 0 from quantize_params)")
+
+
+def http_requests(vocab: int):
+    """HTTP_REQS seeded (id prompt, max_new): prompts of 16-300 tokens (the
+    W6Ax and W6A16 prefills, whole and chunked), max_new 16-48."""
+    rng = np.random.default_rng(SEED + 7)
+    lengths = [16, 40, 63, 64, 300] + rng.integers(16, 301, HTTP_REQS - 5).tolist()
+    return [(rng.integers(0, vocab, n).tolist(), int(rng.integers(16, 49))) for n in lengths]
+
+
+def http_post(port, path, body, timeout=600):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+        return json.loads(r.read())
+
+
+def http_stream(port, body):
+    """A streamed /v1/completions: (token ids of every chunk, finish reason)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/completions", json.dumps({**body, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        ids, finish = [], None
+        for raw in resp.fp:
+            line = raw.decode().strip()
+            if line == "data: [DONE]":
+                break
+            if line.startswith("data: "):
+                ch = json.loads(line[6:])["choices"][0]
+                ids += ch.get("token_ids", [])
+                finish = ch["finish_reason"] or finish
+        return ids, finish
+    finally:
+        conn.close()
+
+
+def serve_and_compare(params, cfg, policy, dev, reqs):
+    """serve_background over a paged bf16 BatchScheduler (8 slots,
+    prefill_chunk 256): every request through /v1/completions at once (id
+    prompts, greedy), its launch counts zeroed just before and read just
+    after; then the same requests directly through a BatchScheduler. Streams
+    equal token for token, a streamed twin, a chat answer, a beam request's
+    400, /metrics with every page free and no failed tick. Returns the HTTP
+    run's counts."""
+    warm_scheduler(params, cfg, policy, dev, reqs)
+    sched = BatchScheduler(params, cfg, policy, **SCHED, paged=True, device=dev)
+    server, service, port = serve_http.serve_background(sched, model_name="flexq-llama-7b-width")
+    try:
+        got, lat = [None] * len(reqs), [0.0] * len(reqs)
+
+        def call(r):
+            p, n = reqs[r]
+            t = time.perf_counter()
+            body = http_post(port, "/v1/completions", {"prompt": p, "max_tokens": n, "temperature": 0, "eos_id": -1})
+            lat[r] = time.perf_counter() - t
+            got[r] = body["choices"][0]["token_ids"]
+
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        reset_launch_counts()
+        threads = [threading.Thread(target=call, args=(r,)) for r in range(len(reqs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if any(t.is_alive() for t in threads) or None in got:
+            raise AssertionError("http: a request did not come back")
+        n_tok = sum(len(t) for t in got)
+        lat_ms = sorted(x * 1e3 for x in lat)
+        log(f"http /v1/completions, {len(reqs)} concurrent requests (prompts {[len(p) for p, _ in reqs]}), {n_tok} "
+            f"tokens in {wall:.2f}s: tokens_per_s={n_tok / wall:.1f} latency_ms_p50={statistics.median(lat_ms):.1f} "
+            f"latency_ms_max={lat_ms[-1]:.1f}")
+        log("http launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
+        missing = [k for k in PATH_KERNELS["scheduler paged"] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"http: kernels of the path never launched: {missing}")
+
+        # a streamed request gives its non-streamed twin's tokens
+        p, n = reqs[3]
+        ids, finish = http_stream(port, {"prompt": p, "max_tokens": n, "temperature": 0, "eos_id": -1})
+        if ids != got[3] or finish != "length":
+            raise AssertionError(f"http: the streamed request's tokens part from its twin's ({finish})")
+        # chat over the byte tokenizer; beam search answered with a 400
+        chat = http_post(port, "/v1/chat/completions", {"messages": [{"role": "user", "content": "Hello, H100!"}],
+                                                        "max_tokens": 8, "temperature": 0, "eos_id": -1})
+        if chat["usage"]["completion_tokens"] != 8 or not isinstance(chat["choices"][0]["message"]["content"], str):
+            raise AssertionError(f"http: bad chat answer {chat}")
+        try:
+            http_post(port, "/v1/completions", {"prompt": p[:16], "max_tokens": 4, "best_of": 2})
+            raise AssertionError("http: a beam request was served")
+        except urllib.error.HTTPError as e:
+            err = json.loads(e.read())
+            if e.code != 400 or "beam search" not in json.dumps(err):
+                raise AssertionError(f"http: a beam request got {e.code} {err}")
+        met = http_get(port, "/metrics")
+        log(f"http stream equal to its twin: True; chat answered {chat['usage']}; beam request: 400; metrics "
+            f"requests_completed={met['requests_completed']} pages_free={met['pages_free']}/{met['pages_total']} "
+            f"worker_failed_ticks={met['worker_failed_ticks']}")
+        if met["pages_free"] != met["pages_total"] - 1 or met["worker_failed_ticks"] or service.failed_ticks:
+            raise AssertionError("http: pages not all free, or a worker tick failed")
+    finally:
+        service.shutdown()
+        server.shutdown()
+        server.server_close()
+    del sched
+
+    # the same requests, directly through a BatchScheduler
+    direct = BatchScheduler(params, cfg, policy, **SCHED, paged=True, device=dev)
+    t0 = time.perf_counter()
+    ids = [direct.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in reqs]
+    out = direct.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = [out[i] for i in ids]
+    log(f"http direct BatchScheduler run of the same requests: tokens_per_s={sum(map(len, want)) / wall:.1f}")
+    parted = [(r, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)) for r, (a, b) in enumerate(zip(got, want))
+              if a != b]
+    log(f"http streams equal to the direct run: {len(reqs) - len(parted)}/{len(reqs)}; parted (request, token): "
+        f"{parted}")
+    if parted:
+        raise AssertionError("http: a stream parts from the direct BatchScheduler run")
+    return counts
+
+
+class Proc:
+    """A subprocess whose output lines a thread collects (so a wait has a
+    deadline); killed on exit."""
+
+    def __init__(self, args):
+        self.p = subprocess.Popen([sys.executable, *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.lines = queue.Queue()
+        self.seen = []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.p.stdout:
+            self.lines.put(line.rstrip())
+        self.lines.put(None)
+
+    def wait_for(self, prefix: str, timeout: float) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            try:
+                line = self.lines.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                break
+            if line is None:
+                break
+            self.seen.append(line)
+            if line.startswith(prefix):
+                return line
+        raise AssertionError(f"no {prefix!r} line; the process said: {self.seen[-20:]}")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.p.poll() is None:
+            self.p.terminate()
+            try:
+                self.p.wait(30)
+            except subprocess.TimeoutExpired:
+                self.p.kill()
+                self.p.wait()
+
+
+def checkpoint_and_http(dev, gen, cfg=None, reqs=None, adapter_tol=2e-2):
+    """Phase 5: an HF-layout LLaMA directory (LLaMA-2-7B widths, CKPT_LAYERS
+    layers) exported under llama_flex by the exporter's CLI, loaded with
+    load_packed on the card and held leaf for leaf against quantize_params
+    of the same dense weights (and the 32-token logits of both trees equal);
+    served through serve_background (serve_and_compare); the HTTP CLI started
+    as a subprocess and asked for a completion and /health; and
+    FlexQCausalLM.from_packed's forward on the card held against its plain
+    CPU run. Returns the HTTP run's launch counts."""
+    cfg = cfg or ModelConfig.llama(num_layers=CKPT_LAYERS)
+    policy = QuantPolicy.llama_flex()
+    log(f"ckpt: LLaMA-2-7B widths (hidden {cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_heads} heads, "
+        f"vocab {cfg.vocab_size}), depth cut to {cfg.num_layers} layers to keep the phase near a minute")
+    with tempfile.TemporaryDirectory(prefix="flexq_ckpt_") as tmp:
+        hf_dir, packed = os.path.join(tmp, "hf"), os.path.join(tmp, "packed")
+        os.makedirs(hf_dir)
+        t0 = time.perf_counter()
+        dense = write_hf_checkpoint(hf_dir, cfg, gen, dev)
+        log(f"ckpt: HF directory written in {time.perf_counter() - t0:.1f}s "
+            f"({os.path.getsize(os.path.join(hf_dir, 'model.safetensors')) / 2**30:.2f} GiB)")
+        with open(os.path.join(hf_dir, "config.json")) as f:
+            hf_cfg = json.load(f)
+        if hf_loader.config_from_hf(hf_cfg) != cfg:
+            raise AssertionError("ckpt: config_from_hf of the written config.json is not the model's config")
+        t0 = time.perf_counter()
+        exp = subprocess.run([sys.executable, "-m", "flexq_tpu_torch.export.exporter", "--model-dir", hf_dir,
+                              "--out", packed, "--device", dev.type], capture_output=True, text=True,
+                             cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+        export_s = time.perf_counter() - t0
+        if exp.returncode != 0:
+            raise AssertionError(f"ckpt: the exporter CLI failed ({exp.returncode}):\n{exp.stdout}\n{exp.stderr}")
+        t0 = time.perf_counter()
+        lcfg, lpol, params = load_packed(packed, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        log(f"ckpt: export (CLI subprocess, {dev.type}) {export_s:.1f}s, load_packed {load_s:.1f}s "
+            f"({sum(os.path.getsize(os.path.join(packed, f)) for f in os.listdir(packed)) / 2**30:.2f} GiB packed)")
+        if lcfg != cfg or (lpol.weight_bits, lpol.act_bits) != (policy.weight_bits, policy.act_bits):
+            raise AssertionError("ckpt: load_packed's config or policy is not the exported model's")
+        # the exporter's quantizer on the card is bit-exact with the CPU's (the
+        # CPU's with the reference's numpy and native paths: tests/test_torch_service.py)
+        w = dense["layers"][0]["gate_proj"]["w"].float()
+        spec = policy.weight_spec("gate_proj")
+        on_card, on_cpu = quantize_linear(w, spec), quantize_linear(w.cpu(), spec)
+        if not all(torch.equal(on_card[k].cpu(), on_cpu[k]) for k in on_cpu):
+            raise AssertionError("ckpt: quantize_linear on the card parts from the CPU's")
+        log(f"ckpt: quantize_linear of layer 0's gate_proj {tuple(w.shape)}, card vs CPU: planes and scale bits equal")
+        want = quantize_params(dense, cfg, policy, device=dev)
+        del dense, w, on_card, on_cpu
+        trees_equal("load_packed vs quantize_params (same dense weights, on the card)", params, want)
+        ids = torch.as_tensor(np.random.default_rng(SEED + 8).integers(0, cfg.vocab_size, (1, 32)), device=dev)
+        a, _ = forward_serve(params, cfg, policy, ids, device=dev)
+        b, _ = forward_serve(want, cfg, policy, ids, device=dev)
+        if not torch.equal(a, b) or not torch.isfinite(a).all():
+            raise AssertionError("ckpt: the 32-token logits of the loaded and the quantized trees differ")
+        log("ckpt: 32-token prompt logits of the two trees torch.equal: True")
+        del want, a, b
+
+        counts = serve_and_compare(params, cfg, policy, dev, reqs or http_requests(cfg.vocab_size))
+        del params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        # the server's CLI, as a user starts it
+        t0 = time.perf_counter()
+        with Proc(["-m", "flexq_tpu_torch.serve.http", "--checkpoint", packed, "--port", "0", "--paged",
+                   "--host", "127.0.0.1", "--device", dev.type]) as proc:
+            line = proc.wait_for("serving on", timeout=300)
+            port = int(line.split()[2].rsplit(":", 1)[1])
+            up_s = time.perf_counter() - t0
+            one = http_post(port, "/v1/completions", {"prompt": list(range(5, 45)), "max_tokens": 8,
+                                                      "temperature": 0, "eos_id": -1})
+            health = http_get(port, "/health")
+            if len(one["choices"][0]["token_ids"]) != 8 or not health["ok"]:
+                raise AssertionError(f"cli server: bad answers {one} {health}")
+        if proc.p.returncode is None:
+            raise AssertionError("cli server: still running after terminate")
+        log(f"cli server: `python -m flexq_tpu_torch.serve.http --checkpoint <dir> --port 0 --paged` up in "
+            f"{up_s:.1f}s, one completion (8 tokens) and /health ok, stopped (rc {proc.p.returncode})")
+
+        # the torch-facing adapter on the card vs its plain CPU run
+        cpu = torch.device("cpu")
+        card = FlexQCausalLM.from_packed(packed, device=dev)
+        ids = torch.as_tensor(np.random.default_rng(SEED + 9).integers(0, cfg.vocab_size, (2, 32)))
+        got = card(ids).cpu()
+        del card
+        ref = FlexQCausalLM.from_packed(packed, device=cpu)(ids)
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        log(f"adapter FlexQCausalLM.from_packed(...).forward, B=2 x 32 tokens, card vs CPU plain: max |dlogit|/max|logit| "
+            f"= {err:.3g} (tolerance {adapter_tol:g}); argmax agreement "
+            f"{int((got.argmax(-1) == ref.argmax(-1)).sum())}/{ids.numel()}")
+        if not torch.isfinite(got).all() or err > adapter_tol:
+            raise AssertionError("adapter: the card's logits part from the CPU plain run")
+    return counts
+
+
 def profile_decode(eng, prompts, new: int = 8) -> None:
     """profile_call over one short generate (prefill + new - 1 decode steps)."""
     profile_call(f"generate B={prompts.shape[0]} prompt={prompts.shape[1]} new={new}",
@@ -1716,9 +2101,13 @@ def main() -> int:
     t0 = time.perf_counter()
     for k, v in opt_end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 4)).items():
         counts[k] += v
-    log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0:.1f}s; whole script after the build "
-        f"{time.perf_counter() - t_start:.1f}s")
+    log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0:.1f}s")
     log_by_m()
+    t0 = time.perf_counter()
+    for k, v in checkpoint_and_http(dev, torch.Generator(device=dev).manual_seed(SEED + 10)).items():
+        counts[k] += v
+    log(f"phase 5 checkpoint and HTTP: {time.perf_counter() - t0:.1f}s; whole script after the build "
+        f"{time.perf_counter() - t_start:.1f}s")
     missing = [n for n, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")

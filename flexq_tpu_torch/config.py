@@ -32,17 +32,24 @@ class ModelConfig:
     norm_eps: float = 1e-5
     arch: str = "llama"  # "llama" | "opt"
     act: str = "silu"  # llama: silu-glu; gemma: gelu (tanh) glu; opt: relu
+    tie_word_embeddings: bool = False
     # OPT specifics
     do_layer_norm_before: bool = True  # OPT-350m is post-LN (False): not served
     attn_bias: bool = False  # OPT linears carry biases
     ffn_bias: bool = False
+    # Qwen2: the checkpoint's q/k/v carry biases (informational: the serve
+    # layers read the "b" keys of the tree)
+    qkv_bias: bool = False
     sliding_window: Optional[int] = None  # Mistral: local attention window
     # LLaMA-3.1 rope scaling: (factor, low_freq_factor, high_freq_factor,
     # original_max_position_embeddings)
     rope_scaling: Optional[Tuple[float, float, float, int]] = None
+    # Gemma: loaders store gamma + norm_offset ((1 + w) RMSNorm folded in)
+    norm_offset: float = 0.0
     embed_scale: Optional[float] = None  # Gemma: embedding output scale
 
     def __post_init__(self):
+        # meta.json carries rope_scaling as a JSON list
         if isinstance(self.rope_scaling, list):
             object.__setattr__(self, "rope_scaling", tuple(self.rope_scaling))
         if self.sliding_window is not None and self.sliding_window < 1:
@@ -119,13 +126,21 @@ OPT_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "fc1", "fc2")
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Per-linear (weight_bits, act_bits) policy. Activations are always
-    quantized symmetric per 128-group by the fused producers."""
+    """Per-linear (weight_bits, act_bits) policy. Weights and activations
+    are quantized symmetric per 128-group: the producers and the GEMMs take
+    no other group size, so a policy with another one is refused here."""
 
     weight_bits: Dict[str, int]
     act_bits: Dict[str, int]
     w_group_size: Optional[int] = GROUP_SIZE
+    a_group_size: Optional[int] = GROUP_SIZE
     symmetric: bool = True
+
+    def __post_init__(self):
+        for field in ("w_group_size", "a_group_size"):
+            if getattr(self, field) != GROUP_SIZE:
+                raise ValueError(f"{field}={getattr(self, field)}: the port's producers and GEMMs take "
+                                 f"groups of {GROUP_SIZE} only")
 
     def weight_spec(self, name: str) -> QuantSpec:
         return QuantSpec(

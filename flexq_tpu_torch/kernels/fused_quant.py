@@ -25,9 +25,11 @@ reciprocal where it divides by a constant (qmax, K), half-to-even rounding,
 expf / tanhf without fast math (the functions torch's CUDA ops call),
 RMSNorm's cast to the model dtype before the gamma multiply (LayerNorm has
 none: y * gamma + beta in f32), 1 / sqrt rounded twice (PyTorch's CPU
-rsqrt), and no FMA contraction. The RMS and LayerNorm sums run in another order than the plain version's, so a row's
-statistic may part from it by an ulp. The statistic modes take rows of up
-to ``STAT_MAX_K`` values; the others any multiple of 128.
+rsqrt), and no FMA contraction. The plain RMS and LayerNorm statistics
+sum each row in the kernel's order (``row_sum``), so card and CPU give a
+row the same bits; the reference's compiled sums run in another order, so
+a row's statistic may part from it by an ulp. The statistic modes take
+rows of up to ``STAT_MAX_K`` values; the others any multiple of 128.
 """
 
 from __future__ import annotations
@@ -129,8 +131,36 @@ def group_quant_plain(y: torch.Tensor, bits: int) -> Tuple[torch.Tensor, torch.T
     return q.reshape(m, k), scale
 
 
+_LANES = torch.arange(32)
+
+
+def _butterfly(a: torch.Tensor) -> torch.Tensor:
+    """A warp's xor-shuffle butterfly over the last axis (32 lanes): every
+    lane ends with the same sum; returns lane 0's."""
+    for o in (16, 8, 4, 2, 1):
+        a = a + a[..., _LANES ^ o]
+    return a[..., 0]
+
+
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """f32 [M, K] -> [M, 1]: each row summed in csrc/row_quant.cu's order, so
+    the plain RMS / LayerNorm statistic has the kernel's bits. Each 128-group
+    is summed by a warp (lane l adds its 4 values in order, then a
+    butterfly), then lane l adds groups l, l + 32, ... in order from 0 and a
+    butterfly adds the lanes."""
+    m, k = t.shape
+    g = k // GROUP_SIZE
+    v = t.reshape(m, g, 32, 4)
+    part = _butterfly(((v[..., 0] + v[..., 1]) + v[..., 2]) + v[..., 3])  # [M, G]
+    a = torch.zeros((m, 32), dtype=t.dtype, device=t.device)
+    for j in range(0, g, 32):
+        chunk = part[:, j : j + 32]
+        a[:, : chunk.shape[1]] = a[:, : chunk.shape[1]] + chunk
+    return _butterfly(a)[:, None]
+
+
 def _rms_plain(h: torch.Tensor, gamma: torch.Tensor, eps: float, dtype) -> torch.Tensor:
-    var = (h * h).sum(dim=-1, keepdim=True) * f32_reciprocal(h.shape[-1])
+    var = row_sum(h * h) * f32_reciprocal(h.shape[-1])
     y = h * torch.rsqrt(var + eps)
     return y.to(dtype).to(torch.float32) * gamma.to(torch.float32)
 
@@ -153,8 +183,8 @@ def _ln_plain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: flo
     by the f32 reciprocal of K, the variance is taken of the centred row,
     and y * gamma + beta stays in f32 (no cast to the model dtype)."""
     rk = f32_reciprocal(h.shape[-1])
-    d = h - h.sum(dim=-1, keepdim=True) * rk
-    var = (d * d).sum(dim=-1, keepdim=True) * rk
+    d = h - row_sum(h) * rk
+    var = row_sum(d * d) * rk
     y = d * torch.rsqrt(var + eps)
     return y * gamma.to(torch.float32) + beta.to(torch.float32)
 

@@ -24,7 +24,10 @@ the W*A16 prefill layer: its prompts run the exact GEMMs at M = B * L, as
 in the reference. Attention reads the cache through the attention kernel.
 The lm_head may be packed too (``QuantPolicy.with_head``); OPT's is tied.
 
-Not in this slice (raises NotImplementedError): the cache-less forward.
+Without a cache (``kv_k=None``: eval and the torch-facing forward) every
+layer attends over its own fresh K/V through ``models/llama.py::
+attention_core`` under a causal mask, plain PyTorch as in the reference;
+the GEMMs and producers are the same kernels as on the cached path.
 
 Cache layout: [L, B, KVH, S, D] (sequence second-minor), with f32 scales
 [L, B, KVH, S] for the int8 cache, or a page pool [L, P, KVH, PS, D] (scales
@@ -65,7 +68,15 @@ from flexq_tpu_torch.kernels import (
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.kernels.fused_quant import f32_reciprocal
 from flexq_tpu_torch.kernels.wa16_matmul import dequant_int
-from flexq_tpu_torch.models.llama import act_fn, apply_rope, rmsnorm, rope_for_cfg, rope_gemm_operands
+from flexq_tpu_torch.models.llama import (
+    act_fn,
+    apply_rope,
+    attention_core,
+    causal_mask,
+    rmsnorm,
+    rope_for_cfg,
+    rope_gemm_operands,
+)
 from flexq_tpu_torch.models.opt import POS_OFFSET, layernorm
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
@@ -311,6 +322,15 @@ def _attend(q, kv_view, lengths, window=None):
     return flash_prefill(q, ck, cv, lengths, cks, cvs, layer_idx=li, out_dtype=q.dtype, window=window)
 
 
+def _self_attention(q, k, v, kv, cache_pos, lengths, mask, window=None):
+    """A layer's attention: without a cache (``kv`` None) the dense core
+    over the step's own K/V under ``mask``; else write K/V into the cache
+    and attend over it."""
+    if kv is None:
+        return attention_core(q, k, v, mask, q.shape[2] // k.shape[2])
+    return _attend(q, _kv_write_read(kv, k, v, cache_pos), lengths, window)
+
+
 def _finish_linear(wq, y, n_out: Optional[int]) -> torch.Tensor:
     if "b" in wq:  # stored at the padded plane width: add before the slice
         y = y + wq["b"].to(y.dtype)
@@ -379,8 +399,9 @@ def llama_layer_serve(
     sin: torch.Tensor,
     kv,
     cache_pos,
-    lengths: torch.Tensor,
+    lengths: Optional[torch.Tensor],
     window: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ):
     """One quantized decoder layer: fused norm->quant, W6Ax q/k/v (or the
     fused qkv_proj), rope, cache write + attention, quant + o_proj, fused
@@ -404,8 +425,7 @@ def llama_layer_serve(
     v = v.reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
     q, k = apply_rope(q, k, cos, sin)
 
-    kv_view = _kv_write_read(kv, k, v, cache_pos)
-    attn = _attend(q, kv_view, lengths, window)
+    attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask, window)
     oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
     o = _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
 
@@ -433,8 +453,9 @@ def llama_layer_serve_prefill(
     sin: torch.Tensor,
     kv,
     cache_pos,
-    lengths: torch.Tensor,
+    lengths: Optional[torch.Tensor],
     window: Optional[int] = None,
+    mask: Optional[torch.Tensor] = None,
 ):
     """The W*A16 layer (large M): weights dequantized to bf16 inside the
     GEMM kernel, activations unquantized. Its branches are the reference's:
@@ -483,8 +504,7 @@ def llama_layer_serve_prefill(
     if not fused_rope:
         q, k = apply_rope(q, k, cos, sin)
 
-    kv_view = _kv_write_read(kv, k, v, cache_pos)
-    attn = _attend(q, kv_view, lengths, window)
+    attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask, window)
     o = _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
     x2 = x2 + o
 
@@ -517,7 +537,8 @@ def opt_layer_serve(
     x: torch.Tensor,  # [B, L, H]
     kv,
     cache_pos,
-    lengths: torch.Tensor,
+    lengths: Optional[torch.Tensor],
+    mask: Optional[torch.Tensor] = None,
 ):
     """One quantized pre-LN OPT decoder layer: fused LayerNorm -> quant
     (K14) at q_proj's bits, biased W*Ax q/k/v, cache write + multi-head
@@ -529,7 +550,7 @@ def opt_layer_serve(
     two give the same values. Under a no-act-quant policy the layer is
     ``_opt_layer_serve_bf16``."""
     if policy.no_act_quant:
-        return _opt_layer_serve_bf16(lp, cfg, x, kv, cache_pos, lengths)
+        return _opt_layer_serve_bf16(lp, cfg, x, kv, cache_pos, lengths, mask)
     b, l, hidden = x.shape
     dtype = x.dtype
     x2 = x.reshape(b * l, hidden)
@@ -540,8 +561,7 @@ def opt_layer_serve(
     q, k, v = (_qlinear(lp[n], qx, qs, dtype, nq).reshape(b, l, cfg.num_heads, cfg.head_dim)
                for n in ("q_proj", "k_proj", "v_proj"))
 
-    kv_view = _kv_write_read(kv, k, v, cache_pos)
-    attn = _attend(q, kv_view, lengths)
+    attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask)
     oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
     x2 = x2 + _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
 
@@ -553,7 +573,7 @@ def opt_layer_serve(
     return x2.reshape(b, l, hidden)
 
 
-def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, kv, cache_pos, lengths):
+def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, kv, cache_pos, lengths, mask=None):
     """The OPT layer with unquantized activations (weight-only and fp16
     policies): plain LayerNorm producers, the W*A16 GEMMs (K7 for W6, K11
     for W4; W8 and 16-bit weights in a plain product), ReLU in f32 cast back
@@ -567,8 +587,7 @@ def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
     q, k, v = (_qlinear_bf16(lp[n], h, dtype, nq).reshape(b, l, cfg.num_heads, cfg.head_dim)
                for n in ("q_proj", "k_proj", "v_proj"))
 
-    kv_view = _kv_write_read(kv, k, v, cache_pos)
-    attn = _attend(q, kv_view, lengths)
+    attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask)
     x2 = x2 + _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
 
     h = layernorm(x2, lp["post_norm"]["g"], lp["post_norm"]["b"], cfg.norm_eps)
@@ -620,16 +639,19 @@ def forward_serve(
     last_only: bool = False,
     device="cuda",
 ):
-    """Quantized forward over the cache: writes K/V at ``cache_pos`` (in
-    place) and attends over the cache. ``cache_pos`` is one start for every
-    row, or a tensor [B] of per-row starts (continuous batching; pass the
+    """Quantized forward. Without a cache (``kv_k`` / ``kv_v`` None): the
+    whole sequence under a causal mask (and the sliding window), for eval
+    and the torch-facing forward. With a cache: writes K/V at
+    ``cache_pos`` (in place) and attends over the cache. ``cache_pos`` is
+    one start for every row, or a tensor [B] of per-row starts (continuous batching; pass the
     matching ``positions``, e.g. ``cache_pos[:, None]``). ``prefill_bf16``
     selects the W6A16 layer (always taken under a no-act-quant policy; OPT
     ignores it and runs its own layers, as the reference does);
     passing the scale tensors selects the int8 cache; a ``page_table`` makes
     kv_k / kv_v (and the scales) a page pool, decode only (L == 1). Returns
     (logits [B, L, V] — [B, 1, V] with ``last_only`` — and the cache state
-    (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale))."""
+    (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale), or None without
+    a cache)."""
     dev = resolve_device(device)
     is_opt = cfg.arch == "opt"
     if is_opt and not cfg.do_layer_norm_before:
@@ -643,11 +665,14 @@ def forward_serve(
     quant_cache = kv_k_scale is not None
     if quant_cache != (kv_v_scale is not None):
         raise ValueError("the int8 cache needs both kv_k_scale and kv_v_scale")
-    if kv_k is None or kv_v is None:
-        raise NotImplementedError("the cache-less (eval) forward is a later slice")
-    if kv_k.shape[3] % 128:
+    have_cache = kv_k is not None
+    if have_cache != (kv_v is not None):
+        raise ValueError("the cache needs both kv_k and kv_v")
+    if not have_cache and (quant_cache or page_table is not None):
+        raise ValueError("cache scales or a page table without a cache")
+    if have_cache and kv_k.shape[3] % 128:
         raise ValueError(f"cache length {kv_k.shape[3]} must be a multiple of 128")
-    if params["embed"].device != dev or kv_k.device != dev:
+    if params["embed"].device != dev or (have_cache and kv_k.device != dev):
         raise ValueError(f"params and cache must be on {dev}")
     ids = torch.as_tensor(ids, device=dev)
     b, l = ids.shape
@@ -663,25 +688,32 @@ def forward_serve(
         x = x + params["pos_embed"][positions + POS_OFFSET]
     else:
         cos, sin = rope_for_cfg(positions, cfg)
-    if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
+    mask = lengths = None
+    if not have_cache:
+        mask = causal_mask(l, l, window=cfg.sliding_window, device=dev)
+    elif isinstance(cache_pos, torch.Tensor) and cache_pos.dim() > 0:
         cache_pos = cache_pos.to(device=dev, dtype=torch.int64).reshape(b)
         lengths = (cache_pos + l).to(torch.int32)
     else:
         cache_pos = 0 if cache_pos is None else int(cache_pos)
         lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
     for i, lp in enumerate(params["layers"]):
-        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table)
+        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table) if have_cache else None
         if is_opt:
-            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths)
+            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths, mask=mask)
         elif prefill_bf16:
-            x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
+            x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
+                                          mask=mask)
         else:
-            x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window)
+            x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
+                                  mask=mask)
     if not is_opt:
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     elif "final_norm" in params:
         x = layernorm(x, params["final_norm"]["g"], params["final_norm"]["b"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
+    if not have_cache:
+        return apply_lm_head(params, cfg, policy, x), None
     cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v)
     return apply_lm_head(params, cfg, policy, x), cache

@@ -9,7 +9,9 @@ Same semantics, bit for bit on the integer side:
   * per-group: the trailing axis reshaped to (-1, group_size), zero-padded
     when it does not divide.
 Rounding is half-to-even (``torch.round``), the division is IEEE (no
-reciprocal multiply), as in the reference.
+reciprocal multiply), as in the reference: the constant divisors are
+tensors on x's device (``true_div``), since PyTorch's CUDA division by a
+host scalar multiplies by its reciprocal.
 """
 
 from __future__ import annotations
@@ -59,6 +61,13 @@ def _grouped_view(x: torch.Tensor, group_size: Optional[int]) -> Tuple[torch.Ten
     return x.reshape(-1, group_size), deficiency
 
 
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d correctly rounded on any device: CUDA divides by a host scalar as
+    a multiply by its f32 reciprocal, which parts from the division by an
+    ulp on some values; a divisor on x's device takes the true division."""
+    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+
+
 def compute_scale_zp(
     x: torch.Tensor, spec: QuantSpec
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -70,11 +79,11 @@ def compute_scale_zp(
     xmax = xg.amax(dim=-1, keepdim=True)
     if spec.symmetric:
         abs_max = torch.maximum(xmax.abs(), xmin.abs())
-        scale = abs_max / (2 ** (spec.bits - 1) - 1)
+        scale = true_div(abs_max, 2 ** (spec.bits - 1) - 1)
         return scale.clamp(CLIPMIN, CLIPMAX), None
     rng = xmax - xmin
     denom = 2**spec.bits if spec.bits <= 2 else 2**spec.bits - 1
-    scale = (rng / denom).clamp(CLIPMIN, CLIPMAX)
+    scale = true_div(rng, denom).clamp(CLIPMIN, CLIPMAX)
     zp = torch.round((-xmin / scale).clamp(-CLIPMAX, CLIPMAX))
     return scale, zp
 

@@ -314,9 +314,14 @@ class BatchScheduler:
         eos_id: int = 2,
         logprobs: bool = False,
         beam_width: int = 1,
+        n_best: int = 1,
+        length_penalty: float = 1.0,
     ) -> int:
+        """Queue a request; returns its id. The parameters are the
+        reference's; ``n_best`` and ``length_penalty`` act only on a beam
+        request (``beam_width > 1``), which the port does not serve yet."""
         if beam_width > 1:
-            raise NotImplementedError("beam search in the scheduler is a later slice")
+            raise NotImplementedError("beam search (beam_width > 1) is not served by the port yet")
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(f"prompt {len(prompt)} + {max_new_tokens} new tokens exceed max_seq_len {self.max_seq_len}")
         req_id = next(self._req_counter)

@@ -681,3 +681,154 @@ def test_wa16_kernel_refuses_unaligned_planes(gen):
     with pytest.raises(ValueError, match="16-byte aligned"):
         w6_matmul_bf16(x, shifted, lo, ws)
     assert launch_counts()["w6_matmul_bf16"] == 0
+
+
+def tiny_hf_dir(gen, d, layers=2, hidden=256, ffn=704, heads=2, vocab=1000):
+    """An HF-layout LLaMA directory (config.json, bf16 model.safetensors) of
+    random weights from ``gen``, written by the port's safetensors writer;
+    returns (cfg, the same weights as a dense tree [in, out] on the card)."""
+    import json
+    import os
+
+    from flexq_tpu_torch.export.safetensors_io import save_file
+    from flexq_tpu_torch.models.hf_loader import config_from_hf
+
+    hf = {"model_type": "llama", "vocab_size": vocab, "hidden_size": hidden, "intermediate_size": ffn,
+          "num_hidden_layers": layers, "num_attention_heads": heads, "num_key_value_heads": heads,
+          "max_position_embeddings": 512, "tie_word_embeddings": False}
+    with open(os.path.join(d, "config.json"), "w") as f:
+        json.dump(hf, f)
+    tensors, dense = {}, []
+    shapes = {"self_attn.q_proj": (hidden, hidden), "self_attn.k_proj": (hidden, hidden),
+              "self_attn.v_proj": (hidden, hidden), "self_attn.o_proj": (hidden, hidden),
+              "mlp.gate_proj": (ffn, hidden), "mlp.up_proj": (ffn, hidden), "mlp.down_proj": (hidden, ffn)}
+    for i in range(layers):
+        lp = {}
+        for hf_name, shape in shapes.items():
+            w = 0.05 * randn(gen, *shape)
+            tensors[f"model.layers.{i}.{hf_name}.weight"] = w
+            lp[hf_name.split(".")[1]] = {"w": w.T}
+        for name, hf_name in (("input_norm", "input_layernorm"), ("post_norm", "post_attention_layernorm")):
+            g = 1 + 0.1 * randn(gen, hidden)
+            tensors[f"model.layers.{i}.{hf_name}.weight"] = g
+            lp[name] = g
+        dense.append(lp)
+    embed, head, norm = randn(gen, vocab, hidden), 0.05 * randn(gen, vocab, hidden), 1 + 0.1 * randn(gen, hidden)
+    tensors.update({"model.embed_tokens.weight": embed, "lm_head.weight": head, "model.norm.weight": norm})
+    save_file(tensors, os.path.join(d, "model.safetensors"))
+    return config_from_hf(hf), {"embed": embed, "final_norm": norm, "layers": dense, "lm_head": head.T}
+
+
+def test_load_packed_on_the_card_equals_quantize_params(gen, tmp_path):
+    """The exporter on the card, load_packed onto the card: every leaf equal
+    to quantize_params of the same dense weights on the card, but a scale's
+    pad columns (CLIPMIN exported, 0 from quantize_params)."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.export.exporter import export_checkpoint, load_packed
+    from flexq_tpu_torch.models.quantized import forward_serve, quantize_params
+    from flexq_tpu_torch.quant.quantizer import CLIPMIN
+
+    cfg, dense = tiny_hf_dir(gen, str(tmp_path))
+    export_checkpoint(str(tmp_path), str(tmp_path / "packed"))
+    lcfg, policy, got = load_packed(str(tmp_path / "packed"))
+    assert lcfg == cfg and got["embed"].is_cuda
+    want = quantize_params(dense, cfg, QuantPolicy.llama_flex())
+    padded = 0
+    for (k, x), (_, y) in zip(*(sorted(_leaves(t)) for t in (got, want))):
+        if k.endswith("scale") and not torch.equal(x, y):
+            n = int((x != y).any(0).int().argmax())
+            assert torch.equal(x[:, :n], y[:, :n]) and bool((x[:, n:] == CLIPMIN).all()) and bool((y[:, n:] == 0).all())
+            padded += 1
+        else:
+            assert x.dtype == y.dtype and torch.equal(x, y), k
+    assert padded == 4  # gate / up of both layers: FFN 704 padded to 768
+    ids = torch.randint(0, cfg.vocab_size, (2, 24), device="cuda", generator=gen)
+    assert torch.equal(forward_serve(got, cfg, policy, ids)[0], forward_serve(want, cfg, policy, ids)[0])
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_http_round_trip_on_the_card_equals_a_direct_run(gen, tmp_path):
+    """serve_background over a paged card scheduler: concurrent id-prompt
+    completions give the tokens of the same requests run directly."""
+    import json
+    import threading
+    import urllib.request
+
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.quantized import quantize_params
+    from flexq_tpu_torch.serve.http import serve_background
+    from flexq_tpu_torch.serve.scheduler import BatchScheduler
+
+    cfg, dense = tiny_hf_dir(gen, str(tmp_path), heads=2)
+    policy = QuantPolicy.llama_flex()
+    tree = quantize_params(dense, cfg, policy)
+    kw = dict(num_slots=4, max_seq_len=512, paged=True, prefill_chunk=128)
+    reqs = [(torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist(), m)
+            for n, m in ((10, 8), (70, 6), (200, 9), (33, 7), (150, 5))]
+    server, service, port = serve_background(BatchScheduler(tree, cfg, policy, **kw))
+    got = [None] * len(reqs)
+
+    def call(r):
+        body = json.dumps({"prompt": reqs[r][0], "max_tokens": reqs[r][1], "temperature": 0, "eos_id": -1}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/completions", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got[r] = json.loads(resp.read())["choices"][0]["token_ids"]
+
+    try:
+        threads = [threading.Thread(target=call, args=(r,)) for r in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        assert service.failed_ticks == 0
+    finally:
+        service.shutdown()
+        server.shutdown()
+    direct = BatchScheduler(tree, cfg, policy, **kw)
+    ids = [direct.add_request(p, max_new_tokens=m, eos_id=-1) for p, m in reqs]
+    out = direct.run()
+    assert got == [out[i] for i in ids]
+    assert launch_counts()["flash_decode_paged"] > 0 and launch_counts()["w6_matmul_bf16"] > 0
+
+
+def test_quantizer_divides_on_the_card_as_on_the_cpu(gen):
+    """The weight quantizer's scale (absmax / qmax) is a true division on
+    the card too: CUDA turns a division by a host scalar into a multiply by
+    its reciprocal, an ulp off on some values, so the scales and codes
+    would part from the CPU's (and the reference's)."""
+    from flexq_tpu_torch.models.quantized import quantize_linear
+    from flexq_tpu_torch.quant.quantizer import QuantSpec
+
+    w = 0.02 * torch.randn((4096, 11008), generator=gen, device="cuda")
+    for bits in (6, 4, 8):
+        got, want = quantize_linear(w, QuantSpec(bits, True, 128)), quantize_linear(w.cpu(), QuantSpec(bits, True, 128))
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (bits, k)
+
+
+@pytest.mark.parametrize("m,k", [(4, 4096), (16, 4096), (2048, 4096), (8, 16384)])
+def test_row_statistic_has_the_plain_versions_bits(gen, m, k):
+    """The plain RMS / LayerNorm producers sum each row in the kernel's
+    order (fused_quant.row_sum), so K1 and K14 give the CPU's codes and
+    scales bit for bit, with and without the residual."""
+    x, r = randn(gen, m, k), randn(gen, m, k)
+    g, b = 1 + 0.1 * randn(gen, k), 0.1 * randn(gen, k)
+    cpu = [t.cpu() for t in (x, r, g, b)]
+    for res in (None, r):
+        got = rmsnorm_quant(x, g, bits=6, residual=res)
+        want = rmsnorm_quant_plain(cpu[0], cpu[2], bits=6, residual=None if res is None else cpu[1])
+        assert all(torch.equal(a.cpu(), w) for a, w in zip(got, want))
+        got = layernorm_quant(x, g, b, bits=8, residual=res)
+        want = layernorm_quant_plain(cpu[0], cpu[2], cpu[3], bits=8, residual=None if res is None else cpu[1])
+        assert all(torch.equal(a.cpu(), w) for a, w in zip(got, want))

@@ -2,8 +2,9 @@
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal, with the reference's parameters in its
-order; the paths still to port raise (the cache-less forward, the Engine's
-logprobs, and the scheduler's meshes, fused ticks and beam search)."""
+order; the paths still to port raise (the Engine's logprobs, and the
+scheduler's meshes, fused ticks and beam search), and half a cache is
+refused (the cache-less forward takes neither kv_k nor kv_v)."""
 
 import inspect
 
@@ -103,8 +104,9 @@ def test_unsupported_paths_raise(model):
         Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
-    with pytest.raises(NotImplementedError):  # the cache-less forward
-        forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=None, kv_v=None, cache_pos=0, device="cpu")
+    with pytest.raises(ValueError):  # half a cache: the cache-less forward takes neither
+        forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=eng.new_cache(2)[0], kv_v=None, cache_pos=0,
+                      device="cpu")
     # the scheduler's paths still to port: meshes, fused ticks, beam search
     for kw in (dict(mesh=object()), dict(pp_mesh=object()), dict(fused_tick=4)):
         with pytest.raises(NotImplementedError):
