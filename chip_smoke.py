@@ -90,16 +90,35 @@ exits nonzero without the final line:
      counts zeroed before and read after; every kernel of the scheduler's
      path must launch), each stream equal to the same requests run directly
      through a BatchScheduler, a streamed twin, a chat answer, a beam
-     request's 400, /metrics with every page free and no failed worker tick,
+     request (best_of 4, n 2) equal to a direct scheduler n-best, /metrics
+     with every page free and no failed worker tick,
      HTTP latency p50 / max and tokens/s beside the direct run's tokens/s;
      `python -m flexq_tpu_torch.serve.http --checkpoint <dir> --port 0
      --paged` as a subprocess (one completion, /health, stopped); and
      FlexQCausalLM.from_packed(...).forward on the card against its plain CPU
-     run (2e-2 of max |logit|).
+     run (2e-2 of max |logit|);
+  6. decoding modes, on phase 4's 32-layer LLaMA-2-7B model before it is
+     freed (B = 4, 32-token prompts unless named): sampled Engine runs
+     (temperature 0.8, top_p 0.9, repetition penalty 1.1; fused == step
+     under one seed, and a repeat), greedy with logprobs (phase 4's tokens);
+     speculative decoding on 64-token prompts that repeat a 16-token
+     pattern, k = 4, 64 new tokens (the fused loop held to plain greedy
+     over the decisive steps with n-gram drafts, and with oracle drafts,
+     an ungated run's own streams, that run the accept path and must give
+     its tokens; the B = 1 host loop likewise on two rows, held to plain
+     greedy at B = 1; a hold needs a decisive step; a sampled run repeated;
+     K9's short-prompt kernel on the verify windows, the exact GEMM at
+     M = 20 on route A; the cost of the loop's host read of its flags: read
+     every step against every 8th, ungated, and the host's time blocked in
+     it); Engine beam search (B = 1, K = 4, 32 new); the scheduler's beam
+     groups beside 4 regular requests over the dense, paged bf16 and paged
+     int8 caches, each equal to the standalone n-best, every page free
+     after.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import ctypes
 import http.client
 import json
@@ -112,7 +131,6 @@ import sys
 import tempfile
 import threading
 import time
-import urllib.error
 import urllib.request
 
 import numpy as np
@@ -156,14 +174,14 @@ from flexq_tpu_torch.kernels.w4_matmul import w4_matmul_bf16_plain, w4_matmul_pl
 from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_plain
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
-from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, launch as int_launch, stream_takes
+from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, launch as int_launch, stream_takes, w6ax_route
 from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
 from flexq_tpu_torch.models import hf_loader, quantized
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear, quantize_params
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import CLIPMIN
-from flexq_tpu_torch.serve import Engine
+from flexq_tpu_torch.serve import Engine, SamplingParams, beam, speculative
 from flexq_tpu_torch.serve import http as serve_http
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
@@ -217,12 +235,17 @@ REPORT_SHAPE = {
     "layernorm_quant": "M=4 K=4096",
     "relu_quant": "M=4 F=16384",
 }
+VERIFY_LENGTHS = (69, 75, 85, 96)  # phase 6's verify windows: 5 queries a row, each row at its own start
+VERIFY_SHAPE = f"B=4 Lq=5 H=32 D=128 S=2048 per-row len={'/'.join(map(str, VERIFY_LENGTHS))}"
 # further shapes whose times go into a kernel's JSON entry, under "also"
 ALSO_REPORT = {
-    # the 512-token prefill over a bf16 and an int8 cache: flash_prefill.cu's tensor-core tiles
-    "flash_prefill": ("B=4 Lq=512 H=32 D=128 S=2048 len=512", "B=4 Lq=512 H=32 D=128 S=2048 len=512 int8"),
-    # the exact GEMM on the tensor cores: a 4 x 32-token W6Ax prompt, OPT's 4 x 512-token prompt
-    "w6_matmul": ("M=128 K=4096 N=4096", "M=2048 K=4096 N=4096"),
+    # the 512-token prefill over a bf16 and an int8 cache: flash_prefill.cu's tensor-core tiles;
+    # phase 6's speculative verify windows (attend_cache.cu at Lq = 1 + k, each row at its own start)
+    "flash_prefill": ("B=4 Lq=512 H=32 D=128 S=2048 len=512", "B=4 Lq=512 H=32 D=128 S=2048 len=512 int8",
+                      VERIFY_SHAPE),
+    # the exact GEMM on the tensor cores: phase 6's 4 x 5-token verify windows, a 4 x 32-token W6Ax
+    # prompt, OPT's 4 x 512-token prompt
+    "w6_matmul": ("M=20 K=4096 N=4096", "M=128 K=4096 N=4096", "M=2048 K=4096 N=4096"),
     # W4A8 / W8A8 on the tensor cores: the 4 x 32-token prompt's gate / up
     "w4_matmul": ("M=128 K=4096 N=11264",),
     "w8_matmul": ("M=128 K=4096 N=11264",),
@@ -342,11 +365,12 @@ def int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer):
            PEAK_INT8, None, dense_ms=dense_ms, extra=f" route={route} (tolerance: bit-exact, {checked})")
 
 
-INT_MS = {6: (4, 128), 4: (4, 8, 16, 32, 128, 256), 8: (4, 8, 16, 32, 128, 256)}
+# W6 at M = 20: phase 6's speculative verify windows, B = 4 x (1 + k) rows on route A
+INT_MS = {6: (4, 20, 128), 4: (4, 8, 16, 32, 128, 256), 8: (4, 8, 16, 32, 128, 256)}
 
 
 def check_int_gemms(results, dev, gen, timer):
-    """The exact integer GEMMs: W6Ax (K2/K3) at M = 4 and 128, W4A8 (K10)
+    """The exact integer GEMMs: W6Ax (K2/K3) at M = 4, 20 and 128, W4A8 (K10)
     and W8A8 (K12) at M = 4, 8, 16, 32, 128 and 256 (both sides of each
     format's route threshold) for the three 7B (K, N), and each at the
     packed head's shape at M = 4; each bit-exact against its plain version,
@@ -493,8 +517,9 @@ def log_kernel_attributes() -> None:
 
 def check_attention(results, dev, gen, timer):
     """bf16 cache: Lq = 1 and 32 over 64 cached tokens (the 32-token path),
-    Lq = 1 and 512 over 512 (the 512-token path); int8 cache with f32
-    scales: Lq = 1 and 512 over 512. For K6 and K9 also the share of their
+    Lq = 1 and 512 over 512 (the 512-token path), and Lq = 5 at each row's
+    own start (phase 6's verify windows); int8 cache with f32 scales: Lq = 1
+    and 512 over 512. For K6 and K9 also the share of their
     bf16 outputs that part from the plain version's on the CPU, the side
     that phase 3's parity runs hold the card to."""
     b, h, kvh, s, d = 4, 32, 32, 2048, 128
@@ -545,6 +570,27 @@ def check_attention(results, dev, gen, timer):
         record(results, name, f"B={b} Lq={lq} H={h} D={d} S={s} len={ln}" + (" int8" if quant else ""), err, ms,
                plain_ms, nbytes, 4 * b * h * keys * d, PEAK_BF16, lib_ms,
                extra=f" sdpa_vs_plain_err={lib_err:.3g}{parted} (tolerance: 2e-2 of max|out|)")
+    # a speculative verify window: Lq = 5, each row at its own start (phase 6)
+    lq = 5
+    lengths = torch.tensor(VERIFY_LENGTHS, dtype=torch.int32, device=dev)
+    q = torch.randn((b, lq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    kern = lambda: flash_prefill(q, kc, vc, lengths, layer_idx=1)
+    plain = lambda: attend_cache_plain(q, kc, vc, lengths, 1, None, torch.bfloat16, False, torch.bfloat16)
+    got, want = kern().float(), plain().float()
+    err = (got - want).abs().max().item()
+    if not err <= 2e-2 * want.abs().max().item():
+        raise AssertionError(f"flash_prefill verify window: max abs err {err}")
+    top = max(VERIFY_LENGTHS)
+    pos = lengths[:, None].long() - lq + torch.arange(lq, device=dev)  # [B, Lq]
+    mask = torch.arange(top, device=dev)[None, None, None, :] <= pos[:, None, :, None]  # [B, 1, Lq, top]
+    qt = q.transpose(1, 2).contiguous()
+    kv_top = kc[1, :, :, :top].contiguous(), vc[1, :, :, :top].contiguous()
+    lib = lambda: sdpa(qt, *kv_top, attn_mask=mask)
+    ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
+    keys = int((pos + 1).sum().item())
+    nbytes = 2 * kvh * sum(VERIFY_LENGTHS) * d * 2 + 2 * b * lq * h * d * 2
+    record(results, "flash_prefill", VERIFY_SHAPE, err, ms, plain_ms, nbytes, 4 * h * keys * d, PEAK_BF16, lib_ms,
+           extra=" (tolerance: 2e-2 of max|out|)")
 
 
 def log_check(results, name, shape, err, tol):
@@ -1316,6 +1362,13 @@ PATH_KERNELS = {
     # weight-only W4A16: K11 at every linear (the head is tied, a bf16 matmul)
     "OPT W4A16 32-token": ("w4_matmul_bf16", "flash_prefill", "flash_decode"),
     "OPT scheduler paged": OPT_PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode_paged", "flash_prefill"),
+    # phase 6: speculative decoding on 64-token prompts: the W6A16 prefill,
+    # then [B, 1 + k] verify windows through the W6Ax layer (K9's
+    # short-prompt kernel, the exact GEMM at M = B(1 + k) on route A)
+    "spec": PRODUCERS + ("w6_matmul", "flash_prefill", "w6_matmul_bf16", "w6_glu_matmul_bf16"),
+    # the scheduler's beam groups beside regular requests
+    "beam scheduler dense": W6AX,
+    "beam scheduler paged": PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode_paged", "flash_prefill"),
 }
 
 
@@ -1514,6 +1567,376 @@ def scheduler_runs(params, cfg, policy, dev):
     return totals
 
 
+SPEC_K = 4  # phase 6's draft length: verify windows of 1 + SPEC_K tokens
+
+
+def run_counted(label, path, fn):
+    """Call ``fn`` with the launch counts zeroed just before and read just
+    after (the launches by M go to BY_M); every kernel of ``path`` must have
+    launched. Returns (fn's result, counts)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    out = fn()
+    counts = launch_counts()
+    add_by_m()
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+    log(f"modes {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    return out, counts
+
+
+def spec_prompts(vocab: int, b: int = 4, n: int = 64, period: int = 16):
+    """B prompts of n tokens, each repeating its own seeded period-token
+    pattern (random weights need not continue it: the drafts then fail, and
+    the run measures the loop's overhead with the gate engaged)."""
+    rng = np.random.default_rng(SEED + 11)
+    return [np.tile(rng.integers(0, vocab, period), n // period).tolist() for _ in range(b)]
+
+
+class LogitTap:
+    """Keeps the logits of an Engine's decode steps (``steps``: [B, V] a
+    step) and verify windows (``windows``: (starts [B], [B, C, V]) a step),
+    and counts flash_prefill's launches inside windows of ``width`` tokens.
+    The tensors stay on the device until read."""
+
+    def __init__(self, eng, width: int):
+        self.eng, self.width = eng, width
+        self.steps, self.windows, self.window_launches = [], [], 0
+
+    def __enter__(self):
+        eng, step, spec = self.eng, self.eng._decode_step, self.eng._spec_forward
+
+        def decode_step(ids, cache, pos):
+            logits, cache = step(ids, cache, pos)
+            self.steps.append(logits)
+            return logits, cache
+
+        def spec_forward(ids, cache, start):
+            before = flash_prefill.launches
+            logits, cache = spec(ids, cache, start)
+            if ids.shape[1] == self.width:
+                self.window_launches += flash_prefill.launches - before
+            starts = start if isinstance(start, torch.Tensor) else torch.full((ids.shape[0],), int(start))
+            self.windows.append((starts.cpu(), logits))
+            return logits, cache
+
+        eng._decode_step, eng._spec_forward = decode_step, spec_forward
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng._decode_step, self.eng._spec_forward
+
+    def spec_logits(self, row: int, q: int):
+        """Row ``row``'s logits for the token after query position q: from
+        the last window that started at or before q (each step's window
+        starts where the accepted prefix ended)."""
+        for starts, logits in reversed(self.windows):
+            s = int(starts[row])
+            if s <= q:
+                return logits[row, q - s]
+        raise KeyError((row, q))
+
+
+class ReadWait:
+    """The host's seconds inside ``Tensor.tolist`` and its calls while the
+    context is open: the fused spec loop's one flag read a step (it reads
+    nothing else through tolist)."""
+
+    def __enter__(self):
+        self.s, self.calls, self.orig = 0.0, 0, torch.Tensor.tolist
+
+        def timed(t):
+            t0 = time.perf_counter()
+            out = self.orig(t)
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        torch.Tensor.tolist = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.tolist = self.orig
+
+
+class OracleDrafts:
+    """Drafts that propose a given continuation of each row (its prompt
+    followed by ``streams``), patched over speculative.py's n-gram drafts
+    (the fused loop's device version and the host loop's). Given the stream
+    the verify windows themselves produce (an ungated run's), the windows
+    accept the drafts, so the accept rule, the multi-token advance and the
+    overwrite of rejected drafts' KV run on the card, which random weights
+    never reach with n-gram drafts."""
+
+    def __init__(self, prompts, streams, k: int, dev):
+        rows = [list(p) + list(s) for p, s in zip(prompts, streams)]
+        width = max(map(len, rows)) + k + 1
+        self.full = torch.tensor([r + [r[-1]] * (width - len(r)) for r in rows], dtype=torch.int64, device=dev)
+
+    def device(self, buf, length, k, max_ngram=3):
+        pos = length.to(torch.int64)[:, None] + torch.arange(k, device=buf.device)[None, :]
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        return self.full[rows, pos.clamp(max=self.full.shape[1] - 1)]
+
+    def host(self, history, k, max_ngram=3, min_ngram=1):
+        n = len(history)
+        return self.full[0, n : n + k].cpu().numpy().astype(np.int32)
+
+    def __enter__(self):
+        self.saved = speculative.ngram_draft_device, speculative.ngram_draft
+        speculative.ngram_draft_device, speculative.ngram_draft = self.device, self.host
+        return self
+
+    def __exit__(self, *exc):
+        speculative.ngram_draft_device, speculative.ngram_draft = self.saved
+
+
+def decisive_hold(label, plain, got, plain_tap, spec_tap, prompt_len, rows):
+    """Spec tokens against plain greedy's, per (plain row, spec row) of
+    ``rows`` up to its first parting token: a step is decisive where the
+    plain run's top-2 margin exceeds the gap between the two runs' logits
+    there. Logs every parted step's margin; returns (decisive steps held,
+    decisive steps, steps compared). A hold passes only over at least one
+    decisive step (``hold_passes``)."""
+    held = decisive = compared = 0
+    for r, rs in rows:
+        for i in range(1, min(len(plain[r]), len(got[rs]))):
+            compared += 1
+            a = plain_tap.steps[i - 1][r].float()
+            b = spec_tap.spec_logits(rs, prompt_len + i - 1).float()
+            top2 = a.topk(2).values
+            margin = (top2[0] - top2[1]).item()
+            gap = (a - b).abs().max().item()
+            same = plain[r][i] == got[rs][i]
+            if margin > gap:
+                decisive += 1
+                held += same
+            if not same:
+                log(f"modes {label}: row {r} parts from plain greedy at token {i}: top-2 margin "
+                    f"{margin / a.abs().max().item():.4%} of max |logit|, gap between the runs' logits "
+                    f"{gap / a.abs().max().item():.4%} ({'decisive' if margin > gap else 'a near-tie'})")
+                break
+    return held, decisive, compared
+
+
+def hold_passes(held: int, decisive: int) -> bool:
+    return decisive > 0 and held >= 0.95 * decisive
+
+
+def decoding_modes(params, cfg, policy, dev, p32, greedy32):
+    """Phase 6, on phase 4's LLaMA-2-7B model: sampled Engine runs (fused ==
+    step under one seed, and a repeat), a greedy run with logprobs (phase
+    4's tokens); speculative decoding on 64-token prompts that repeat a
+    16-token pattern (k = SPEC_K, 64 new tokens: the fused loop at B = 4 held
+    to plain greedy over the decisive steps with n-gram and with oracle
+    drafts, the B = 1 host loop likewise on two rows, the cost of the
+    flags' host read, a sampled run repeated); Engine beam search (B = 1, K = 4, 32 new
+    tokens: width 1 equals greedy, the best score at least greedy's); the
+    scheduler's beam groups beside 4 regular requests over the dense, paged
+    bf16 and paged int8 caches, each equal to the standalone n-best. Returns
+    the summed launch counts and the phase's seconds."""
+    t_phase = t_part = time.perf_counter()
+    b, new = len(p32), 32
+
+    def part(what):
+        nonlocal t_part
+        log(f"modes {what}: {time.perf_counter() - t_part:.1f}s")
+        t_part = time.perf_counter()
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    eng = Engine(params, cfg, policy, max_seq_len=2048, device=dev)
+    # sampled: fused == step under one seed, a repeat equal
+    sp = SamplingParams(temperature=0.8, top_p=0.9, repetition_penalty=1.1, greedy=False)
+    eng.generate(p32, max_new_tokens=2, sampling=sp, eos_id=-1)  # warm-up
+    t0 = time.perf_counter()
+    (fused, stats), counts = run_counted("sampled fused", "32-token", lambda: eng.generate(
+        p32, max_new_tokens=new, sampling=sp, eos_id=-1, seed=1, return_stats=True))
+    add(counts)
+    step = eng.generate(p32, max_new_tokens=new, sampling=sp, eos_id=-1, seed=1, mode="step")
+    again = eng.generate(p32, max_new_tokens=new, sampling=sp, eos_id=-1, seed=1)
+    log(f"modes sampled (temperature 0.8, top_p 0.9, repetition_penalty 1.1) B={b} prompt=32 new={new}: "
+        f"decode_ms_per_step={stats.decode_s / (new - 1) * 1e3:.2f}; fused == step: {fused == step}; repeat "
+        f"equal: {fused == again}; first row {fused[0][:8]} ({time.perf_counter() - t0:.1f}s)")
+    if fused != step or fused != again or any(len(r) != new for r in fused):
+        raise AssertionError("sampled Engine runs: fused and step, or a repeat of the seed, disagree")
+    out, lps = eng.generate(p32, max_new_tokens=new, eos_id=-1, return_logprobs=True)
+    finite = all(math.isfinite(x) and x <= 0 for r in lps for x in r)
+    log(f"modes greedy with logprobs: tokens equal to phase 4's: {out == greedy32}; logprobs finite and <= 0: "
+        f"{finite}; first row's mean logprob {statistics.mean(lps[0]):.4f}")
+    if out != greedy32 or not finite:
+        raise AssertionError("greedy logprob run: tokens part from phase 4's, or a logprob is not finite")
+    part("sampled and logprob runs")
+
+    # speculative decoding on repetitive prompts
+    ps = spec_prompts(cfg.vocab_size)
+    n_spec = 64
+    eng.generate(ps, max_new_tokens=2, eos_id=-1)  # warm-up (the W6A16 prefill at 64 tokens)
+    speculative.generate_speculative(eng, ps, max_new_tokens=4, k=SPEC_K, eos_id=-1)
+    with LogitTap(eng, 1 + SPEC_K) as plain_tap:
+        plain, pstats = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, return_stats=True)
+    with LogitTap(eng, 1 + SPEC_K) as spec_tap:
+        (got, st), counts = run_counted("spec fused", "spec", lambda: speculative.generate_speculative(
+            eng, ps, max_new_tokens=n_spec, k=SPEC_K, eos_id=-1, return_stats=True))
+    add(counts)
+    held, decisive, compared = decisive_hold("spec fused B=4", plain, got, plain_tap, spec_tap, len(ps[0]),
+                                             [(r, r) for r in range(b)])
+    m20 = w6_matmul.launches_by_m.get(b * (1 + SPEC_K), 0)  # the spec run's, read before the next reset
+    route_a = w6ax_route(b * (1 + SPEC_K), cfg.hidden_size, cfg.hidden_size) == W6AX_MMA
+    plain_ms = pstats.decode_s / (n_spec - 1) * 1e3
+    spec_ms = st.decode_s / (n_spec - 1) * 1e3
+    log(f"modes spec fused B={b} prompt=64 (a 16-token pattern x 4) k={SPEC_K} new={n_spec}: "
+        f"acceptance_rate={st.acceptance_rate:.3f} tokens_per_verify_step={st.tokens_per_step:.2f} ({st.generated} "
+        f"tokens over {b} rows / {st.steps} steps: {st.tokens_per_step / b:.2f} a row) decode_ms_per_token={spec_ms:.2f} against plain greedy's "
+        f"{plain_ms:.2f} ({plain_ms / spec_ms:.2f}x); spec == plain greedy rows {sum(a == c for a, c in zip(got, plain))}"
+        f"/{b}; decisive steps held {held}/{decisive} (tolerance >= 95%), {decisive}/{compared} of the steps "
+        f"compared decisive; flash_prefill launches in "
+        f"{1 + SPEC_K}-token windows {spec_tap.window_launches}; w6_matmul launches at M = {b * (1 + SPEC_K)} "
+        f"{m20} (route {'A' if route_a else 'B'})")
+    launched = dev.type != "cuda" or (spec_tap.window_launches > 0 and m20 > 0 and route_a)  # the CPU launches none
+    if not hold_passes(held, decisive) or not launched:
+        raise AssertionError("spec fused: decisive steps part from plain greedy (or none is decisive), or the window "
+                             "kernels did not run")
+    # the gate's host read a step: the ungated fused loop with its flags read every step and every 8th, alternated;
+    # the host's time blocked in the read (the loop's one Tensor.tolist a step) is timed directly
+    per_step, blocked = {1: [], 8: []}, {1: [], 8: []}
+    streams = {}
+    for _ in range(3):
+        for every in per_step:
+            eng.SPEC_FLAG_READ_EVERY = every
+            try:
+                with ReadWait() as wait:
+                    streams[every], rs = speculative.generate_speculative(eng, ps, max_new_tokens=n_spec, k=SPEC_K,
+                                                                          eos_id=-1, return_stats=True, gate=False)
+            finally:
+                del eng.SPEC_FLAG_READ_EVERY
+            per_step[every].append(rs.decode_s / rs.steps * 1e3)
+            blocked[every].append((wait.s * 1e3 / max(wait.calls, 1), wait.calls))
+    r1, r8 = statistics.median(per_step[1]), statistics.median(per_step[8])
+    w1 = statistics.median(ms for ms, _ in blocked[1])
+    log(f"modes spec flag read (ungated fused loop B={b} k={SPEC_K} new={n_spec}, 3 runs each, alternated): ms a step "
+        f"read every step {[round(x, 3) for x in per_step[1]]} (median {r1:.3f}), read every 8th "
+        f"{[round(x, 3) for x in per_step[8]]} (median {r8:.3f}): difference {(r1 - r8) / (1 - 1 / 8):.3f} ms a step; "
+        f"the host blocked in the read {[round(ms, 3) for ms, _ in blocked[1]]} ms a read over "
+        f"{[n for _, n in blocked[1]]} reads (median {w1:.3f}: {w1 / r1:.1%} of a step); tokens equal: "
+        f"{streams[1] == streams[8]}")
+    if streams[1] != streams[8]:
+        raise AssertionError("spec fused loop: a stale flag changed the greedy tokens")
+    part("flag read cost")
+    # oracle drafts: the ungated run's own stream (every token a window's), so the verify windows accept them and
+    # the accept rule, the multi-token advance and the overwrite of rejected drafts' KV run at full width
+    ungated = streams[1]
+    with OracleDrafts(ps, ungated, SPEC_K, dev), LogitTap(eng, 1 + SPEC_K) as oracle_tap:
+        (ogot, ost), counts = run_counted("spec fused oracle drafts", "spec", lambda: speculative.generate_speculative(
+            eng, ps, max_new_tokens=n_spec, k=SPEC_K, eos_id=-1, return_stats=True))
+    add(counts)
+    oheld, odecisive, ocompared = decisive_hold("spec fused oracle drafts", plain, ogot, plain_tap, oracle_tap,
+                                                len(ps[0]), [(r, r) for r in range(b)])
+    log(f"modes spec fused B={b} k={SPEC_K} new={n_spec}, oracle drafts: acceptance_rate={ost.acceptance_rate:.3f} "
+        f"tokens_per_verify_step={ost.tokens_per_step:.2f} ({ost.tokens_per_step / b:.2f} a row, {ost.steps} steps) "
+        f"decode_ms_per_token={ost.decode_s / (n_spec - 1) * 1e3:.2f}; equal to the ungated run's stream "
+        f"{sum(a == c for a, c in zip(ogot, ungated))}/{b} rows; spec == plain greedy rows "
+        f"{sum(a == c for a, c in zip(ogot, plain))}/{b}; decisive steps held {oheld}/{odecisive}, {odecisive}/"
+        f"{ocompared} of the steps compared decisive; flash_prefill launches in {1 + SPEC_K}-token windows "
+        f"{oracle_tap.window_launches}")
+    if not hold_passes(oheld, odecisive) or ost.accepted == 0 or ogot != ungated:
+        raise AssertionError("spec fused, oracle drafts: no draft accepted, the stream parts from the ungated run's "
+                             "(the multi-token advance), or decisive steps part from plain greedy")
+    # the host loop (B = 1) on rows 0 and 1: n-gram drafts, then oracle drafts from that run's own stream, each held
+    # to plain greedy at B = 1 (a prompt's bits depend on B: the W6A16 prefill's GEMMs split K by the tile count)
+    hheld = hdecisive = hcompared = 0
+    for r in range(2):
+        with LogitTap(eng, 1 + SPEC_K) as plain1_tap:
+            plain1 = eng.generate(ps[r : r + 1], max_new_tokens=n_spec, eos_id=-1)
+        host_streams = {}
+        for what in ("n-gram drafts", "oracle drafts"):
+            oracle = (OracleDrafts(ps[r : r + 1], host_streams["n-gram drafts"], SPEC_K, dev) if what == "oracle drafts"
+                      else contextlib.nullcontext())
+            with oracle, LogitTap(eng, 1 + SPEC_K) as host_tap:
+                (host, hst), counts = run_counted(f"spec host B=1 {what} row {r}", "spec",
+                                                  lambda: speculative.generate_speculative(
+                                                      eng, ps[r : r + 1], max_new_tokens=n_spec, k=SPEC_K, eos_id=-1,
+                                                      return_stats=True, fused=False))
+            add(counts)
+            host_streams[what] = host
+            h1, d1, c1 = decisive_hold(f"spec host B=1 {what} row {r}", plain1, host, plain1_tap, host_tap,
+                                       len(ps[0]), [(0, 0)])
+            hheld, hdecisive, hcompared = hheld + h1, hdecisive + d1, hcompared + c1
+            log(f"modes spec host loop B=1 {what} row {r}: acceptance_rate={hst.acceptance_rate:.3f} "
+                f"tokens_per_verify_step={hst.tokens_per_step:.2f} decode_ms_per_token="
+                f"{hst.decode_s / (n_spec - 1) * 1e3:.2f}; equal to plain greedy at B=1: {host == plain1}; decisive "
+                f"steps held {h1}/{d1} ({c1} compared)")
+        if host_streams["oracle drafts"] != host_streams["n-gram drafts"] or hst.accepted == 0:
+            raise AssertionError(f"spec host loop, oracle drafts, row {r}: no draft accepted, or the stream parts from "
+                                 "the n-gram run's")
+    log(f"modes spec host loop: decisive steps held {hheld}/{hdecisive} over 4 runs ({hcompared} compared)")
+    if not hold_passes(hheld, hdecisive):
+        raise AssertionError("spec host loop: decisive steps part from plain greedy, or none is decisive")
+    part("speculative runs")
+    sps = SamplingParams(temperature=0.8, top_p=0.9, greedy=False)
+    s1 = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, mode="spec", sampling=sps, seed=3)
+    s2 = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, mode="spec", sampling=sps, seed=3)
+    log(f"modes spec sampled (temperature 0.8, top_p 0.9): repeat equal {s1 == s2}; lengths {[len(r) for r in s1]}")
+    if s1 != s2 or any(len(r) != n_spec or not all(0 <= t < cfg.vocab_size for t in r) for r in s1):
+        raise AssertionError("sampled spec: a repeat of the seed disagrees, or a row is malformed")
+
+    # Engine beam search: B = 1, K = 4
+    p1 = [p32[0]]
+    bp = beam.BeamParams(beam_width=4, max_new_tokens=new)
+    (nbest, counts) = run_counted("beam engine K=4", "32-token", lambda: beam.beam_search_nbest(
+        eng, p1, bp, eos_id=-1, n_best=4))
+    add(counts)
+    g1, glp = eng.generate(p1, max_new_tokens=new, eos_id=-1, return_logprobs=True)
+    w1 = beam.beam_search(eng, p1, beam.BeamParams(beam_width=1, length_penalty=0.0, max_new_tokens=new), eos_id=-1)
+    best_raw = nbest[0][0][1] * beam._length_norm(new, bp.length_penalty)
+    log(f"modes beam engine B=1 K=4 new={new}: best score (raw) {best_raw:.4f} against the greedy stream's "
+        f"{sum(glp[0]):.4f}; width 1 equals greedy: {w1 == g1}; hypotheses {len(nbest[0])}")
+    if w1 != g1 or best_raw < sum(glp[0]) - 1e-3:
+        raise AssertionError("Engine beam: width 1 parts from greedy, or the best beam scores below greedy")
+    part("Engine beam runs")
+
+    # the scheduler's beam groups beside 4 regular requests
+    regular = [(p, n) for p, n in zip(p32, (16, 24, 32, 20))]
+    sched_kw = dict(num_slots=8, max_seq_len=2048, page_size=128)
+    for label, kw, path in (("dense bf16", dict(), "beam scheduler dense"),
+                            ("paged bf16", dict(paged=True), "beam scheduler paged"),
+                            ("paged int8", dict(paged=True, kv_dtype=torch.int8), "beam scheduler paged")):
+        if kw.get("paged"):
+            want = beam.beam_search_nbest_paged(params, cfg, policy, p1, bp, eos_id=-1, n_best=4, max_seq_len=2048,
+                                                kv_dtype=kw.get("kv_dtype", torch.bfloat16), device=dev)[0]
+        else:
+            want = nbest[0]
+
+        def run():
+            s = BatchScheduler(params, cfg, policy, **sched_kw, device=dev, **kw)
+            rb = s.add_request(p1[0], max_new_tokens=new, eos_id=-1, beam_width=4, n_best=4)
+            ids = [s.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in regular]
+            out = s.run()
+            return s, s.done_nbest[rb], [out[i] for i in ids]
+
+        (s, got_nb, reg), counts = run_counted(f"beam scheduler {label}", path, run)
+        add(counts)
+        free = s.pool.free_pages == s.pool.num_pages - 1 if s.paged else True
+        same = [t for t, _, _ in got_nb] == [t for t, _ in want]
+        worst = max(abs(x[1] - y[1]) for x, y in zip(got_nb, want))
+        log(f"modes beam scheduler {label} (K=4 beside 4 regular requests): n-best equal to the standalone "
+            f"{'beam_search_nbest_paged' if s.paged else 'beam_search_nbest'}: {same} (scores within {worst:.2e}); "
+            f"regular requests' lengths {[len(r) for r in reg]}; pages all free after: {free}")
+        if not same or worst > 1e-3 or not free or [len(r) for r in reg] != [n for _, n in regular]:
+            raise AssertionError(f"beam scheduler {label}: parts from the standalone n-best, or pages leak")
+        del s
+        part(f"beam scheduler {label}")
+    modes_s = time.perf_counter() - t_phase
+    log(f"phase 6 decoding modes: {modes_s:.1f}s")
+    return totals, modes_s
+
+
 def end_to_end(dev, gen):
     cfg = ModelConfig.llama()  # LLaMA-2-7B shape, 32 layers
     policy = QuantPolicy.llama_flex()
@@ -1532,6 +1955,7 @@ def end_to_end(dev, gen):
     # the 32-token path: prefill and decode through the W6Ax layer
     eng = Engine(params, cfg, policy, max_seq_len=2048)
     prompts = rng.integers(0, cfg.vocab_size, (b, 32))
+    p32 = prompts.tolist()
     out, counts, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev)
     add(counts)
     step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step", counted=False)
@@ -1568,6 +1992,9 @@ def end_to_end(dev, gen):
     t0 = time.perf_counter()
     add(scheduler_runs(params, cfg, policy, dev))
     log(f"e2e scheduler runs: {time.perf_counter() - t0:.1f}s")
+    counts, modes_s = decoding_modes(params, cfg, policy, dev, p32, out)  # phase 6, before the model is freed
+    add(counts)
+    torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
     fused = random_params(cfg, policy, gen, dev, fuse=True)
@@ -1604,7 +2031,7 @@ def end_to_end(dev, gen):
     add(counts)
     del w8
     torch.cuda.empty_cache()
-    return totals
+    return totals, modes_s
 
 
 def opt_end_to_end(dev, gen):
@@ -1787,9 +2214,10 @@ def serve_and_compare(params, cfg, policy, dev, reqs):
     prefill_chunk 256): every request through /v1/completions at once (id
     prompts, greedy), its launch counts zeroed just before and read just
     after; then the same requests directly through a BatchScheduler. Streams
-    equal token for token, a streamed twin, a chat answer, a beam request's
-    400, /metrics with every page free and no failed tick. Returns the HTTP
-    run's counts."""
+    equal token for token, a streamed twin, a chat answer, a beam request
+    (best_of 4, n 2) whose choices equal the direct scheduler's n-best,
+    /metrics with every page free and no failed tick. Returns the HTTP run's
+    counts."""
     warm_scheduler(params, cfg, policy, dev, reqs)
     sched = BatchScheduler(params, cfg, policy, **SCHED, paged=True, device=dev)
     server, service, port = serve_http.serve_background(sched, model_name="flexq-llama-7b-width")
@@ -1831,20 +2259,17 @@ def serve_and_compare(params, cfg, policy, dev, reqs):
         ids, finish = http_stream(port, {"prompt": p, "max_tokens": n, "temperature": 0, "eos_id": -1})
         if ids != got[3] or finish != "length":
             raise AssertionError(f"http: the streamed request's tokens part from its twin's ({finish})")
-        # chat over the byte tokenizer; beam search answered with a 400
+        # chat over the byte tokenizer; a beam request (best_of = 4, n = 2)
         chat = http_post(port, "/v1/chat/completions", {"messages": [{"role": "user", "content": "Hello, H100!"}],
                                                         "max_tokens": 8, "temperature": 0, "eos_id": -1})
         if chat["usage"]["completion_tokens"] != 8 or not isinstance(chat["choices"][0]["message"]["content"], str):
             raise AssertionError(f"http: bad chat answer {chat}")
-        try:
-            http_post(port, "/v1/completions", {"prompt": p[:16], "max_tokens": 4, "best_of": 2})
-            raise AssertionError("http: a beam request was served")
-        except urllib.error.HTTPError as e:
-            err = json.loads(e.read())
-            if e.code != 400 or "beam search" not in json.dumps(err):
-                raise AssertionError(f"http: a beam request got {e.code} {err}")
+        beam_prompt = p[:32]
+        beam_ans = http_post(port, "/v1/completions", {"prompt": beam_prompt, "max_tokens": 16, "best_of": 4, "n": 2,
+                                                       "eos_id": -1})
         met = http_get(port, "/metrics")
-        log(f"http stream equal to its twin: True; chat answered {chat['usage']}; beam request: 400; metrics "
+        log(f"http stream equal to its twin: True; chat answered {chat['usage']}; beam request: "
+            f"{len(beam_ans['choices'])} choices; metrics "
             f"requests_completed={met['requests_completed']} pages_free={met['pages_free']}/{met['pages_total']} "
             f"worker_failed_ticks={met['worker_failed_ticks']}")
         if met["pages_free"] != met["pages_total"] - 1 or met["worker_failed_ticks"] or service.failed_ticks:
@@ -1871,6 +2296,16 @@ def serve_and_compare(params, cfg, policy, dev, reqs):
         f"{parted}")
     if parted:
         raise AssertionError("http: a stream parts from the direct BatchScheduler run")
+    # the beam request's choices against a direct scheduler n-best of it
+    rb = direct.add_request(beam_prompt, max_new_tokens=16, eos_id=-1, beam_width=4, n_best=2)
+    direct.run()
+    want = direct.done_nbest[rb]
+    same = [c["token_ids"] for c in beam_ans["choices"]] == [t for t, _, _ in want]
+    close = all(abs(c["beam_score"] - s) <= 1e-6 for c, (_, s, _) in zip(beam_ans["choices"], want))
+    log(f"http beam request (best_of 4, n 2, 32-token prompt, 16 new): choices equal to a direct scheduler n-best: "
+        f"{same}; scores {[round(c['beam_score'], 5) for c in beam_ans['choices']]}")
+    if not same or not close or direct.pool.free_pages != direct.pool.num_pages - 1:
+        raise AssertionError("http: the beam choices part from a direct scheduler n-best")
     return counts
 
 
@@ -2096,8 +2531,9 @@ def main() -> int:
     parity_ok = slice_parity(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
     log(f"phase 3 slice parity: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
-    log(f"phase 4 end to end, LLaMA-2-7B: {time.perf_counter() - t0:.1f}s")
+    counts, modes_s = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    log(f"phase 4 end to end, LLaMA-2-7B: {time.perf_counter() - t0 - modes_s:.1f}s (phase 6's {modes_s:.1f}s "
+        f"apart)")
     t0 = time.perf_counter()
     for k, v in opt_end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 4)).items():
         counts[k] += v

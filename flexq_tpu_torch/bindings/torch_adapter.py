@@ -112,8 +112,8 @@ class FlexQCausalLM:
         """HF-generate-shaped API over ``Engine.generate`` (equal-length
         prompts): input_ids [B, L] -> int64 [B, L + n] on input_ids' device,
         the prompt and then the generation. A row that stopped early is
-        padded with its stop token. ``do_sample=True`` reaches the Engine's
-        greedy-only guard."""
+        padded with its stop token. ``do_sample=True`` samples with
+        ``temperature`` / ``top_k`` / ``top_p``, seeded by ``seed``."""
         if do_sample:
             sampling = SamplingParams(temperature=temperature, top_k=top_k, top_p=top_p, greedy=False)
         else:

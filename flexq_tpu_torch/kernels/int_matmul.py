@@ -13,14 +13,20 @@ rounding: the per-group integer partials are exact, and the f32
 accumulation runs over the groups in order, ``acc = acc + part * (x_scale *
 w_scale)``, as the TPU kernels (``_w6_matmul_kernel``, ``_w4_matmul_kernel``,
 ``_w8_kernel``) do (not the einsum order of the reference's ``w*_matmul_ref``
-goldens).
+goldens). On the CPU it takes each weight's planes unpacked once
+(``plain_weight``), not on every call: unpacking was most of a 7B-width CPU
+forward's time. The unpacked weight is kept as int8, one byte a weight
+beside the planes' 0.5-0.75 (LLaMA-2-7B's 6.5e9 linear weights served on
+the CPU hold about 6.5 GB more while its params live), and cast to f32 on
+each call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import weakref
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -30,6 +36,28 @@ from flexq_tpu_torch.kernels.common import GROUP_SIZE, arrival_counters, check_t
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_I] + [_P] * 7 + [ctypes.c_longlong, _P] + [_I] * 5 + [_P]
 _GEOMETRY_ARGS = [_I] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+
+
+_plain_weights: Dict[int, tuple] = {}  # id(first plane) -> (weakref, planes' (ptr, version), int8 weight)
+
+
+def plain_weight(planes: Tuple[torch.Tensor, ...], unpack: Callable) -> torch.Tensor:
+    """``unpack(*planes)`` as int8 [K, N] (the signed integer weight). For
+    CPU planes it is kept while the first plane lives and is unchanged (its
+    data pointer and version counter), so a weight unpacks once; card
+    planes unpack on every call, so the plain version's time on the card
+    stays that of the whole function."""
+    if planes[0].device.type != "cpu":
+        return unpack(*planes).to(torch.int8)
+    key = id(planes[0])
+    stamp = tuple((p.data_ptr(), p._version) for p in planes)
+    hit = _plain_weights.get(key)
+    if hit is not None and hit[0]() is planes[0] and hit[1] == stamp:
+        return hit[2]
+    w = unpack(*planes).to(torch.int8)
+    ref = weakref.ref(planes[0], lambda _, k=key, kept=_plain_weights: kept.pop(k, None))
+    _plain_weights[key] = (ref, stamp, w)
+    return w
 
 
 def grouped_matmul_plain(x_q, x_scale, w_int, w_scale, out_dtype=torch.float32):

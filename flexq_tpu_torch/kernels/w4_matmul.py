@@ -29,7 +29,7 @@ from flexq_tpu_torch.kernels.wa16_matmul import (
     launch_bf16,
     rope_epilogue_plain,
 )
-from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, plain_weight
 from flexq_tpu_torch.packing.pack4 import unpack4
 
 
@@ -41,7 +41,7 @@ def _check_weight(w_q4, w_scale, k: int, dev) -> None:
 
 def w4_matmul_plain(x_q, x_scale, w_q4, w_scale, out_dtype=torch.float32):
     """Plain PyTorch version of K10 (bit-exact with it)."""
-    return grouped_matmul_plain(x_q, x_scale, unpack4(w_q4), w_scale, out_dtype)
+    return grouped_matmul_plain(x_q, x_scale, plain_weight((w_q4,), unpack4), w_scale, out_dtype)
 
 
 def w4_matmul(
@@ -67,7 +67,7 @@ def w4_matmul(
 def w4_matmul_bf16_plain(x, w_q4, w_scale, out_dtype=torch.bfloat16, rope_cos=None, rope_sin2=None):
     """Plain PyTorch version of K11: the same bf16 weight, an f32 product of
     the bf16 operands and the epilogue in f32 on it."""
-    acc = acc_plain(x, dequant_int(unpack4(w_q4), w_scale))
+    acc = acc_plain(x, dequant_int(plain_weight((w_q4,), unpack4), w_scale))
     if rope_cos is not None:
         acc = rope_epilogue_plain(acc, rope_cos.to(torch.float32), rope_sin2.to(torch.float32))
     return acc.to(out_dtype)

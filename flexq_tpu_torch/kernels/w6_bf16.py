@@ -22,6 +22,7 @@ import torch
 
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, on_card
 from flexq_tpu_torch.kernels.fused_quant import glu_act_plain
+from flexq_tpu_torch.kernels.int_matmul import plain_weight
 from flexq_tpu_torch.kernels.wa16_matmul import (
     ACTS,
     acc_plain,
@@ -37,7 +38,7 @@ from flexq_tpu_torch.packing.pack6 import unpack6
 
 
 def _acc_plain(x, w_hi, w_lo, w_scale) -> torch.Tensor:
-    return acc_plain(x, dequant_int(unpack6(w_hi, w_lo), w_scale))
+    return acc_plain(x, dequant_int(plain_weight((w_hi, w_lo), unpack6), w_scale))
 
 
 def w6_matmul_bf16_plain(x, w_hi, w_lo, w_scale, out_dtype=torch.bfloat16, rope_cos=None, rope_sin2=None):

@@ -17,12 +17,12 @@ from __future__ import annotations
 import torch
 
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, count_launch, on_card
-from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, split_k_warps
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, plain_weight, split_k_warps
 from flexq_tpu_torch.packing.pack6 import unpack6
 
 
 def w6_matmul_plain(x_q, x_scale, w_hi, w_lo, w_scale, out_dtype=torch.float32):
-    return grouped_matmul_plain(x_q, x_scale, unpack6(w_hi, w_lo), w_scale, out_dtype)
+    return grouped_matmul_plain(x_q, x_scale, plain_weight((w_hi, w_lo), unpack6), w_scale, out_dtype)
 
 
 def check_operands(x_q, x_scale, w_hi, w_lo, w_scale) -> None:

@@ -15,12 +15,12 @@ from __future__ import annotations
 import torch
 
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, check_tensor, count_launch, on_card
-from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch
+from flexq_tpu_torch.kernels.int_matmul import check_activations, grouped_matmul_plain, launch, plain_weight
 
 
 def w8_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype=torch.float32):
     """Plain PyTorch version of the kernel (bit-exact with it)."""
-    return grouped_matmul_plain(x_q, x_scale, w_q, w_scale, out_dtype)
+    return grouped_matmul_plain(x_q, x_scale, plain_weight((w_q,), lambda w: w), w_scale, out_dtype)
 
 
 def w8_matmul(

@@ -1,6 +1,6 @@
 """Single-device serving engine (port of flexq_tpu/serve/engine.py: Engine
-with prefill, chunked prefill, decode step and greedy generate, dense bf16
-or int8 KV cache).
+with prefill, chunked prefill, decode step, generate in every decoding mode
+the reference serves, dense bf16 or int8 KV cache).
 
 Prefill fills the cache and emits the first token's logits; decode then
 runs one forward per token over the same cache, updated in place. The cache
@@ -10,17 +10,22 @@ f32 scales [layers, B, kv_heads, max_len] (per token and head). Prompts of
 with ``prefill_chunk`` set, longer prompts prefill in chunks of that many
 tokens (each chunk attends over the cache written so far).
 
-Two decode loops, as in the reference, returning the same tokens:
-  * ``mode="fused"`` keeps the tokens, the stop test and the bookkeeping on
-    the device and reads the device only every ``FUSED_CHECK_EVERY`` steps
-    to stop early (the reference runs one on-device while_loop; a CUDA
-    graph of the step is later work);
+Three decode loops, as in the reference:
+  * ``mode="fused"`` keeps the tokens, logprobs, token counts, the stop test
+    and the bookkeeping on the device and reads the device only every
+    ``FUSED_CHECK_EVERY`` steps to stop early (the reference runs one
+    on-device while_loop; a CUDA graph of the step is later work);
   * ``mode="step"`` reads each token back to the host, as the reference's
-    stepwise loop does.
+    stepwise loop does. Both draw from one ``torch.Generator`` seeded with
+    ``seed`` in the same order, so they give the same tokens (greedy or
+    sampled); the draws are not ``jax.random``'s;
+  * ``mode="spec"``: speculative decoding with prompt-lookup drafts
+    (serve/speculative.py), whose fused loop is ``_spec_decode_loop`` here.
+Beam search over the Engine's cache is serve/beam.py.
 
 Not in this slice (NotImplementedError): meshes (tensor / pipeline
-parallel), speculative decoding, logprobs and non-default sampling.
-The model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses its layers.
+parallel). The model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses
+its layers.
 """
 
 from __future__ import annotations
@@ -33,19 +38,21 @@ import torch
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
-from flexq_tpu_torch.serve.sampling import (
-    SamplingParams,
-    process_logits,
-    require_greedy_default,
-    sample,
-)
+from flexq_tpu_torch.serve.sampling import SamplingParams, process_logits, sample
 from flexq_tpu_torch.utils.profiling import GenerationStats, StepTimer
 
 FUSED_CHECK_EVERY = 8  # fused loop: decode steps between host reads of `finished`
 
 
+def _uses_counts(sampling: SamplingParams) -> bool:
+    """Whether the penalties read token counts (process_logits ignores the
+    counts otherwise, so they need not be kept)."""
+    return sampling.repetition_penalty != 1.0 or sampling.presence_penalty != 0.0 or sampling.frequency_penalty != 0.0
+
+
 class Engine:
-    """Greedy generation over a quantized model on one device."""
+    """Greedy / sampled / speculative generation over a quantized model on
+    one device."""
 
     def __init__(
         self,
@@ -131,11 +138,137 @@ class Engine:
             start += c
         return logits, cache
 
+    def prefill_prompts(self, prompts: List[List[int]], cache):
+        """Prefill equal-length prompts (whole, or in ``prefill_chunk``
+        chunks): (last-token logits [B, V], cache)."""
+        l = len(prompts[0])
+        ids = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
+        if self.prefill_chunk and l > self.prefill_chunk:
+            return self.prefill_chunked(ids, cache, self.prefill_chunk)
+        return self._prefill(ids, cache, prompt_len=l)
+
+    def _spec_forward(self, ids, cache, start):
+        """The speculative verify forward: a [B, C] window at positions
+        start..start+C-1 (``start`` an int, or a per-row int tensor [B]),
+        written into the cache and attending causally over it through the
+        lengths ``start + C`` (the W*Ax layer; attention is flash_prefill
+        over C > 1 queries, flash_decode over one). Returns (logits
+        [B, C, V], cache)."""
+        b, c = ids.shape
+        if isinstance(start, torch.Tensor):
+            sv = start.to(device=self.device, dtype=torch.int64)
+        else:
+            sv = torch.full((b,), int(start), dtype=torch.int64, device=self.device)
+        positions = sv[:, None] + torch.arange(c, device=self.device)[None, :]
+        return self._fwd(ids, cache, positions, sv if isinstance(start, torch.Tensor) else int(start))
+
+    def _spec_verify(self, ids, cache, start):
+        """The greedy targets [B, C] (int32) of every window position."""
+        logits, kv = self._spec_forward(ids, cache, start)
+        return torch.argmax(logits, dim=-1).to(torch.int32), kv
+
     def _decode_step(self, ids, cache, pos: int):
         b = ids.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int64, device=self.device)
         logits, kv = self._fwd(ids, cache, positions, pos)
         return logits[:, 0], kv
+
+    # draftability gate of the fused spec loop (the reference's constants):
+    # a per-row acceptance EMA; when the worst live row's EMA drops below
+    # SPEC_GATE_OFF the loop verifies single tokens (plain-decode cost),
+    # re-probes with a full spec step every SPEC_GATE_PROBE steps and drafts
+    # again from SPEC_GATE_ON (hysteresis)
+    SPEC_GATE_PROBE = 32
+    SPEC_GATE_OFF = 0.2
+    SPEC_GATE_ON = 0.5
+    SPEC_GATE_W = 0.25  # EMA update weight
+    # steps between the fused spec loop's host reads of its flags; more than
+    # 1 only to measure the read's cost (chip_smoke.py, ungated): a stale
+    # flag keeps the last window width and runs finished rows in place
+    SPEC_FLAG_READ_EVERY = 1
+
+    def _spec_decode_loop(self, logits0, cache, buf, prompt_len: int, k: int, max_new: int, stop_ids,
+                          max_ngram: int, sampling: SamplingParams, generator=None, gate: bool = True):
+        """The fused speculative loop (the reference's ``_spec_loop_body``):
+        per step an n-gram draft on the device (ngram_draft_device), one
+        [B, 1+k] verify forward at each row's own start, the accept rule,
+        the stop test and the buffer writes, all on the device. ``buf`` is
+        the token history [B, LB] (prompts at [:, :prompt_len]); row r's
+        tokens land at buf[r, prompt_len:length[r]]. Finished rows re-verify
+        in place (m = 0) until every row finishes. The host reads one pair
+        of device flags a step, (draft next step, every row finished), to
+        choose the window's width, 1+k or 1, where the reference's
+        ``lax.cond`` chooses on the device. Sampled targets draw from
+        ``generator``. Returns (buf, length, steps, accepted, drafted)."""
+        from flexq_tpu_torch.serve.speculative import ngram_draft_device
+
+        dev = self.device
+        b = buf.shape[0]
+        rows = torch.arange(b, device=dev)
+        stop = torch.as_tensor(sorted(set(stop_ids)), dtype=torch.int64, device=dev)
+        j = torch.arange(k + 1, device=dev)[None, :]
+
+        def targets_from(logits_w):
+            c = logits_w.shape[1]
+            if sampling.greedy:
+                return torch.argmax(logits_w, dim=-1)
+            # rows = window positions (independent given the draft)
+            proc = process_logits(logits_w.reshape(b * c, -1), sampling)
+            return sample(proc, sampling, generator).to(torch.int64).reshape(b, c)
+
+        if sampling.greedy:
+            first = torch.argmax(logits0, dim=-1)
+        else:
+            first = sample(process_logits(logits0, sampling), sampling, generator).to(torch.int64)
+        buf[rows, prompt_len] = first
+        length = torch.full((b,), prompt_len + 1, dtype=torch.int64, device=dev)
+        finished = torch.isin(first, stop) | (max_new <= 1)
+        acc = torch.zeros((), dtype=torch.int64, device=dev)
+        drafted = torch.zeros((), dtype=torch.int64, device=dev)
+        ema = torch.ones(b, dtype=torch.float32, device=dev)  # optimistic: start drafting
+        spec_on = torch.ones((), dtype=torch.bool, device=dev)
+        steps = 0
+        spec_next, done = True, bool(finished.all())
+        while not done:
+            last = buf[rows, length - 1]
+            do_spec = spec_next or not gate or (steps + 1) % self.SPEC_GATE_PROBE == 0
+            if do_spec:
+                draft = ngram_draft_device(buf, length, k, max_ngram)  # [B, k]
+                logits_w, cache = self._spec_forward(torch.cat([last[:, None], draft], 1), cache, length - 1)
+                t = targets_from(logits_w)  # [B, 1+k]
+                n_acc = torch.cumprod((draft == t[:, :k]).to(torch.int64), dim=1).sum(dim=1)
+            else:
+                logits_1, cache = self._spec_forward(last[:, None], cache, length - 1)
+                # pad to the spec shape: slots >= lim are dead (overwritten
+                # by later writes, never emitted)
+                t = torch.cat([targets_from(logits_1), torch.zeros((b, k), dtype=torch.int64, device=dev)], 1)
+                n_acc = torch.zeros(b, dtype=torch.int64, device=dev)
+            live = ~finished
+            # drafted counts only rows still decoding
+            drafted += (k if do_spec else 0) * live.sum()
+            lim = n_acc + 1  # accepted drafts + the bonus token
+            is_stop = torch.isin(t, stop) & (j < lim[:, None])
+            stop_idx = torch.where(is_stop, j, k + 1).amin(dim=1)
+            m = torch.minimum(lim, stop_idx + 1)
+            m = torch.minimum(m, max_new - (length - prompt_len))
+            new_fin = (stop_idx < lim) | (length - prompt_len + m >= max_new)
+            acc += torch.where(finished, 0, n_acc).sum()
+            m = torch.where(finished, 0, m)  # finished rows hold position
+            if gate:
+                rate = n_acc.to(torch.float32) / float(max(k, 1))
+                upd = live if do_spec else torch.zeros_like(live)
+                ema = torch.where(upd, (1 - self.SPEC_GATE_W) * ema + self.SPEC_GATE_W * rate, ema)
+                worst = torch.where(finished | new_fin, torch.ones_like(ema), ema).amin()
+                spec_on = torch.where(spec_on, worst >= self.SPEC_GATE_OFF, worst >= self.SPEC_GATE_ON)
+            finished = finished | new_fin
+            # all k+1 targets per row: slots beyond m are overwritten by the
+            # next step's window (the same invariant as the KV writes)
+            buf[rows[:, None], length[:, None] + j] = t
+            length = length + m
+            steps += 1
+            if steps % self.SPEC_FLAG_READ_EVERY == 0:
+                spec_next, done = torch.stack([spec_on, finished.all()]).tolist()  # the one host read a step
+        return buf, length, steps, acc, drafted
 
     def generate(
         self,
@@ -149,17 +282,24 @@ class Engine:
         return_logprobs: bool = False,
         mode: str = "fused",
     ):
-        """Batched greedy generation of equal-length prompts. Returns the
-        generated ids per row (up to and including a stop token)
-        [, stats]. The parameters are the reference's, in its order;
-        ``seed`` seeds sampling, which greedy decoding does not read."""
-        if return_logprobs:
-            raise NotImplementedError("the Engine's logprobs are a later slice (the Engine's full surface)")
+        """Batched generation of equal-length prompts. Returns the generated
+        ids per row (up to and including a stop token) [, logprobs]
+        [, stats]: ``return_logprobs`` adds, per row, the log probability of
+        each generated token under the processed sampling distribution (the
+        log-softmax of process_logits' output at the drawn token), except in
+        ``mode="spec"``, which refuses it, as the reference does. The token
+        counts of the penalties start from the prompt's tokens; counts and
+        lengths advance for finished rows too, as in the reference. ``seed``
+        seeds the draws of non-greedy sampling."""
         if mode == "spec":
-            raise NotImplementedError("speculative decoding is a later slice")
+            if return_logprobs:
+                raise ValueError("logprobs are not served in spec mode (as in the reference)")
+            from flexq_tpu_torch.serve.speculative import generate_speculative
+
+            return generate_speculative(self, prompt_ids, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                                        stop_ids=stop_ids, return_stats=return_stats, sampling=sampling, seed=seed)
         if mode not in ("fused", "step"):
             raise ValueError(f"unknown mode {mode!r}")
-        require_greedy_default(sampling)
         prompts = [list(p) for p in prompt_ids]
         lens = {len(p) for p in prompts}
         if len(lens) != 1:
@@ -171,51 +311,100 @@ class Engine:
 
         stats = GenerationStats(prompt_tokens=b * l)
         timer = StepTimer(self.device)
-        ids = torch.as_tensor(np.asarray(prompts, np.int64), device=self.device)
-        cache = self.new_cache(b)
-        if self.prefill_chunk and l > self.prefill_chunk:
-            logits, cache = self.prefill_chunked(ids, cache, self.prefill_chunk)
-        else:
-            logits, cache = self._prefill(ids, cache, prompt_len=l)
-        stop = torch.as_tensor(sorted(set(stop_ids) | {eos_id}), dtype=torch.int32, device=self.device)
+        logits, cache = self.prefill_prompts(prompts, self.new_cache(b))
+        dec = _Decoding(self, prompts, sampling, eos_id, stop_ids, seed, return_logprobs)
         if mode == "fused":
-            out = self._fused_loop(logits, cache, l, stop, sampling, max_new_tokens, stats, timer)
+            out, lps = dec.fused(logits, cache, l, max_new_tokens, stats, timer)
         else:
-            out = self._step_loop(logits, cache, l, stop, sampling, max_new_tokens, stats, timer)
-        return (out, stats) if return_stats else out
+            out, lps = dec.stepwise(logits, cache, l, max_new_tokens, stats, timer)
+        ret = [out]
+        if return_logprobs:
+            ret.append(lps)
+        if return_stats:
+            ret.append(stats)
+        return ret[0] if len(ret) == 1 else tuple(ret)
 
-    def _fused_loop(self, logits, cache, pos, stop, sampling, max_new, stats, timer):
-        """The reference's _loop_body on the device: tokens hold -1 after a
-        row finished; the host reads `finished` every FUSED_CHECK_EVERY steps."""
-        stats.ttft_s = timer.lap()  # prefill; the first token is sampled in the loop
-        b = logits.shape[0]
-        tokens = torch.full((b, max_new), -1, dtype=torch.int32, device=self.device)
-        finished = torch.zeros(b, dtype=torch.bool, device=self.device)
+
+class _Decoding:
+    """One generate's sampling state (the reference's loop carry): the
+    generator, the token counts [B, V] (prompt tokens counted; kept only
+    when a penalty reads them), the generated length and the stop set."""
+
+    def __init__(self, eng: Engine, prompts, sampling: SamplingParams, eos_id: int, stop_ids, seed: int,
+                 logprobs: bool):
+        dev = eng.device
+        self.eng, self.sampling, self.eos_id, self.logprobs = eng, sampling, eos_id, logprobs
+        self.b = len(prompts)
+        self.rows = torch.arange(self.b, device=dev)
+        self.stop = torch.as_tensor(sorted(set(stop_ids) | {eos_id}), dtype=torch.int64, device=dev)
+        self.gen = None if sampling.greedy else torch.Generator(device=dev).manual_seed(seed)
+        self.counts = None
+        if _uses_counts(sampling):
+            c = np.zeros((self.b, eng.cfg.vocab_size), np.int32)
+            for r, p in enumerate(prompts):
+                np.add.at(c[r], np.asarray(p, np.int64), 1)
+            self.counts = torch.from_numpy(c).to(dev)
+        self.gen_len = 0
+
+    def draw(self, logits):
+        """(next ids int64 [B], logprobs f32 [B] or None) from the step's
+        logits, then the counts and the length advance for every row."""
+        s = self.sampling
+        cur = None
+        if s.min_length > 0:
+            cur = torch.full((self.b,), self.gen_len, dtype=torch.int64, device=logits.device)
+        proc = process_logits(logits, s, token_counts=self.counts, cur_length=cur, eos_id=self.eos_id)
+        nxt = sample(proc, s, self.gen).to(torch.int64)
+        lp = torch.log_softmax(proc, dim=-1)[self.rows, nxt] if self.logprobs else None
+        if self.counts is not None:
+            self.counts[self.rows, nxt] += 1
+        self.gen_len += 1
+        return nxt, lp
+
+    def fused(self, logits, cache, pos, max_new, stats, timer):
+        """The reference's _loop_body on the device: tokens hold -1 (and
+        logprobs 0) after a row finished; the host reads `finished` every
+        FUSED_CHECK_EVERY steps."""
+        stats.ttft_s = timer.lap()  # prefill; the first token is drawn in the loop
+        dev, b = self.eng.device, self.b
+        tokens = torch.full((b, max_new), -1, dtype=torch.int64, device=dev)
+        lps = torch.zeros((b, max_new), dtype=torch.float32, device=dev) if self.logprobs else None
+        finished = torch.zeros(b, dtype=torch.bool, device=dev)
         for i in range(max_new):
-            nxt = sample(process_logits(logits, sampling), sampling)
+            nxt, lp = self.draw(logits)
             record = ~finished
-            tokens[:, i] = torch.where(record, nxt, torch.full_like(nxt, -1))
-            finished = finished | (record & torch.isin(nxt, stop))
+            tokens[:, i] = torch.where(record, nxt, -1)
+            if lps is not None:
+                lps[:, i] = torch.where(record, lp, 0.0)
+            finished = finished | (record & torch.isin(nxt, self.stop))
             if i + 1 == max_new:
                 break  # the reference's last step forward feeds nothing
             if (i + 1) % FUSED_CHECK_EVERY == 0 and bool(finished.all()):
                 break
-            logits, cache = self._decode_step(nxt[:, None], cache, pos)
+            logits, cache = self.eng._decode_step(nxt[:, None], cache, pos)
             pos += 1
         tok = tokens.cpu().numpy()
         stats.decode_s = timer.lap()
         out = [[int(t) for t in row if t >= 0] for row in tok]
         stats.generated_tokens = sum(len(r) for r in out)
-        return out
+        lp_rows = None
+        if lps is not None:
+            lp_np = lps.cpu().numpy()
+            lp_rows = [[float(x) for x in lp_np[r, : len(out[r])]] for r in range(b)]
+        return out, lp_rows
 
-    def _step_loop(self, logits, cache, pos, stop, sampling, max_new, stats, timer):
-        b = logits.shape[0]
-        stop_set = set(stop.tolist())
+    def stepwise(self, logits, cache, pos, max_new, stats, timer):
+        b = self.b
+        stop_set = set(self.stop.tolist())
         out: List[List[int]] = [[] for _ in range(b)]
+        out_lps: List[List[float]] = [[] for _ in range(b)]
         finished = np.zeros(b, bool)
         for step in range(max_new):
-            next_ids = sample(process_logits(logits, sampling), sampling)
-            ids_np = next_ids.cpu().numpy()
+            next_ids, lp = self.draw(logits)
+            if lp is not None:
+                ids_np, lp_np = torch.stack([next_ids.to(torch.float64), lp.to(torch.float64)]).tolist()
+            else:
+                ids_np = next_ids.tolist()
             if step == 0:
                 stats.ttft_s = timer.lap()
             else:
@@ -224,11 +413,13 @@ class Engine:
             for row in range(b):
                 if not finished[row]:
                     out[row].append(int(ids_np[row]))
+                    if lp is not None:
+                        out_lps[row].append(float(lp_np[row]))
                     if int(ids_np[row]) in stop_set:
                         finished[row] = True
             if finished.all() or step == max_new - 1:
                 break
-            logits, cache = self._decode_step(next_ids[:, None], cache, pos)
+            logits, cache = self.eng._decode_step(next_ids[:, None], cache, pos)
             pos += 1
         stats.decode_s = sum(stats.step_times_s) or stats.ttft_s
-        return out
+        return out, (out_lps if self.logprobs else None)

@@ -12,20 +12,19 @@ API:
                              failed ticks, pages free (paged) and prefix hits
   GET  /v1/models         -> OpenAI-style model listing
   POST /generate          body: {"prompt_ids": [int...], "max_new_tokens",
-                                 sampling overrides, "eos_id", "logprobs"}
+                                 sampling overrides, "eos_id", "logprobs",
+                                 "beam_width", "n_best", "length_penalty"}
                           -> {"request_id", "tokens"[, "logprobs",
-                              "cum_logprob"]}
+                              "cum_logprob"][, "nbest"]}
   POST /v1/completions    OpenAI-compatible: prompt = str | [int] | a list of
                           those; n, max_tokens, temperature (0 = greedy),
                           top_p, stop, logprobs, echo, stream (SSE chunks of
                           text deltas and their token_ids, holding back an
-                          incomplete UTF-8 tail and a possible stop prefix)
+                          incomplete UTF-8 tail and a possible stop prefix);
+                          best_of > n or use_beam_search: n choices of a
+                          best_of-beam search (each with its beam_score)
   POST /v1/chat/completions  messages=[{role, content}...] through the
                           tokenizer's chat template; stream supported
-
-Beam search (``best_of > n``, ``use_beam_search``, ``beam_width > 1``) is
-not served by the port yet: the scheduler refuses it at submit and the
-request gets a 400 that says so.
 
 Admission control (--max-pending / --queue-timeout): a full pending queue
 answers 429 with Retry-After; a request shed after waiting past the queue
@@ -108,8 +107,8 @@ class SchedulerService:
                     if had_work:
                         finished = self.scheduler.step()
                         self._steps += 1
-                        lps = getattr(self.scheduler, "done_logprobs", {})
-                        nbs = getattr(self.scheduler, "done_nbest", {})
+                        lps = self.scheduler.done_logprobs
+                        nbs = self.scheduler.done_nbest
                         for rid, toks in finished.items():
                             self._results[rid] = (
                                 toks, lps.pop(rid, None), nbs.pop(rid, None)
@@ -133,7 +132,7 @@ class SchedulerService:
                 fail_streak += 1
                 self.failed_ticks += 1
                 with self._lock:
-                    shed = getattr(self.scheduler, "shed_beam", lambda: False)()
+                    shed = self.scheduler.shed_beam()
                 replicated = hasattr(self.scheduler, "_pending_cmds")
                 if not shed and fail_streak >= 5 and not replicated:
                     # persistent failure: surface partial results so
@@ -150,14 +149,14 @@ class SchedulerService:
                                 ev.set()
 
                         # completed inside the failing tick but not returned
-                        done = getattr(self.scheduler, "done", {})
+                        done = self.scheduler.done
                         for rid, toks in list(done.items()):
                             surface(rid, list(toks))
                         done.clear()
-                        groups = getattr(self.scheduler, "beam_groups", {})
+                        groups = self.scheduler.beam_groups
                         for g in list(groups.values()):
                             surface(g.req_id, list(g.histories[0]))
-                            if getattr(self.scheduler, "paged", False):
+                            if self.scheduler.paged:
                                 # lanes share pages: free the unique set
                                 # once (per-slot release would double-free)
                                 try:
@@ -184,7 +183,7 @@ class SchedulerService:
                             surface(pnd.req_id, list(pnd.prior))
                         self.scheduler.pending.clear()
                         for i in range(len(self.scheduler.slots)):
-                            if getattr(self.scheduler, "paged", False):
+                            if self.scheduler.paged:
                                 try:
                                     self.scheduler._release_slot_pages(i)
                                 except Exception:
@@ -773,10 +772,7 @@ def _make_handler(service: SchedulerService, tokenizer=None,
                     self._send_429(e)
                 except QueueTimeout as e:
                     self._send_503(e)
-                except (KeyError, ValueError, TypeError, AssertionError,
-                        NotImplementedError) as e:
-                    # NotImplementedError: a request the port does not serve
-                    # yet (beam search), refused at submit
+                except (KeyError, ValueError, TypeError, AssertionError) as e:
                     self._send(400, {"error": {"message": str(e),
                                                "type": "invalid_request_error"}})
                 except TimeoutError as e:
@@ -791,10 +787,7 @@ def _make_handler(service: SchedulerService, tokenizer=None,
                     self._send_429(e)
                 except QueueTimeout as e:
                     self._send_503(e)
-                except (KeyError, ValueError, TypeError, AssertionError,
-                        NotImplementedError) as e:
-                    # NotImplementedError: a request the port does not serve
-                    # yet (beam search), refused at submit
+                except (KeyError, ValueError, TypeError, AssertionError) as e:
                     self._send(400, {"error": {"message": str(e),
                                                "type": "invalid_request_error"}})
                 except TimeoutError as e:
@@ -858,8 +851,7 @@ def _make_handler(service: SchedulerService, tokenizer=None,
                 self._send_429(e)
             except QueueTimeout as e:
                 self._send_503(e)
-            except (KeyError, ValueError, TypeError, AssertionError,
-                    NotImplementedError) as e:
+            except (KeyError, ValueError, TypeError, AssertionError) as e:
                 self._send(400, {"error": str(e)})
             except TimeoutError as e:
                 self._send(504, {"error": str(e)})

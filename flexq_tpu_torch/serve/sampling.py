@@ -9,10 +9,8 @@ float knobs as one f32[6] tensor (``dynamic_params``) so that one batched
 call serves rows of any temperature, and only ``structural_key`` shapes the
 computation. ``sample`` draws from a ``torch.Generator`` where the reference
 splits a JAX key: the two give different draws from the same seed, and the
-greedy argmax is the same.
-
-The serving ``Engine`` serves greedy decoding at the default parameters
-only (``require_greedy_default``); the ``BatchScheduler`` serves all of it.
+greedy argmax is the same. The ``Engine`` (with its speculative mode) and
+the ``BatchScheduler`` both serve all of it.
 """
 
 from __future__ import annotations
@@ -37,17 +35,6 @@ class SamplingParams:
     frequency_penalty: float = 0.0
     min_length: int = 0
     greedy: bool = True
-
-
-def require_greedy_default(params: SamplingParams) -> None:
-    """Raise unless ``params`` are the defaults (the Engine's guard: its
-    sampling and logprobs are a later slice)."""
-    if params != SamplingParams():
-        raise NotImplementedError(
-            "Engine.generate serves greedy decoding at default SamplingParams; temperature, "
-            "top-k/top-p, penalties, min_length and stochastic sampling are served by "
-            "BatchScheduler (the Engine's are a later slice)"
-        )
 
 
 def apply_temperature(logits: torch.Tensor, temperature: float) -> torch.Tensor:

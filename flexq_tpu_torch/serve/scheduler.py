@@ -15,13 +15,17 @@ or int8 (``kv_dtype``); chunked admission (``prefill_chunk``: one chunk per
 tick, so decoding slots keep emitting while a long prompt is admitted);
 recompute preemption when the pool runs dry (the youngest request re-queues
 with prompt + generated and later re-prefills); prefix-page reuse
-(``prefix_cache``); per-request SamplingParams and logprobs. A prefill of 64
+(``prefix_cache``); per-request SamplingParams and logprobs; beam search
+(``beam_width > 1``: a group of beam_width slots decoding inside the same
+batched tick as the other requests, its KV rows reordered by parent over the
+dense cache, or its page tables over the pool, where beams share pages and
+copy only the block being written when they diverge). A prefill of 64
 tokens or more takes the W6A16 layer, the reference's rule here (not the
 Engine's threshold).
 
-Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``),
+Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``) and
 fused multi-step ticks (``fused_tick > 0``; a CUDA graph of the step
-belongs with them) and beam search (``beam_width > 1``).
+belongs with them).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.serve.beam import NEG as BEAM_NEG, reorder_rows, topk_lower_first
 from flexq_tpu_torch.serve.paged import PagePool, PageTable, PrefixRegistry
 from flexq_tpu_torch.serve.sampling import (
     SamplingParams,
@@ -75,6 +80,8 @@ class _Slot:
     shared_pages: List[int] = dataclasses.field(default_factory=list)
     prefix_len: int = 0
     page_hashes: List[int] = dataclasses.field(default_factory=list)
+    # one lane of a beam group (the group, keyed by req_id, samples for it)
+    beam: bool = False
 
 
 @dataclasses.dataclass
@@ -87,6 +94,33 @@ class _Pending:
     prior: List[int] = dataclasses.field(default_factory=list)
     want_logprobs: bool = False
     prior_lps: List[float] = dataclasses.field(default_factory=list)
+    # beam search (beam_width > 1): the request takes beam_width slots
+    beam_width: int = 1
+    n_best: int = 1
+    length_penalty: float = 1.0
+
+
+@dataclasses.dataclass
+class _BeamGroup:
+    """Host state of one beam-search request in flight: cumulative scores,
+    finished flags and histories of its k beams, which live in k slots and
+    decode in the same batched tick as the other requests; after each tick
+    the group reorders its slots' cache rows (or page tables) by parent."""
+
+    req_id: int
+    slots: List[int]
+    k: int
+    n_best: int
+    eos_id: int
+    max_new: int
+    length_penalty: float
+    scores: np.ndarray  # [k] f32 cumulative log-probs
+    finished: np.ndarray  # [k] bool
+    histories: List[List[int]]  # [k] token lists (pads after a finish)
+    # per-beam per-token logprobs, threaded through parents like the
+    # histories; a frozen beam's pad continuation adds 0.0
+    want_logprobs: bool = False
+    lps: List[List[float]] = dataclasses.field(default_factory=list)
 
 
 class BatchScheduler:
@@ -169,6 +203,10 @@ class BatchScheduler:
         self.pending: Deque[_Pending] = deque()
         self.done: Dict[int, List[int]] = {}
         self.done_logprobs: Dict[int, List[float]] = {}
+        # beam search: req_id -> group in flight; done_nbest: req_id -> the
+        # ranked [(tokens, length-penalized score, logprobs or None)]
+        self.beam_groups: Dict[int, _BeamGroup] = {}
+        self.done_nbest: Dict[int, List[Tuple[List[int], float, Optional[List[float]]]]] = {}
         self.last_tokens = torch.zeros((num_slots, 1), dtype=torch.int64, device=dev)
         self._req_counter = itertools.count()
         self.generator = torch.Generator(device=dev).manual_seed(seed)
@@ -264,7 +302,9 @@ class BatchScheduler:
         (recompute preemption): its pages free now; on re-admission it
         prefills prompt + generated, and ``prior`` is prepended to its
         output."""
-        cands = [i for i, s in enumerate(self.slots) if i != exclude and s.req_id is not None]
+        # beam lanes are never preempted: re-prefilling one lane cannot
+        # rebuild the group's diverged KV
+        cands = [i for i, s in enumerate(self.slots) if i != exclude and s.req_id is not None and not s.beam]
         if not cands:
             return False
         i = max(cands, key=lambda j: self.slots[j].req_id)
@@ -318,16 +358,26 @@ class BatchScheduler:
         length_penalty: float = 1.0,
     ) -> int:
         """Queue a request; returns its id. The parameters are the
-        reference's; ``n_best`` and ``length_penalty`` act only on a beam
-        request (``beam_width > 1``), which the port does not serve yet."""
-        if beam_width > 1:
-            raise NotImplementedError("beam search (beam_width > 1) is not served by the port yet")
+        reference's. ``beam_width > 1`` runs the request as beam search over
+        beam_width slots (its sampling parameters are not read): the best
+        hypothesis is its result, and the ranked ``n_best`` land in
+        ``done_nbest`` as (tokens, score, logprobs or None)."""
         if len(prompt) + max_new_tokens > self.max_seq_len:
             raise ValueError(f"prompt {len(prompt)} + {max_new_tokens} new tokens exceed max_seq_len {self.max_seq_len}")
+        if beam_width > self.num_slots:
+            raise ValueError(f"beam_width {beam_width} exceeds the {self.num_slots} slots")
+        if beam_width > 1 and self.paged:
+            need = self._beam_need(len(prompt), max_new_tokens, beam_width)
+            if need > self.pool.num_pages - 1:  # page 0 is the garbage page
+                # the admission budget could never be met: refuse rather than
+                # wait for pages that cannot come
+                raise ValueError(f"a {beam_width}-beam request needs up to {need} pages; the pool has "
+                                 f"{self.pool.num_pages - 1}")
         req_id = next(self._req_counter)
         self.t_arrival[req_id] = time.perf_counter()
         self.pending.append(_Pending(req_id, list(prompt), sampling, max_new_tokens, eos_id,
-                                     want_logprobs=logprobs))
+                                     want_logprobs=logprobs, beam_width=beam_width, n_best=n_best,
+                                     length_penalty=length_penalty))
         return req_id
 
     @property
@@ -336,21 +386,38 @@ class BatchScheduler:
 
     def cancel(self, req_id: int) -> Optional[List[int]]:
         """Best-effort early stop: a pending request is dropped and its prior
-        tokens returned; an in-flight one has its budget clamped so it
-        finishes on its next token (returns None)."""
+        tokens returned; an in-flight one (or beam group) has its budget
+        clamped so it finishes on its next token (returns None)."""
         for p in list(self.pending):
             if p.req_id == req_id:
                 self.pending.remove(p)
                 return list(p.prior)
+        g = self.beam_groups.get(req_id)
+        if g is not None:
+            g.max_new = max(1, len(g.histories[0]))
+            return None
         for s in self.slots:
             if s.req_id == req_id:
                 s.max_new = max(1, len(s.prior) + len(s.generated))
         return None
 
     def _admit(self) -> None:
+        # a beam request at the head of the queue takes beam_width slots at
+        # once; FIFO holds: while too few slots are free, the requests
+        # behind it wait too
+        while self.pending and self.pending[0].beam_width > 1:
+            req = self.pending[0]
+            free = [i for i, s in enumerate(self.slots) if s.req_id is None]
+            if len(free) < req.beam_width:
+                return
+            if self.paged and self._beam_pages_short(req):
+                return
+            self._admit_beam(self.pending.popleft(), free)
         for i, slot in enumerate(self.slots):
             if slot.req_id is not None or not self.pending:
                 continue
+            if self.pending[0].beam_width > 1:
+                break  # FIFO: a beam request is next; it admits next tick
             req = self.pending.popleft()
             if self.max_prefilling is not None and self.prefill_chunk and len(req.prompt) > self.prefill_chunk:
                 n_pref = sum(1 for s in self.slots if s.req_id is not None and s.phase == "prefill")
@@ -399,6 +466,212 @@ class BatchScheduler:
             self._insert_scratch(i, kv1, plen, slot=slot)
             slot.pos = plen
             self._record(i, slot, self._sample_one(logits[0], slot))
+
+    # ---- beam search -----------------------------------------------------
+    BEAM_PAD = 0  # a frozen beam's continuation token (serve/beam.py's pad_id)
+
+    def _beam_need(self, plen: int, max_new: int, k: int) -> int:
+        """A paged beam group's worst case: the shared prompt pages and each
+        beam's private generation span (a straddled partial block
+        included)."""
+        ps = self.pool.page_size
+        return self.pool.pages_for(plen) + k * ((plen + max_new - 1) // ps - plen // ps + 1)
+
+    def _beam_pages_short(self, req: _Pending) -> bool:
+        """The paged beam admission's budget: the request's worst case plus
+        the pages every group in flight may still take (beams are never
+        preempted, so admitting without reserving them can deadlock the
+        pool)."""
+        ps = self.pool.page_size
+        need = self._beam_need(len(req.prompt), req.max_new, req.beam_width)
+        for g in self.beam_groups.values():
+            for i in g.slots:
+                s = self.slots[i]
+                need += max(0, -(-(len(s.prompt) + s.max_new) // ps) - int(self.ptable.num_blocks[i]))
+        avail = self.pool.free_pages + (self.registry.reclaimable if self.registry is not None else 0)
+        return avail < need
+
+    def _admit_beam(self, req: _Pending, free: List[int]) -> None:
+        """Prefill once, seed beam_width slots with the prompt's KV and
+        expand the first top-k tokens. Paged, the prompt pages are written
+        once and mapped into every beam's table (kept out of the prefix
+        registry: beams' contents leave the prompt's hash chain); the block
+        the first decode write lands in is made private to each beam first."""
+        k = req.beam_width
+        idx = free[:k]
+        plen = len(req.prompt)
+        logits, kv1 = self._prefill_one(req.prompt)
+        if self.paged:
+            while True:
+                try:
+                    pages = self._alloc(self.pool.pages_for(plen))
+                    break
+                except MemoryError:
+                    if not self._preempt():
+                        raise
+            self.pool.insert_prefill(pages, kv1[0], kv1[1], plen, *kv1[2:])
+            for i in idx:
+                self.ptable.assign(i, pages)
+        for i in idx:
+            if not self.paged:
+                self._insert_scratch(i, kv1, plen)
+            self.slots[i] = _Slot(req_id=req.req_id, beam=True, pos=plen, prompt=req.prompt, max_new=req.max_new,
+                                  eos_id=req.eos_id)
+        scores, first = topk_lower_first(torch.log_softmax(logits[0].to(torch.float32), dim=-1), k)
+        self.last_tokens[torch.as_tensor(idx, device=self.device), 0] = first
+        first_l, scores_l = torch.stack([first.to(torch.float64), scores.to(torch.float64)]).tolist()
+        first_np = np.asarray(first_l, np.int64)
+        scores_np = np.asarray(scores_l, np.float32)
+        g = _BeamGroup(req_id=req.req_id, slots=idx, k=k, n_best=req.n_best, eos_id=req.eos_id,
+                       max_new=req.max_new, length_penalty=req.length_penalty, scores=scores_np,
+                       finished=first_np == req.eos_id, histories=[[int(t)] for t in first_np],
+                       want_logprobs=req.want_logprobs, lps=[[float(x)] for x in scores_np])
+        self.beam_groups[req.req_id] = g
+        self.t_first.setdefault(req.req_id, time.perf_counter())
+        if self.paged:
+            self._privatize_beam_blocks(g, plen)  # the first decode write lands at plen
+        self._maybe_finish_beam(g)
+
+    def _beam_advance(self, g: _BeamGroup, logits: torch.Tensor) -> None:
+        """One beam step off the tick's logits (serve/beam.py's _beam_step):
+        top-k over k*V with frozen beams' pad continuations, one host read
+        of the winners, histories re-threaded through their parents, and the
+        cache rows (dense) or page tables (paged) reordered by parent."""
+        rows = torch.as_tensor(g.slots, device=self.device)
+        logp = torch.log_softmax(logits[rows].to(torch.float32), dim=-1)
+        v = logp.shape[-1]
+        frozen = torch.full((v,), BEAM_NEG, dtype=torch.float32, device=self.device)
+        frozen[self.BEAM_PAD] = 0.0
+        fin = torch.as_tensor(g.finished, device=self.device)
+        logp = torch.where(fin[:, None], frozen, logp)
+        total = torch.as_tensor(g.scores, device=self.device)[:, None] + logp
+        top_scores, top_idx = topk_lower_first(total.reshape(-1), g.k)
+        idx_l, sc_l = torch.stack([top_idx.to(torch.float64), top_scores.to(torch.float64)]).tolist()  # one host read
+        parent = [int(t) // v for t in idx_l]
+        token = [int(t) % v for t in idx_l]
+        new_scores = np.asarray(sc_l, np.float32)
+        g.histories = [g.histories[p] + [t] for p, t in zip(parent, token)]
+        # a token's logprob is the score's step from its parent (0.0 for a pad)
+        g.lps = [g.lps[p] + [float(new_scores[j]) - float(g.scores[p])] for j, p in enumerate(parent)]
+        g.finished = np.asarray([bool(g.finished[p]) or t == g.eos_id for p, t in zip(parent, token)])
+        g.scores = new_scores
+        if self.paged:
+            self._reorder_beam_paged(g, parent)
+        else:
+            # the tick wrote position pos: positions [0, pos] are the rows' KV
+            reorder_rows(self.kv, [g.slots[p] for p in parent], g.slots, self.slots[g.slots[0]].pos + 1)
+        self.last_tokens[rows, 0] = torch.as_tensor(token, device=self.device)
+        for i in g.slots:
+            self.slots[i].pos += 1
+        if self.paged:
+            self._privatize_beam_blocks(g, self.slots[g.slots[0]].pos)  # the next write's position
+        self._maybe_finish_beam(g)
+
+    def _beam_page_rc(self, g: _BeamGroup) -> Dict[int, int]:
+        """How many of the group's slots map each page (page 0, the garbage
+        page, left out); the page tables are the authority."""
+        rc: Dict[int, int] = {}
+        for i in g.slots:
+            for p in self.ptable.table[i, : self.ptable.num_blocks[i]]:
+                if p:
+                    rc[int(p)] = rc.get(int(p), 0) + 1
+        return rc
+
+    def _reorder_beam_paged(self, g: _BeamGroup, parent: List[int]) -> None:
+        """Beam j adopts its parent's page table, sharing the parent's pages
+        (no KV is copied here; `_privatize_beam_blocks` handles divergence).
+        Pages no beam maps any more go back to the pool."""
+        if parent == list(range(g.k)):
+            return
+        before = self._beam_page_rc(g)
+        olds = {i: (self.ptable.table[i].copy(), int(self.ptable.num_blocks[i])) for i in g.slots}
+        for j, p in enumerate(parent):
+            src, dst = g.slots[p], g.slots[j]
+            self.ptable.table[dst] = olds[src][0]
+            self.ptable.num_blocks[dst] = olds[src][1]
+        after = self._beam_page_rc(g)
+        self.pool.free([p for p in before if p not in after])
+
+    def _privatize_beam_blocks(self, g: _BeamGroup, next_pos: int) -> None:
+        """Copy-on-divergence: make the block the next decode write (at
+        ``next_pos``) lands in private to every beam that shares it, one
+        page copied across all layers (K, V and an int8 pool's scales). At
+        a block boundary nothing is needed: the tick's allocator appends a
+        fresh page per beam. With no page left for a copy the group
+        finishes now with its hypotheses so far: another step would have
+        diverged beams write one shared page."""
+        if all(g.finished) or len(g.histories[0]) >= g.max_new:
+            return  # the group completes before another write
+        blk = next_pos // self.pool.page_size
+        rc = self._beam_page_rc(g)
+        src, dst = [], []
+        aborted = False
+        try:
+            for i in g.slots:
+                if blk >= int(self.ptable.num_blocks[i]):
+                    continue  # a boundary: the allocator appends a private page
+                p = int(self.ptable.table[i, blk])
+                if p == 0 or rc.get(p, 0) <= 1:
+                    continue
+                while True:
+                    try:
+                        newp = self._alloc(1)[0]
+                        break
+                    except MemoryError:
+                        if not self._preempt():
+                            aborted = True
+                            break
+                if aborted:
+                    break
+                rc[p] -= 1
+                rc[newp] = 1
+                self.ptable.table[i, blk] = newp
+                src.append(p)
+                dst.append(newp)
+        finally:
+            # copy also when aborting: the tables already map the new pages
+            self.pool.copy_pages(src, dst)
+        if aborted:
+            g.max_new = max(1, len(g.histories[0]))
+            self._maybe_finish_beam(g)
+
+    def shed_beam(self) -> bool:
+        """Finish the youngest beam group now with its hypotheses so far
+        (the pool-exhaustion escape when no preemptible slot is left);
+        False when no group is in flight."""
+        if not self.beam_groups:
+            return False
+        g = max(self.beam_groups.values(), key=lambda x: x.req_id)
+        g.max_new = max(1, len(g.histories[0]))
+        self._maybe_finish_beam(g)
+        return True
+
+    def _maybe_finish_beam(self, g: _BeamGroup) -> None:
+        """Complete the group when every beam finished or the budget is
+        spent: hypotheses cut after eos, ranked by the GNMT length-penalized
+        score; its slots and pages (each once) are released."""
+        if not (all(g.finished) or len(g.histories[0]) >= g.max_new):
+            return
+        hyps = []
+        for j in range(g.k):
+            toks = list(g.histories[j])
+            if g.eos_id in toks:
+                toks = toks[: toks.index(g.eos_id) + 1]
+            norm = ((5.0 + max(len(toks), 1)) / 6.0) ** g.length_penalty
+            hyps.append((toks, float(g.scores[j]) / norm, g.lps[j][: len(toks)] if g.want_logprobs else None))
+        hyps.sort(key=lambda h: -h[1])
+        self.done[g.req_id] = hyps[0][0]
+        self.done_nbest[g.req_id] = hyps[: max(g.n_best, 1)]
+        if g.want_logprobs:
+            self.done_logprobs[g.req_id] = hyps[0][2]
+        if self.paged:
+            freed = set(self._beam_page_rc(g))
+            for i in g.slots:
+                self.ptable.release(i)
+            self.pool.free(freed)
+        for i in g.slots:
+            self.slots[i] = _Slot()
+        del self.beam_groups[g.req_id]
 
     # ---- sampling --------------------------------------------------------
     def _counts(self, slots: List[_Slot]) -> torch.Tensor:
@@ -527,17 +800,22 @@ class BatchScheduler:
                                              self.ptable.to_device(self.device))
             else:
                 logits = self._step_fn(self.last_tokens, self.kv, positions)
-            results = self._sample_batch(active, logits)
-            for i, (tok, lp) in zip(active, results):
+            # beam groups take their slots' rows jointly (top-k over k*V and
+            # the reorder); the other slots sample in one batch per group
+            for g in list(self.beam_groups.values()):
+                self._beam_advance(g, logits)
+            plain = [i for i in active if not self.slots[i].beam and self.slots[i].req_id is not None]
+            results = self._sample_batch(plain, logits)
+            for i, (tok, lp) in zip(plain, results):
                 slot = self.slots[i]
                 slot.pos += 1
                 if lp is not None:
                     slot.lps.append(lp)
                 slot.generated.append(tok)
                 self._finish_check(i, slot, tok)
-            # one batched last_tokens update
-            self.last_tokens[torch.as_tensor(active, device=self.device), 0] = torch.as_tensor(
-                [tok for tok, _ in results], device=self.device)
+            if plain:  # one batched last_tokens update
+                self.last_tokens[torch.as_tensor(plain, device=self.device), 0] = torch.as_tensor(
+                    [tok for tok, _ in results], device=self.device)
             self.tick_s.append(time.perf_counter() - t0)
         finished, self.done = self.done, {}
         return finished

@@ -832,3 +832,76 @@ def test_row_statistic_has_the_plain_versions_bits(gen, m, k):
         got = layernorm_quant(x, g, b, bits=8, residual=res)
         want = layernorm_quant_plain(cpu[0], cpu[2], cpu[3], bits=8, residual=None if res is None else cpu[1])
         assert all(torch.equal(a.cpu(), w) for a, w in zip(got, want))
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_verify_window_at_per_row_starts_matches_cpu(gen, tmp_path):
+    """The speculative verify forward on the card: a [B, 1+k] window at each
+    row's own start (K9's short-prompt kernel, the exact GEMM's tensor-core
+    route at M = B(1+k)) against the same window on the CPU's plain
+    versions, after the same prefill: logits within 2e-2 of max |logit|
+    (phase 3's W6Ax bound), and the cache rows it wrote likewise."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.quantized import quantize_params
+    from flexq_tpu_torch.serve.engine import Engine
+
+    cfg, dense = tiny_hf_dir(gen, str(tmp_path))
+    policy = QuantPolicy.llama_flex()
+    tree = quantize_params(dense, cfg, policy)
+    prompts = torch.randint(0, cfg.vocab_size, (4, 16), generator=gen, device="cuda").tolist()
+    window = torch.randint(0, cfg.vocab_size, (4, 5), generator=gen, device="cuda")
+    starts = torch.tensor([16, 12, 14, 9])
+    out = []
+    for dev in ("cuda", "cpu"):
+        eng = Engine(_to(tree, dev), cfg, policy, max_seq_len=128, device=dev)
+        _, cache = eng.prefill_prompts(prompts, eng.new_cache(4))
+        reset_launch_counts()
+        logits, cache = eng._spec_forward(window.to(dev), cache, starts.to(dev))
+        out.append((logits.float().cpu(), cache[0].float().cpu(), launch_counts(), dict(w6_matmul.launches_by_m)))
+    (got, kc, counts, by_m), (want, kc_cpu, _, _) = out
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+    rows = torch.arange(4)[:, None], starts[:, None] + torch.arange(5)
+    k_got, k_want = kc[:, rows[0], :, rows[1]], kc_cpu[:, rows[0], :, rows[1]]
+    assert (k_got - k_want).abs().max().item() <= 2e-2 * k_want.abs().max().item()
+    assert counts["flash_prefill"] == cfg.num_layers and by_m.get(20, 0) > 0
+    assert w6ax_route(20, cfg.hidden_size, cfg.hidden_size) == W6AX_MMA
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_beam_reorder_on_the_card_equals_cpu(gen, quant):
+    """The dense beam reorder (serve/beam.py::reorder_rows: a parent
+    permutation with a cycle, in place through a temporary) and the paged
+    copy-on-divergence (PagePool.copy_pages) on the card: bit-equal to the
+    same on the CPU, and to an out-of-place gather."""
+    from flexq_tpu_torch.serve.beam import reorder_rows
+    from flexq_tpu_torch.serve.paged import PagePool
+
+    shape = (2, 6, 2, 256, 128)
+    if quant:
+        cache = tuple(torch.randint(-128, 128, shape, generator=gen, device="cuda", dtype=torch.int8) for _ in "kv")
+        cache += tuple(torch.rand(shape[:-1], generator=gen, device="cuda") for _ in "kv")
+    else:
+        cache = (randn(gen, *shape), randn(gen, *shape))
+    src, dst, n = [2, 0, 1, 3, 5, 5], [0, 1, 2, 3, 4, 5], 100
+    want = tuple(c.cpu().clone() for c in cache)
+    gathered = tuple(c.clone() for c in want)
+    for g, c in zip(gathered, want):
+        g[:, dst, :, :n] = c[:, src, :, :n].clone()
+    reorder_rows(cache, src, dst, n)
+    reorder_rows(want, src, dst, n)
+    assert all(torch.equal(a.cpu(), b) and torch.equal(b, g) for a, b, g in zip(cache, want, gathered))
+    pools = [PagePool(2, 8, 2, 128, 128, dtype=torch.int8 if quant else torch.bfloat16, device=d) for d in ("cuda", "cpu")]
+    for buf in pools[0]._buffers():
+        buf.copy_(torch.randint(-100, 100, buf.shape, generator=gen, device="cuda").to(buf.dtype))
+    for a, b in zip(pools[1]._buffers(), pools[0]._buffers()):
+        a.copy_(b.cpu())
+    for p in pools:
+        p.copy_pages([3, 5, 1], [6, 7, 2])
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(pools[0]._buffers(), pools[1]._buffers()))

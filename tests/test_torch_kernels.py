@@ -37,8 +37,8 @@ from flexq_tpu_torch.kernels import (
     w8_matmul,
 )
 from flexq_tpu_torch.kernels.fused_quant import STAT_MAX_K, check_width
-from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, w6ax_route
-from flexq_tpu_torch.packing.pack6 import pack6
+from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, plain_weight, w6ax_route
+from flexq_tpu_torch.packing.pack6 import pack6, unpack6
 
 
 def to_t(a: np.ndarray) -> torch.Tensor:
@@ -106,6 +106,21 @@ def test_w6_matmul_matches_jax(m, k, n):
     got = w6_matmul(to_t(xq), to_t(xs), hi, lo, to_t(ws), out_dtype=torch.float32).numpy()
     assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
     assert sum(launch_counts().values()) == 0  # CPU tensors never launch a kernel
+
+
+def test_plain_weight_unpacks_once_as_int8():
+    """The plain GEMMs' CPU weight: unpacked once to int8 and kept while the
+    planes live unchanged; a write to a plane unpacks it again."""
+    w = torch.from_numpy(np.random.default_rng(5).integers(-32, 32, (256, 128)).astype(np.int8))
+    hi, lo = pack6(w)
+    got = plain_weight((hi, lo), unpack6)
+    assert got.dtype == torch.int8 and torch.equal(got, w)
+    assert plain_weight((hi, lo), unpack6) is got
+    w[0, 0] = -w[0, 0] - 1
+    hi2, lo2 = pack6(w)
+    hi.copy_(hi2), lo.copy_(lo2)
+    again = plain_weight((hi, lo), unpack6)
+    assert again is not got and torch.equal(again, w)
 
 
 @pytest.mark.parametrize("k,n", [(4096, 4096), (4096, 11264), (11264, 4096), (4096, 16384), (4096, 32768)])

@@ -26,10 +26,11 @@ from a seed. Held against the reference:
     data_tiny's tokenizer.json);
   * the HTTP service over a paged CPU scheduler: completions' tokens equal
     to a direct BatchScheduler run, streaming equal to non-streaming, chat,
-    stop truncation, /metrics, a 429 under max_pending, a beam request's
-    400, and the stream helpers equal to the reference's on a fixed table;
+    stop truncation, /metrics, a 429 under max_pending, beam requests
+    served (a streamed one's 400), and the stream helpers equal to the
+    reference's on a fixed table;
   * ``FlexQCausalLM``: forward within 1e-2 of max |logit| of the
-    reference adapter's, greedy generate tokens equal.
+    reference adapter's, greedy generate tokens equal, sampling seeded.
 """
 
 import dataclasses
@@ -496,12 +497,23 @@ def test_http_streaming_chat_and_stop(served):
 
 
 def test_http_beam_requests_get_400(served):
+    """Beam requests are served (best_of > n, use_beam_search, /generate's
+    beam_width); the ones the reference refuses get a 400: a streamed beam
+    request, and one wider than the scheduler's slots."""
     port, service, _ = served
-    for path, body in (("/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 4, "best_of": 2}),
-                       ("/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 4, "use_beam_search": True}),
-                       ("/generate", {"prompt_ids": [5, 6, 7], "max_new_tokens": 4, "beam_width": 2})):
+    ans = post(port, "/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 4, "best_of": 2, "eos_id": -1})
+    assert len(ans["choices"]) == 1 and len(ans["choices"][0]["token_ids"]) == 4
+    assert "beam_score" in ans["choices"][0]
+    ans = post(port, "/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 4, "use_beam_search": True, "n": 2,
+                                         "eos_id": -1})
+    assert len(ans["choices"]) == 2
+    gen = post(port, "/generate", {"prompt_ids": [5, 6, 7], "max_new_tokens": 4, "beam_width": 2, "n_best": 2,
+                                   "eos_id": -1})
+    assert gen["tokens"] == gen["nbest"][0]["tokens"] and len(gen["nbest"]) == 2
+    for path, body in (("/v1/completions", {"prompt": [5, 6, 7], "max_tokens": 4, "best_of": 2, "stream": True}),
+                       ("/generate", {"prompt_ids": [5, 6, 7], "max_new_tokens": 4, "beam_width": 64})):
         code, _, err = post_error(port, path, body)
-        assert code == 400 and "beam search" in json.dumps(err), (path, err)
+        assert code == 400, (path, err)
     # the service still answers, and no tick failed
     assert len(post(port, "/generate", {"prompt_ids": [5, 6, 7], "max_new_tokens": 3, "eos_id": -1})["tokens"]) == 3
     assert service.failed_ticks == 0
@@ -561,5 +573,7 @@ def test_causal_lm_matches_jax_adapter(llama):
     top2 = np.sort(lg, axis=-1)[..., -2:]
     assert (top2[..., 1] - top2[..., 0]).min() >= 0.02 * np.abs(lg).max()
     assert torch.equal(ours.generate(prompt, max_new_tokens=6, eos_token_id=None), want_ids)
-    with pytest.raises(NotImplementedError):  # the Engine's greedy guard
-        ours.generate(prompt, max_new_tokens=2, do_sample=True, temperature=0.8)
+    # sampling is served: seeded, reproducible, the prompt echoed
+    a = ours.generate(prompt, max_new_tokens=4, do_sample=True, temperature=0.8, top_k=20, seed=7, eos_token_id=None)
+    b = ours.generate(prompt, max_new_tokens=4, do_sample=True, temperature=0.8, top_k=20, seed=7, eos_token_id=None)
+    assert torch.equal(a, b) and a.shape == (2, 12) and torch.equal(a[:, :8], prompt)

@@ -2,9 +2,10 @@
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal, with the reference's parameters in its
-order; the paths still to port raise (the Engine's logprobs, and the
-scheduler's meshes, fused ticks and beam search), and half a cache is
-refused (the cache-less forward takes neither kv_k nor kv_v)."""
+order and its return order (out, logprobs, stats); the paths still to port
+raise (meshes, and the scheduler's fused ticks), the reference's refusal of
+logprobs in spec mode stays, and half a cache is refused (the cache-less
+forward takes neither kv_k nor kv_v)."""
 
 import inspect
 
@@ -88,18 +89,21 @@ def test_generate_takes_the_reference_parameters(model):
     out, stats = eng.generate(prompts, 4, SamplingParams(), -1, (), 123, True)
     assert out == eng.generate(prompts, max_new_tokens=4, eos_id=-1, seed=7)  # greedy reads no seed
     assert stats.generated_tokens == 8
-    with pytest.raises(NotImplementedError):
-        eng.generate(prompts, max_new_tokens=2, return_logprobs=True)
+    got, lps, stats = eng.generate(prompts, max_new_tokens=2, eos_id=-1, return_logprobs=True, return_stats=True)
+    assert got == [r[:2] for r in out] and stats.generated_tokens == 4
+    assert [len(r) for r in lps] == [2, 2] and all(x <= 0 for r in lps for x in r)
 
 
 def test_unsupported_paths_raise(model):
     jcfg, cfg, jq, tq, prompts = model
     pol = QuantPolicy.llama_flex()
     eng = Engine(tq, cfg, pol, max_seq_len=S, kv_dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate(prompts, max_new_tokens=2, sampling=SamplingParams(greedy=False))
-    with pytest.raises(NotImplementedError):
-        eng.generate(prompts, max_new_tokens=2, mode="spec")
+    # the reference's refusals: logprobs in spec mode, penalties under sampled spec
+    with pytest.raises(ValueError):
+        eng.generate(prompts, max_new_tokens=2, mode="spec", return_logprobs=True)
+    with pytest.raises(ValueError):
+        eng.generate(prompts, max_new_tokens=2, mode="spec", sampling=SamplingParams(greedy=False,
+                                                                                     repetition_penalty=1.2))
     with pytest.raises(NotImplementedError):
         Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
@@ -107,13 +111,13 @@ def test_unsupported_paths_raise(model):
     with pytest.raises(ValueError):  # half a cache: the cache-less forward takes neither
         forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=eng.new_cache(2)[0], kv_v=None, cache_pos=0,
                       device="cpu")
-    # the scheduler's paths still to port: meshes, fused ticks, beam search
+    # the scheduler's paths still to port: meshes, fused ticks
     for kw in (dict(mesh=object()), dict(pp_mesh=object()), dict(fused_tick=4)):
         with pytest.raises(NotImplementedError):
             BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", **kw)
     sched = BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, paged=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        sched.add_request([1, 2, 3], max_new_tokens=2, beam_width=2)
+    with pytest.raises(ValueError):  # wider than the slots
+        sched.add_request([1, 2, 3], max_new_tokens=2, beam_width=3)
     with pytest.raises(ValueError):  # the paged pool is decode-only
         forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=sched.pool.pool_k, kv_v=sched.pool.pool_v,
                       cache_pos=0, page_table=torch.zeros((2, 1), dtype=torch.int32), device="cpu")
