@@ -114,6 +114,21 @@ exits nonzero without the final line:
      groups beside 4 regular requests over the dense, paged bf16 and paged
      int8 caches, each equal to the standalone n-best, every page free
      after.
+  7. the captured decode step against the eager one, all in this call: on
+     phase 4's 32-layer LLaMA-2-7B model, Engine.generate mode="fused" (a
+     CUDA graph of the step, captured once and replayed) against
+     mode="step" (eager), B = 4, 32 new, 32- and 512-token prompts, in turns
+     fused, step, step, fused, tokens equal, the capture's ms apart, both
+     loops profiled over 8 tokens; the scheduler's 16-request mix at
+     fused_tick=8 against phase 4's fused_tick=0 runs (paged bf16, dense
+     bf16, paged int8), streams equal, tokens/s, ms per decode tick and
+     step, TTFT p50 / max, capture ms and replays per tick, one fused run
+     profiled; then on OPT-6.7B the Engine at 32-token prompts and the
+     paged bf16 scheduler likewise. A graph's replays add its capture's
+     launches to the counts, so the kernels' line says what the card ran.
+     (Since phase 7, every fused Engine run and every fused_tick > 0 run
+     of the earlier phases, the HTTP server's CLI at its default
+     --fused-tick 8 among them, replays its captured step.)
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -1451,6 +1466,9 @@ def sched_requests(vocab: int):
     return reqs
 
 
+SCHED_RUNS = {}  # label -> streams and metrics of each sched_run in this call (phase 7 compares fused with per-token)
+
+
 def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
     """One BatchScheduler run over ``reqs`` (launch counts zeroed just before,
     read just after); checks that every request got exactly its max_new
@@ -1490,8 +1508,21 @@ def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
                  f" preemptions={sched.preemptions}")
         if sched.registry is not None:
             extra += f" prefix_hits={sched.registry.hits} prefix_misses={sched.registry.misses}"
+    ms_step = sum(sched.tick_s) / sum(sched.tick_steps) * 1e3
+    SCHED_RUNS[label] = dict(tokens=tokens, tokens_per_s=gen_tokens / wall, ticks=len(sched.tick_s),
+                             ms_tick=statistics.mean(sched.tick_s) * 1e3, ms_step=ms_step,
+                             ttft_p50=statistics.median(ttft), ttft_max=ttft[-1])
+    if sched.fused_graphs:
+        graphs = list(sched.fused_graphs.values())
+        fused = [(s, n) for s, n, f in zip(sched.tick_s, sched.tick_steps, sched.tick_fused) if f]
+        n_fused, steps_fused = len(fused), sum(n for _, n in fused)
+        extra += (f" fused_ticks={n_fused} steps_per_fused_tick={steps_fused / max(n_fused, 1):.2f} "
+                  f"ms_per_step_in_fused_ticks={sum(s for s, _ in fused) / max(steps_fused, 1) * 1e3:.2f} graphs="
+                  f"{len(graphs)} capture_ms={[round(g.capture_s * 1e3, 1) for g in graphs]} replays="
+                  f"{sum(g.replays for g in graphs)} launches_per_replay={[g.launches_per_replay for g in graphs]}")
     log(f"sched {label}: 16 requests, {gen_tokens} tokens in {wall:.2f}s: tokens_per_s={gen_tokens / wall:.1f} "
         f"decode_ticks={len(sched.tick_s)} mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.2f} "
+        f"mean_ms_per_decode_step={ms_step:.2f} "
         f"ttft_ms_p50={statistics.median(ttft):.1f} ttft_ms_max={ttft[-1]:.1f} peak_mem_gib={peak:.2f}{extra}")
     log(f"sched {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
@@ -1779,8 +1810,13 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
     n_spec = 64
     eng.generate(ps, max_new_tokens=2, eos_id=-1)  # warm-up (the W6A16 prefill at 64 tokens)
     speculative.generate_speculative(eng, ps, max_new_tokens=4, k=SPEC_K, eos_id=-1)
+    # plain greedy's logits are tapped in the step loop (the fused loop replays a captured graph of its step,
+    # with no Python call a step to tap); its tokens equal the fused loop's, whose time is the yardstick
     with LogitTap(eng, 1 + SPEC_K) as plain_tap:
-        plain, pstats = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, return_stats=True)
+        plain = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, mode="step")
+    fused_plain, pstats = eng.generate(ps, max_new_tokens=n_spec, eos_id=-1, return_stats=True)
+    if fused_plain != plain:
+        raise AssertionError("plain greedy on the spec prompts: the fused and step loops disagree")
     with LogitTap(eng, 1 + SPEC_K) as spec_tap:
         (got, st), counts = run_counted("spec fused", "spec", lambda: speculative.generate_speculative(
             eng, ps, max_new_tokens=n_spec, k=SPEC_K, eos_id=-1, return_stats=True))
@@ -1852,8 +1888,8 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
     # to plain greedy at B = 1 (a prompt's bits depend on B: the W6A16 prefill's GEMMs split K by the tile count)
     hheld = hdecisive = hcompared = 0
     for r in range(2):
-        with LogitTap(eng, 1 + SPEC_K) as plain1_tap:
-            plain1 = eng.generate(ps[r : r + 1], max_new_tokens=n_spec, eos_id=-1)
+        with LogitTap(eng, 1 + SPEC_K) as plain1_tap:  # the step loop: its steps can be tapped
+            plain1 = eng.generate(ps[r : r + 1], max_new_tokens=n_spec, eos_id=-1, mode="step")
         host_streams = {}
         for what in ("n-gram drafts", "oracle drafts"):
             oracle = (OracleDrafts(ps[r : r + 1], host_streams["n-gram drafts"], SPEC_K, dev) if what == "oracle drafts"
@@ -1937,6 +1973,131 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
     return totals, modes_s
 
 
+def greedy_graph(eng, b: int):
+    """The Engine's step graph of its greedy fused loop at batch ``b`` (eos -1)."""
+    return eng._fused[(b, SamplingParams(), -1, (), False)][1]
+
+
+def engine_graph_vs_eager(label, path, eng, prompts, new, dev):
+    """Phase 7, Engine: mode="fused" (the captured decode step, replayed)
+    against mode="step" (eager) on the same prompts, after a warm-up of
+    each (the engine's first fused call captures the graph: its capture ms
+    is logged apart), then in turns fused, step, step, fused; the tokens of
+    every run must be equal. The four runs' launch counts are zeroed before
+    and read after; every kernel of ``path`` must launch. Returns them."""
+    _, wst = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True)
+    eng.generate(prompts, max_new_tokens=new, eos_id=-1, mode="step")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_launch_counts()
+    runs = {"fused": [], "step": []}
+    for mode in ("fused", "step", "step", "fused"):
+        out, st = eng.generate(prompts, max_new_tokens=new, eos_id=-1, return_stats=True, mode=mode)
+        decode_s = st.decode_s if mode == "fused" else sum(st.step_times_s)
+        runs[mode].append((out, decode_s / (new - 1) * 1e3, st.ttft_s * 1e3, st.capture_s))
+    counts = launch_counts()
+    add_by_m()
+    b, l = prompts.shape
+    graph = greedy_graph(eng, b)
+    outs = [r[0] for rs in runs.values() for r in rs]
+    equal = all(o == outs[0] for o in outs) and all(len(r) == new for r in outs[0])
+    f_ms, s_ms = ([round(r[1], 3) for r in runs[m]] for m in ("fused", "step"))
+    f_tt, s_tt = ([round(r[2], 2) for r in runs[m]] for m in ("fused", "step"))
+    log(f"graph {label} B={b} prompt={l} new={new}: decode_ms_per_step fused (graph) {f_ms} vs step (eager) {s_ms}: "
+        f"{statistics.mean(s_ms) / statistics.mean(f_ms):.2f}x; ttft_ms fused {f_tt} vs step {s_tt}; capture_ms="
+        f"{wst.capture_s * 1e3:.1f} (this engine's first fused call; 0 in the measured runs: "
+        f"{all(r[3] == 0 for r in runs['fused'])}); replays={graph.replays} launches_per_replay="
+        f"{graph.launches_per_replay}; tokens equal over the 4 runs: {equal}")
+    log(f"graph {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    if not equal:
+        raise AssertionError(f"{label}: the graph's tokens part from the eager step loop's")
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+    return counts
+
+
+def sched_graph_vs_eager(label, path, params, cfg, policy, dev, reqs, **kw):
+    """Phase 7, scheduler: phase 4's 16-request mix at fused_tick=8 against
+    phase 4's fused_tick=0 run of ``label`` in this call: the streams must
+    be equal; tokens/s (also without the graphs' captures, made in the
+    run's first fused tick), ms per decode tick and per decode step, TTFT
+    p50 / max side by side. Returns the fused run's counts."""
+    _, counts, sched = sched_run(f"{label} fused_tick=8", path, params, cfg, policy, dev, reqs, fused_tick=8, **kw)
+    e, f = SCHED_RUNS[label], SCHED_RUNS[f"{label} fused_tick=8"]
+    same = sum(a == b for a, b in zip(f["tokens"], e["tokens"]))
+    capture_s = sum(g.capture_s for g in sched.fused_graphs.values())
+    gen_tokens = sum(len(t) for t in f["tokens"])
+    no_capture = gen_tokens / (gen_tokens / f["tokens_per_s"] - capture_s)
+    log(f"graph sched {label}: fused_tick=8 (graph) vs 0 (eager, phase 4): tokens_per_s {f['tokens_per_s']:.1f} "
+        f"({no_capture:.1f} without the {capture_s * 1e3:.1f} ms of capture) vs {e['tokens_per_s']:.1f}; "
+        f"ms_per_decode_tick {f['ms_tick']:.2f} ({f['ticks']} ticks) vs {e['ms_tick']:.2f} ({e['ticks']}); "
+        f"ms_per_decode_step {f['ms_step']:.3f} vs {e['ms_step']:.3f} ({e['ms_step'] / f['ms_step']:.2f}x); "
+        f"ttft_ms p50 {f['ttft_p50']:.1f} vs {e['ttft_p50']:.1f}, max {f['ttft_max']:.1f} vs {e['ttft_max']:.1f}; "
+        f"streams equal {same}/16; replays per fused tick "
+        f"{sum(g.replays for g in sched.fused_graphs.values()) / max(sum(sched.tick_fused), 1):.2f}")
+    if same != len(reqs):
+        raise AssertionError(f"{label}: fused_tick=8's streams part from fused_tick=0's")
+    return counts
+
+
+def graph_vs_eager(params, cfg, policy, dev):
+    """Phase 7 on phase 4's LLaMA-2-7B model: the Engine's fused loop on the
+    captured step against its eager step loop (B = 4, 32 new, 32- and
+    512-token prompts; both profiled over 8 tokens at 32), and the
+    scheduler's 16-request mix at fused_tick=8 against phase 4's
+    fused_tick=0 runs (paged bf16, dense bf16, paged int8), with a profile
+    of one fused paged run. Returns the summed counts and the seconds."""
+    t0 = time.perf_counter()
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    rng = np.random.default_rng(SEED + 20)
+    b, new = 4, 32
+    eng = Engine(params, cfg, policy, max_seq_len=2048, device=dev)
+    short = rng.integers(0, cfg.vocab_size, (b, 32))
+    add(engine_graph_vs_eager("llama_flex 32-token", "32-token", eng, short, new, dev))
+    if dev.type == "cuda":
+        profile_decode(eng, short)
+        profile_call(f"generate B={b} prompt=32 new=8 mode=step (eager)",
+                     lambda: eng.generate(short, max_new_tokens=8, eos_id=-1, mode="step"))
+        # the decode steps alone: the host's replays against the card's work (the last generate left
+        # the loop's columns and positions room for 2 x 16 more steps)
+        graph = greedy_graph(eng, b)
+        profile_call("the captured decode step alone, 16 replays (B=4, 40-71 keys over the two runs)",
+                     lambda: graph.run(16))
+        del graph  # it holds the engine's kept cache: freed with the engine below
+    add(engine_graph_vs_eager("llama_flex 512-token", "512-token", eng, rng.integers(0, cfg.vocab_size, (b, 512)),
+                              new, dev))
+    del eng
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reqs = sched_requests(cfg.vocab_size)
+    for label, path, kw in (("paged bf16", "scheduler paged", dict(paged=True)),
+                            ("dense bf16", "scheduler dense", {}),
+                            ("paged int8", "scheduler paged", dict(paged=True, kv_dtype=torch.int8))):
+        add(sched_graph_vs_eager(label, path, params, cfg, policy, dev, reqs, **kw))
+    fz = BatchScheduler(params, cfg, policy, **SCHED, paged=True, fused_tick=8, device=dev)
+    short_reqs = [(p[:32], 16) for p, _ in reqs[:8]]
+
+    def fused_run():
+        for p, n in short_reqs:
+            fz.add_request(p, max_new_tokens=n, eos_id=-1)
+        fz.run()
+
+    fused_run()  # captures the scheduler's graph; the profile sees replays
+    if dev.type == "cuda":
+        profile_call("scheduler paged bf16 fused_tick=8, 8 requests x 32-token prompts, 16 new", fused_run)
+        del fz
+        torch.cuda.empty_cache()
+    graph_s = time.perf_counter() - t0
+    log(f"phase 7 graph vs eager, LLaMA-2-7B: {graph_s:.1f}s")
+    return totals, graph_s
+
+
 def end_to_end(dev, gen):
     cfg = ModelConfig.llama()  # LLaMA-2-7B shape, 32 layers
     policy = QuantPolicy.llama_flex()
@@ -1994,6 +2155,8 @@ def end_to_end(dev, gen):
     log(f"e2e scheduler runs: {time.perf_counter() - t0:.1f}s")
     counts, modes_s = decoding_modes(params, cfg, policy, dev, p32, out)  # phase 6, before the model is freed
     add(counts)
+    counts, graph_s = graph_vs_eager(params, cfg, policy, dev)  # phase 7's LLaMA part
+    add(counts)
     torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -2031,7 +2194,7 @@ def end_to_end(dev, gen):
     add(counts)
     del w8
     torch.cuda.empty_cache()
-    return totals, modes_s
+    return totals, modes_s, graph_s
 
 
 def opt_end_to_end(dev, gen):
@@ -2074,7 +2237,18 @@ def opt_end_to_end(dev, gen):
     _, counts, sched = sched_run("OPT-6.7B opt_flex paged bf16", "OPT scheduler paged", params, cfg, flex, dev, reqs,
                                  paged=True)
     add(counts)
-    del sched, params
+    del sched
+    # phase 7's OPT part: the captured step against the eager one, Engine and scheduler
+    t7 = time.perf_counter()
+    eng = Engine(params, cfg, flex, max_seq_len=2048, device=dev)
+    add(engine_graph_vs_eager("OPT-6.7B opt_flex 32-token", "OPT 32-token", eng, short, new, dev))
+    del eng
+    torch.cuda.empty_cache()
+    add(sched_graph_vs_eager("OPT-6.7B opt_flex paged bf16", "OPT scheduler paged", params, cfg, flex, dev, reqs,
+                             paged=True))
+    graph_s = time.perf_counter() - t7
+    log(f"phase 7 graph vs eager, OPT-6.7B: {graph_s:.1f}s")
+    del params
     torch.cuda.empty_cache()
     wo4 = QuantPolicy.weight_only("opt", 4)
     w4 = random_opt_params(cfg, wo4, gen, dev)
@@ -2083,7 +2257,7 @@ def opt_end_to_end(dev, gen):
     add(counts)
     del eng4, w4
     torch.cuda.empty_cache()
-    return totals
+    return totals, graph_s
 
 
 CKPT_LAYERS = 4  # phase 5's depth: LLaMA-2-7B's widths, its 32 layers cut to keep the phase near a minute
@@ -2531,13 +2705,15 @@ def main() -> int:
     parity_ok = slice_parity(dev, torch.Generator(device=dev).manual_seed(SEED + 1))
     log(f"phase 3 slice parity: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    counts, modes_s = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
-    log(f"phase 4 end to end, LLaMA-2-7B: {time.perf_counter() - t0 - modes_s:.1f}s (phase 6's {modes_s:.1f}s "
-        f"apart)")
+    counts, modes_s, graph_s = end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 2))
+    log(f"phase 4 end to end, LLaMA-2-7B: {time.perf_counter() - t0 - modes_s - graph_s:.1f}s (phase 6's "
+        f"{modes_s:.1f}s and phase 7's {graph_s:.1f}s apart)")
     t0 = time.perf_counter()
-    for k, v in opt_end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 4)).items():
+    opt_counts, opt_graph_s = opt_end_to_end(dev, torch.Generator(device=dev).manual_seed(SEED + 4))
+    for k, v in opt_counts.items():
         counts[k] += v
-    log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0:.1f}s")
+    log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0 - opt_graph_s:.1f}s (phase 7's {opt_graph_s:.1f}s "
+        f"apart); phase 7 in all {graph_s + opt_graph_s:.1f}s")
     log_by_m()
     t0 = time.perf_counter()
     for k, v in checkpoint_and_http(dev, torch.Generator(device=dev).manual_seed(SEED + 10)).items():

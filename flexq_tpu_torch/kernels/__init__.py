@@ -4,6 +4,9 @@ Every wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version for a CPU tensor; ``launch_counts()`` reads the
 per-wrapper launch counters and ``reset_launch_counts()`` zeroes them (and
 the counts by M that the exact GEMMs and the producers keep beside them).
+A CUDA graph's replays add the launches its capture counted
+(``count_state`` / ``restore_counts`` / ``add_counts``, serve/graphs.py), so
+the counts say what the card ran, replayed or launched.
 """
 
 from typing import Dict
@@ -34,3 +37,39 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_m"):
             fn.launches_by_m.clear()
+
+
+def count_state() -> Dict[str, tuple]:
+    """Every wrapper's (launches, launches by M) as they stand."""
+    return {fn.__name__: (fn.launches, dict(getattr(fn, "launches_by_m", {}))) for fn in WRAPPERS}
+
+
+def restore_counts(state: Dict[str, tuple]) -> None:
+    """Set every wrapper's counts back to ``state`` (from ``count_state``)."""
+    for fn in WRAPPERS:
+        fn.launches = state[fn.__name__][0]
+        if hasattr(fn, "launches_by_m"):
+            fn.launches_by_m.clear()
+            fn.launches_by_m.update(state[fn.__name__][1])
+
+
+def count_delta(before: Dict[str, tuple], after: Dict[str, tuple]) -> Dict[str, tuple]:
+    """The launches (and launches by M) counted between two ``count_state``s."""
+    out = {}
+    for name, (n, by_m) in after.items():
+        n0, by_m0 = before[name]
+        d_by_m = {m: v - by_m0.get(m, 0) for m, v in by_m.items() if v != by_m0.get(m, 0)}
+        if n != n0 or d_by_m:
+            out[name] = (n - n0, d_by_m)
+    return out
+
+
+def add_counts(delta: Dict[str, tuple], times: int) -> None:
+    """Add ``times`` x a ``count_delta`` to the wrappers' counts."""
+    for fn in WRAPPERS:
+        if fn.__name__ not in delta:
+            continue
+        n, by_m = delta[fn.__name__]
+        fn.launches += n * times
+        for m, v in by_m.items():
+            fn.launches_by_m[m] = fn.launches_by_m.get(m, 0) + v * times

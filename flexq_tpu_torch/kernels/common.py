@@ -7,7 +7,7 @@ for the card on a machine without one is an error, never a silent fallback.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -76,6 +76,7 @@ def arrival_counters(dev: torch.device, n: int) -> torch.Tensor:
     after another and share them."""
     c = _counters.get(dev)
     if c is None or c.numel() < n:
+        _refuse_growth_in_capture("arrival_counters", dev)
         c = torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
         _counters[dev] = c
     return c
@@ -92,6 +93,25 @@ def split_scratch(dev: torch.device, n: int) -> torch.Tensor:
     another and share it."""
     buf = _scratch.get(dev)
     if buf is None or buf.numel() < n:
+        _refuse_growth_in_capture("split_scratch", dev)
         buf = torch.empty(n, dtype=torch.float32, device=dev)
         _scratch[dev] = buf
     return buf
+
+
+def _refuse_growth_in_capture(name: str, dev: torch.device) -> None:
+    """A shared buffer grows only outside a CUDA graph capture: a tensor
+    made while capturing is not filled until the graph replays (the
+    counters' zeroing would be a captured kernel), so eager callers would
+    read it unset. The eager warm-up before a capture runs the same shapes
+    and sizes the buffers first."""
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name} must grow before a CUDA graph capture, not during one")
+
+
+def shared_buffers(dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The shared buffers live on ``dev`` now (arrival counters and split
+    scratch). A captured graph keeps them: a later, larger request replaces
+    the module's tensor, and the graph, which holds the old one's address,
+    must not find it freed."""
+    return tuple(t for t in (_counters.get(dev), _scratch.get(dev)) if t is not None)

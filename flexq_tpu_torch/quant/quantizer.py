@@ -17,6 +17,7 @@ host scalar multiplies by its reciprocal.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -64,8 +65,15 @@ def _grouped_view(x: torch.Tensor, group_size: Optional[int]) -> Tuple[torch.Ten
 def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
     """x / d correctly rounded on any device: CUDA divides by a host scalar as
     a multiply by its f32 reciprocal, which parts from the division by an
-    ulp on some values; a divisor on x's device takes the true division."""
-    return x / torch.tensor(d, dtype=x.dtype, device=x.device)
+    ulp on some values; a divisor on x's device takes the true division. The
+    divisor is made once per (value, dtype, device) and kept, so a call
+    copies nothing to the card (a CUDA graph capture refuses that copy)."""
+    return x / _divisor(d, x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _divisor(d: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(d, dtype=dtype, device=device)
 
 
 def compute_scale_zp(

@@ -13,15 +13,22 @@ tokens (each chunk attends over the cache written so far).
 Three decode loops, as in the reference:
   * ``mode="fused"`` keeps the tokens, logprobs, token counts, the stop test
     and the bookkeeping on the device and reads the device only every
-    ``FUSED_CHECK_EVERY`` steps to stop early (the reference runs one
-    on-device while_loop; a CUDA graph of the step is later work);
+    ``FUSED_CHECK_EVERY`` steps to stop early. Where the reference runs one
+    on-device while_loop, the card replays a captured CUDA graph of one step
+    (forward, draw, record, stop test: serve/graphs.py); the graph, its
+    static buffers and a cache of B rows are kept per (B, sampling, stop
+    set, logprobs) across calls (``Engine._fused``), captured on the first
+    call's first decode step, whose capture time goes to
+    ``GenerationStats.capture_s`` and not into TTFT or the decode time. On
+    the CPU the same step runs eagerly;
   * ``mode="step"`` reads each token back to the host, as the reference's
-    stepwise loop does. Both draw from one ``torch.Generator`` seeded with
-    ``seed`` in the same order, so they give the same tokens (greedy or
-    sampled); the draws are not ``jax.random``'s;
+    stepwise loop does, and stays eager. Both draw from one
+    ``torch.Generator`` seeded with ``seed`` in the same order, so they give
+    the same tokens (greedy or sampled); the draws are not ``jax.random``'s;
   * ``mode="spec"``: speculative decoding with prompt-lookup drafts
     (serve/speculative.py), whose fused loop is ``_spec_decode_loop`` here.
-Beam search over the Engine's cache is serve/beam.py.
+Beam search over the Engine's cache is serve/beam.py. The spec loop and beam
+search stay eager.
 
 Not in this slice (NotImplementedError): meshes (tensor / pipeline
 parallel). The model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses
@@ -38,10 +45,12 @@ import torch
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.serve.graphs import StepGraph
 from flexq_tpu_torch.serve.sampling import SamplingParams, process_logits, sample
 from flexq_tpu_torch.utils.profiling import GenerationStats, StepTimer
 
 FUSED_CHECK_EVERY = 8  # fused loop: decode steps between host reads of `finished`
+FUSED_KEEP = 8  # fused loops (graph + buffers) an Engine keeps; more clears them and their caches
 
 
 def _uses_counts(sampling: SamplingParams) -> bool:
@@ -83,6 +92,11 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         # prompts at/above this many tokens take the W6A16 prefill layer
         self.prefill_bf16_threshold = prefill_bf16_threshold
+        # the fused loop's state kept across calls: a cache per batch size,
+        # and per (B, sampling, eos, stop set, logprobs) its _Decoding and
+        # StepGraph
+        self._fused_caches: Dict[int, Tuple] = {}
+        self._fused: Dict[Any, Tuple["_Decoding", StepGraph]] = {}
 
     def _kv_shape(self, batch: int) -> Tuple[int, ...]:
         c = self.cfg
@@ -172,6 +186,35 @@ class Engine:
         positions = torch.full((b, 1), pos, dtype=torch.int64, device=self.device)
         logits, kv = self._fwd(ids, cache, positions, pos)
         return logits[:, 0], kv
+
+    def _fused_loop(self, b: int, sampling: SamplingParams, eos_id: int, stop_ids, logprobs: bool):
+        """The fused loop's (_Decoding, StepGraph) for this configuration,
+        made on first use: its static buffers, the batch size's cache
+        (shared by every configuration of that B) and the graph of one
+        step: forward at the per-row positions, draw, record, stop test."""
+        key = (b, sampling, eos_id, tuple(sorted(set(stop_ids))), logprobs)
+        hit = self._fused.get(key)
+        if hit is not None:
+            return hit
+        if len(self._fused) >= FUSED_KEEP:  # bound a long-lived engine's graphs and caches
+            self._fused.clear()
+            self._fused_caches.clear()
+        cache = self._fused_caches.get(b)
+        if cache is None:
+            cache = self._fused_caches[b] = self.new_cache(b)
+        dec = _Decoding(self, b, sampling, eos_id, stop_ids, logprobs, cache=cache)
+        params, cfg, policy, dev = self.params, self.cfg, self.policy, self.device
+        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
+
+        def step():  # reads and writes dec's buffers and the cache only (no reference to the Engine)
+            # the per-row position tensor: _decode_step's writes and lengths, read from the device
+            logits, _ = forward_serve(params, cfg, policy, dec.fed, positions=dec.pos[:, None], kv_k=cache[0],
+                                      kv_v=cache[1], cache_pos=dec.pos, device=dev, **scales)
+            dec.pos += 1
+            dec.record(*dec.draw(logits[:, 0]))
+
+        hit = self._fused[key] = (dec, StepGraph(step, dev, generator=dec.gen))
+        return hit
 
     # draftability gate of the fused spec loop (the reference's constants):
     # a per-row acceptance EMA; when the worst live row's EMA drops below
@@ -311,12 +354,18 @@ class Engine:
 
         stats = GenerationStats(prompt_tokens=b * l)
         timer = StepTimer(self.device)
-        logits, cache = self.prefill_prompts(prompts, self.new_cache(b))
-        dec = _Decoding(self, prompts, sampling, eos_id, stop_ids, seed, return_logprobs)
         if mode == "fused":
-            out, lps = dec.fused(logits, cache, l, max_new_tokens, stats, timer)
+            dec, graph = self._fused_loop(b, sampling, eos_id, stop_ids, return_logprobs)
+            for t in dec.cache:  # the kept cache starts each call as a fresh one does
+                t.zero_()
+            logits, _ = self.prefill_prompts(prompts, dec.cache)
+            dec.reset(prompts, seed)
+            out, lps = dec.fused(graph, logits, l, max_new_tokens, stats, timer)
         else:
-            out, lps = dec.stepwise(logits, cache, l, max_new_tokens, stats, timer)
+            logits, cache = self.prefill_prompts(prompts, self.new_cache(b))
+            dec = _Decoding(self, b, sampling, eos_id, stop_ids, return_logprobs)
+            dec.reset(prompts, seed)
+            out, lps = dec.stepwise(self, logits, cache, l, max_new_tokens, stats, timer)
         ret = [out]
         if return_logprobs:
             ret.append(lps)
@@ -326,74 +375,103 @@ class Engine:
 
 
 class _Decoding:
-    """One generate's sampling state (the reference's loop carry): the
+    """A decode loop's sampling state (the reference's loop carry): the
     generator, the token counts [B, V] (prompt tokens counted; kept only
-    when a penalty reads them), the generated length and the stop set."""
+    when a penalty reads them), the generated length (a device counter [B])
+    and the stop set. With ``cache`` (the fused loop's kept cache) also the
+    fused loop's static buffers: the fed tokens [B, 1], the positions [B],
+    the token and logprob columns [B, max_seq_len], the finished mask and
+    the column the next step writes; ``reset`` readies them for a call."""
 
-    def __init__(self, eng: Engine, prompts, sampling: SamplingParams, eos_id: int, stop_ids, seed: int,
-                 logprobs: bool):
+    def __init__(self, eng: Engine, b: int, sampling: SamplingParams, eos_id: int, stop_ids, logprobs: bool,
+                 cache: Optional[Tuple] = None):
         dev = eng.device
-        self.eng, self.sampling, self.eos_id, self.logprobs = eng, sampling, eos_id, logprobs
-        self.b = len(prompts)
-        self.rows = torch.arange(self.b, device=dev)
+        self.sampling, self.eos_id, self.logprobs, self.b = sampling, eos_id, logprobs, b
+        self.vocab = eng.cfg.vocab_size
+        self.rows = torch.arange(b, device=dev)
         self.stop = torch.as_tensor(sorted(set(stop_ids) | {eos_id}), dtype=torch.int64, device=dev)
-        self.gen = None if sampling.greedy else torch.Generator(device=dev).manual_seed(seed)
-        self.counts = None
-        if _uses_counts(sampling):
-            c = np.zeros((self.b, eng.cfg.vocab_size), np.int32)
+        self.gen = None if sampling.greedy else torch.Generator(device=dev)
+        self.counts = torch.zeros((b, self.vocab), dtype=torch.int32, device=dev) if _uses_counts(sampling) else None
+        self.cur = torch.zeros(b, dtype=torch.int64, device=dev)
+        self.cache = cache
+        if cache is not None:
+            self.fed = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+            self.pos = torch.zeros(b, dtype=torch.int64, device=dev)
+            self.finished = torch.zeros(b, dtype=torch.bool, device=dev)
+            self.col = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+            self.tokens = torch.full((b, eng.max_seq_len), -1, dtype=torch.int64, device=dev)
+            self.lps = torch.zeros((b, eng.max_seq_len), dtype=torch.float32, device=dev) if logprobs else None
+
+    def reset(self, prompts, seed: int) -> None:
+        """Seed the draws, count the prompts' tokens, zero the length."""
+        if self.gen is not None:
+            self.gen.manual_seed(seed)
+        if self.counts is not None:
+            c = np.zeros((self.b, self.vocab), np.int32)
             for r, p in enumerate(prompts):
                 np.add.at(c[r], np.asarray(p, np.int64), 1)
-            self.counts = torch.from_numpy(c).to(dev)
-        self.gen_len = 0
+            self.counts.copy_(torch.from_numpy(c))
+        self.cur.zero_()
 
     def draw(self, logits):
         """(next ids int64 [B], logprobs f32 [B] or None) from the step's
         logits, then the counts and the length advance for every row."""
         s = self.sampling
-        cur = None
-        if s.min_length > 0:
-            cur = torch.full((self.b,), self.gen_len, dtype=torch.int64, device=logits.device)
-        proc = process_logits(logits, s, token_counts=self.counts, cur_length=cur, eos_id=self.eos_id)
+        proc = process_logits(logits, s, token_counts=self.counts, cur_length=self.cur if s.min_length > 0 else None,
+                              eos_id=self.eos_id)
         nxt = sample(proc, s, self.gen).to(torch.int64)
         lp = torch.log_softmax(proc, dim=-1)[self.rows, nxt] if self.logprobs else None
         if self.counts is not None:
             self.counts[self.rows, nxt] += 1
-        self.gen_len += 1
+        self.cur += 1
         return nxt, lp
 
-    def fused(self, logits, cache, pos, max_new, stats, timer):
-        """The reference's _loop_body on the device: tokens hold -1 (and
-        logprobs 0) after a row finished; the host reads `finished` every
-        FUSED_CHECK_EVERY steps."""
+    def record(self, nxt, lp) -> None:
+        """The fused loop's bookkeeping on the device: the step's tokens
+        (-1, logprobs 0, once a row finished) into the next column, the
+        stop test, and the tokens fed to the next step."""
+        record = ~self.finished
+        col = self.col.expand(self.b, 1)
+        self.tokens.scatter_(1, col, torch.where(record, nxt, -1)[:, None])
+        if self.lps is not None:
+            self.lps.scatter_(1, col, torch.where(record, lp, 0.0)[:, None])
+        self.finished |= record & torch.isin(nxt, self.stop)
+        self.fed.copy_(nxt[:, None])
+        self.col += 1
+
+    def fused(self, graph: StepGraph, logits, pos, max_new, stats, timer):
+        """The reference's _loop_body: the first token drawn from the
+        prefill's logits, then ``graph``'s step replayed; tokens hold -1
+        (and logprobs 0) after a row finished; the host reads `finished`
+        every FUSED_CHECK_EVERY steps. A capture made in this call is timed
+        apart (``stats.capture_s``) and left out of ``stats.decode_s``."""
         stats.ttft_s = timer.lap()  # prefill; the first token is drawn in the loop
-        dev, b = self.eng.device, self.b
-        tokens = torch.full((b, max_new), -1, dtype=torch.int64, device=dev)
-        lps = torch.zeros((b, max_new), dtype=torch.float32, device=dev) if self.logprobs else None
-        finished = torch.zeros(b, dtype=torch.bool, device=dev)
-        for i in range(max_new):
-            nxt, lp = self.draw(logits)
-            record = ~finished
-            tokens[:, i] = torch.where(record, nxt, -1)
-            if lps is not None:
-                lps[:, i] = torch.where(record, lp, 0.0)
-            finished = finished | (record & torch.isin(nxt, self.stop))
-            if i + 1 == max_new:
-                break  # the reference's last step forward feeds nothing
-            if (i + 1) % FUSED_CHECK_EVERY == 0 and bool(finished.all()):
+        had_graph = graph.captured
+        self.finished.zero_()
+        self.col.zero_()
+        self.record(*self.draw(logits))
+        self.pos.fill_(pos)
+        done = 1
+        while done < max_new:  # the reference's last step forward feeds nothing
+            n = min(FUSED_CHECK_EVERY - done % FUSED_CHECK_EVERY, max_new - done)
+            graph.run(n)
+            done += n
+            if done < max_new and done % FUSED_CHECK_EVERY == 0 and bool(self.finished.all()):
                 break
-            logits, cache = self.eng._decode_step(nxt[:, None], cache, pos)
-            pos += 1
-        tok = tokens.cpu().numpy()
-        stats.decode_s = timer.lap()
+        tok = self.tokens[:, :done].cpu().numpy()
+        stats.capture_s = graph.capture_s if graph.captured and not had_graph else 0.0
+        stats.decode_s = timer.lap() - stats.capture_s
         out = [[int(t) for t in row if t >= 0] for row in tok]
         stats.generated_tokens = sum(len(r) for r in out)
         lp_rows = None
-        if lps is not None:
-            lp_np = lps.cpu().numpy()
-            lp_rows = [[float(x) for x in lp_np[r, : len(out[r])]] for r in range(b)]
+        if self.lps is not None:
+            lp_np = self.lps[:, :done].cpu().numpy()
+            lp_rows = [[float(x) for x in lp_np[r, : len(out[r])]] for r in range(self.b)]
         return out, lp_rows
 
-    def stepwise(self, logits, cache, pos, max_new, stats, timer):
+    def stepwise(self, eng: Engine, logits, cache, pos, max_new, stats, timer):
+        """The host loop: each step's tokens read back, eng._decode_step
+        eager."""
         b = self.b
         stop_set = set(self.stop.tolist())
         out: List[List[int]] = [[] for _ in range(b)]
@@ -419,7 +497,7 @@ class _Decoding:
                         finished[row] = True
             if finished.all() or step == max_new - 1:
                 break
-            logits, cache = self.eng._decode_step(next_ids[:, None], cache, pos)
+            logits, cache = eng._decode_step(next_ids[:, None], cache, pos)
             pos += 1
         stats.decode_s = sum(stats.step_times_s) or stats.ttft_s
         return out, (out_lps if self.logprobs else None)

@@ -896,9 +896,10 @@ def main(argv=None):
     ap.add_argument("--prefill-chunk", type=int, default=None)
     ap.add_argument("--prefix-cache", action="store_true",
                     help="reuse identical prompt-prefix pages across requests (paged only)")
-    ap.add_argument("--fused-tick", type=int, default=0,
-                    help="decode steps fused into one dispatch; only 0 (per-token ticks) is served by the port "
-                         "yet (the streams are the same tokens either way)")
+    ap.add_argument("--fused-tick", type=int, default=8,
+                    help="decode steps fused into one tick (a captured CUDA graph of the step, replayed) when "
+                         "every active slot is decoding with the same sampling params; 0 = per-token ticks. "
+                         "Bounds queued-request latency to fused_tick steps")
     ap.add_argument("--tokenizer", default=None,
                     help="local HF tokenizer dir for the /v1 text endpoints (default: byte-level fallback)")
     ap.add_argument("--model-name", default="flexq-tpu", help="model id reported by the /v1 endpoints")
@@ -919,8 +920,8 @@ def main(argv=None):
             ap.error(f"--{flag} {getattr(args, flag)}: multi-device serving is not in the port yet")
     if args.coordinator is not None:
         ap.error("--coordinator: multi-host serving is not in the port yet")
-    if args.fused_tick:
-        ap.error(f"--fused-tick {args.fused_tick}: fused ticks are not in the port yet; use 0")
+    if args.fused_tick < 0:
+        ap.error(f"--fused-tick {args.fused_tick}: must be >= 0")
 
     cfg, policy, params = load_packed(args.checkpoint, device=args.device)
     sched = BatchScheduler(
@@ -934,7 +935,7 @@ def main(argv=None):
         page_size=args.page_size,
         prefill_chunk=args.prefill_chunk,
         prefix_cache=args.prefix_cache,
-        fused_tick=args.fused_tick,
+        fused_tick=0 if args.pp > 1 else args.fused_tick,  # fused ticks stay off under pipeline parallelism
         device=args.device,
     )
     server, service, port = serve_background(

@@ -180,10 +180,15 @@ def sample(
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Token ids int32 [B]: the argmax (first index on ties) when greedy,
-    else a draw from softmax(logits) with ``generator``."""
+    else a draw from softmax(logits) with ``generator``: the exponential race
+    argmax(p / E), E ~ Exp(1) drawn from ``generator``, which is what
+    ``torch.multinomial(p, 1)`` computes (the same draws from the same
+    generator state) without its host-side checks of ``p``, so the draw
+    runs inside a captured CUDA graph."""
     if params.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
         raise ValueError("stochastic sampling needs a torch.Generator")
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+    race = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)

@@ -23,9 +23,20 @@ copy only the block being written when they diverge). A prefill of 64
 tokens or more takes the W6A16 layer, the reference's rule here (not the
 Engine's threshold).
 
-Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``) and
-fused multi-step ticks (``fused_tick > 0``; a CUDA graph of the step
-belongs with them).
+Fused multi-step ticks (``fused_tick > 0``, the reference's ``_fused_step``):
+when every active slot is a plain decode under one SamplingParams, no beam
+group is in flight and no prompt is being chunked, a tick runs up to
+``fused_tick`` decode steps (at most 4 while requests wait) with EOS and
+each slot's budget masked on the device, and reads the [S, K] tokens (and
+logprobs) back once. On the card the steps are replays of a captured CUDA
+graph of one step over all ``num_slots`` rows (forward, the processed
+logits, the draw, the record, the finished mask, the counts:
+serve/graphs.py), one graph per (structural sampling key, counts,
+logprobs), the float knobs in a static buffer (different temperatures share
+a graph); on the CPU the same step runs eagerly. The per-token tick
+(``fused_tick=0``) stays eager.
+
+Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
 from flexq_tpu_torch.serve.beam import NEG as BEAM_NEG, reorder_rows, topk_lower_first
+from flexq_tpu_torch.serve.graphs import StepGraph
 from flexq_tpu_torch.serve.paged import PagePool, PageTable, PrefixRegistry
 from flexq_tpu_torch.serve.sampling import (
     SamplingParams,
@@ -50,9 +62,11 @@ from flexq_tpu_torch.serve.sampling import (
     process_logits,
     process_logits_dynamic,
     sample,
+    structural_key,
 )
 
 BF16_PREFILL_MIN = 64  # a prefill (or chunk) of this many tokens takes the W6A16 layer
+FUSED_QUEUE_K = 4  # the most steps a fused tick takes while requests wait (the reference's)
 
 
 @dataclasses.dataclass
@@ -130,7 +144,10 @@ class BatchScheduler:
 
     Timing, on the host clock after the device's result is read: per
     request ``t_arrival`` / ``t_first`` (seconds, ``time.perf_counter``),
-    and ``tick_s``, the wall time of each decode tick."""
+    ``tick_s``, the wall time of each decode tick (a graph capture left
+    out), ``tick_steps``, the decode steps in it (1 for a per-token tick),
+    and ``tick_fused``, whether it was a fused tick; ``fused_graphs`` holds
+    the fused ticks' step graphs (capture seconds, replays)."""
 
     def __init__(
         self,
@@ -154,8 +171,8 @@ class BatchScheduler:
     ):
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("tensor- and pipeline-parallel continuous batching are a later slice")
-        if fused_tick:
-            raise NotImplementedError("fused multi-step ticks (a CUDA graph of the step) are a later slice")
+        if fused_tick < 0:
+            raise ValueError(f"fused_tick={fused_tick} must be >= 0")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, scheduler on {self.device}")
@@ -214,6 +231,12 @@ class BatchScheduler:
         self.t_arrival: Dict[int, float] = {}
         self.t_first: Dict[int, float] = {}
         self.tick_s: List[float] = []
+        self.tick_steps: List[int] = []
+        self.tick_fused: List[bool] = []
+        # fused multi-step ticks: 0 disables (exact per-token granularity)
+        self.fused_tick = int(fused_tick)
+        self.fused_graphs: Dict[Any, StepGraph] = {}
+        self._fz: Optional[_FusedState] = None
 
     # ---- forward pieces --------------------------------------------------
     def _forward(self, ids, cache, positions, cache_pos, table=None, prefill_bf16=False, last_only=False):
@@ -787,6 +810,11 @@ class BatchScheduler:
         if prefilling:
             self._advance_prefill(min(prefilling, key=lambda i: self.slots[i].req_id))
         active = [i for i, s in enumerate(self.slots) if s.req_id is not None and s.phase == "decode"]
+        if active and not prefilling and self._fusible(active):
+            # prefilling slots force the per-token tick, so admission stays
+            # one chunk a tick
+            self._fused_step(active)
+            active = []
         if active and self.paged:
             active = self._grow_pages(active)
         if active:
@@ -817,8 +845,94 @@ class BatchScheduler:
                 self.last_tokens[torch.as_tensor(plain, device=self.device), 0] = torch.as_tensor(
                     [tok for tok, _ in results], device=self.device)
             self.tick_s.append(time.perf_counter() - t0)
+            self.tick_steps.append(1)
+            self.tick_fused.append(False)
         finished, self.done = self.done, {}
         return finished
+
+    # ---- fused multi-step ticks ------------------------------------------
+    def _fusible(self, active: List[int]) -> bool:
+        """The fused tick applies when every active slot is a plain decode
+        with one shared SamplingParams and no beam group is in flight."""
+        if self.fused_tick < 1 or self.beam_groups:
+            return False
+        s0 = self.slots[active[0]].sampling
+        return all(self.slots[i].sampling == s0 for i in active[1:])
+
+    def _fused_graph(self, sampling: SamplingParams, use_counts: bool, logprobs: bool) -> StepGraph:
+        """The step graph of one (structural sampling key, counts, logprobs):
+        made on first use, captured on its first step on the card."""
+        key = (structural_key(sampling), use_counts, logprobs)
+        g = self.fused_graphs.get(key)
+        if g is None:
+            if self._fz is None:
+                self._fz = _FusedState(self)
+            g = StepGraph(self._fz.step_fn(sampling, use_counts, logprobs), self.device,
+                          generator=None if sampling.greedy else self.generator, guard=self._fz.live)
+            self.fused_graphs[key] = g
+        return g
+
+    def _fused_step(self, active: List[int]) -> None:
+        """Up to ``fused_tick`` decode steps in one tick (the reference's
+        ``_fused_step``): at most FUSED_QUEUE_K while requests wait, so a
+        freed slot admits within that many steps; paged, every page the
+        steps may write is allocated first (preempting as ``_grow_pages``
+        does). The steps stop early only for the slots' budgets, known on
+        the host; EOS and the budgets are masked per slot on the device, and
+        the tokens (and logprobs) are read back once."""
+        k_steps = self.fused_tick
+        if self.pending and k_steps > FUSED_QUEUE_K:
+            k_steps = FUSED_QUEUE_K
+        if self.paged:
+            # a slot that finishes early wastes at most the pages of its
+            # last K writes, reclaimed when it completes
+            ps, max_blocks = self.pool.page_size, self.ptable.table.shape[1]
+            for i in active:
+                if self.slots[i].req_id is None:
+                    continue  # preempted by an earlier slot's allocation
+                needed = min((self.slots[i].pos + k_steps - 1) // ps + 1, max_blocks)
+                while self.ptable.num_blocks[i] < needed:
+                    try:
+                        page = self._alloc(1)[0]
+                    except MemoryError:
+                        if not self._preempt():
+                            raise
+                        if self.slots[i].req_id is None:
+                            break
+                        continue
+                    self.ptable.append(i, page)
+            active = [i for i in active if self.slots[i].req_id is not None and self.slots[i].phase == "decode"]
+            if not active:
+                return
+        sp = self.slots[active[0]].sampling
+        use_counts = sp.repetition_penalty != 1.0 or sp.presence_penalty != 0.0 or sp.frequency_penalty != 0.0
+        logprobs = any(self.slots[i].want_logprobs for i in active)
+        g = self._fused_graph(sp, use_counts, logprobs)
+        fz = self._fz
+        t0 = time.perf_counter()
+        steps = fz.load(self, active, sp, use_counts, k_steps)
+        had_graph = g.captured
+        g.run(steps)
+        tok = fz.tokens[:, :steps]
+        if logprobs:  # one host read of the tokens and their logprobs
+            tok_l, lp_l = torch.stack([tok.to(torch.float64), fz.lps[:, :steps].to(torch.float64)]).tolist()
+        else:
+            tok_l, lp_l = tok.tolist(), None
+        # a capture made in this tick is the graph's capture_s, not tick time
+        self.tick_s.append(time.perf_counter() - t0 - (g.capture_s if g.captured and not had_graph else 0.0))
+        self.tick_steps.append(steps)
+        self.tick_fused.append(True)
+        for i in active:
+            slot = self.slots[i]
+            for j in range(steps):
+                t = int(tok_l[i][j])
+                if t < 0 or self.slots[i] is not slot:
+                    break  # masked on the device, or _finish_check freed the slot
+                slot.pos += 1
+                slot.generated.append(t)
+                if slot.want_logprobs:
+                    slot.lps.append(float(lp_l[i][j]))
+                self._finish_check(i, slot, t)
 
     def run(self) -> Dict[int, List[int]]:
         """Drain all requests; returns {req_id: generated tokens}."""
@@ -826,3 +940,104 @@ class BatchScheduler:
         while self.has_work:
             out.update(self.step())
         return out
+
+
+class _FusedState:
+    """The fused ticks' static buffers over all S slots (made once a
+    scheduler; the graphs read and write only these, the cache, the page
+    table's device copy and ``last_tokens``, and hold no reference to the
+    scheduler): ``state`` int64 [6, S] (positions, eos ids, budgets left,
+    tokens generated before the tick, tokens recorded in it, finished),
+    ``dyn`` the float knobs f32 [6], ``counts`` int32 [S, V] (made when a
+    penalty first reads them), ``tokens`` / ``lps`` [S, fused_tick] and
+    ``col``, the column the next step writes."""
+
+    def __init__(self, sched: "BatchScheduler"):
+        dev, s = sched.device, sched.num_slots
+        self.params, self.cfg, self.policy, self.device = sched.params, sched.cfg, sched.policy, dev
+        self.paged = sched.paged
+        self.pool, self.kv, self.ptable = (sched.pool, None, sched.ptable) if sched.paged else (None, sched.kv, None)
+        self.last_tokens, self.generator = sched.last_tokens, sched.generator
+        self.num_slots = s
+        self.rows = torch.arange(s, device=dev)
+        self.state = torch.zeros((6, s), dtype=torch.int64, device=dev)
+        self.dyn = torch.zeros(6, dtype=torch.float32, device=dev)
+        self.counts: Optional[torch.Tensor] = None
+        self.tokens = torch.full((s, sched.fused_tick), -1, dtype=torch.int64, device=dev)
+        self.lps = torch.zeros((s, sched.fused_tick), dtype=torch.float32, device=dev)
+        self.col = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        self.table: Optional[torch.Tensor] = None
+        self.cache = self.pool.state() if self.paged else self.kv
+
+    def live(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors the graphs captured and must find in place: the
+        scheduler's cache as it is now (a paged pool's ``set_state`` would
+        replace its tensors) and the page table's device copy."""
+        cache = self.pool.state() if self.paged else self.kv
+        return tuple(cache) + ((self.table,) if self.paged else ())
+
+    def load(self, sched: "BatchScheduler", active: List[int], sp: SamplingParams, use_counts: bool,
+             k_steps: int) -> int:
+        """Copy the tick's host state into the buffers (inactive rows
+        finished from the start, at position 0); returns the steps to run:
+        k_steps, or fewer when every active slot's budget ends sooner."""
+        host = np.zeros((6, self.num_slots), np.int64)
+        host[5] = 1
+        for i in active:
+            sl = sched.slots[i]
+            gen0 = len(sl.prior) + len(sl.generated)
+            host[:, i] = (sl.pos, sl.eos_id, max(1, sl.max_new - gen0), gen0, 0, 0)
+        self.state.copy_(torch.from_numpy(host))
+        self.dyn.copy_(dynamic_params(sp))
+        self.col.zero_()
+        if use_counts:
+            if self.counts is None:
+                self.counts = torch.zeros((self.num_slots, self.cfg.vocab_size), dtype=torch.int32, device=self.device)
+            c = np.zeros(tuple(self.counts.shape), np.int32)
+            for i in active:
+                sl = sched.slots[i]
+                np.add.at(c[i], np.asarray(sl.prompt + sl.generated, np.int64), 1)
+            self.counts.copy_(torch.from_numpy(c))
+        if self.paged:
+            # the card's table is one tensor refreshed by an asynchronous
+            # copy, queued here ahead of the steps (outside the graph)
+            self.table = self.ptable.to_device(self.device)
+        return int(min(k_steps, host[2, active].max()))
+
+    def step_fn(self, sampling: SamplingParams, use_counts: bool, logprobs: bool):
+        """One decode step over all slots (the reference's loop body):
+        forward(last, pos) -> processed logits -> draw -> record; a row
+        records while it is not finished and stops at its EOS or budget;
+        a finished row keeps its position (its cache writes stay inside
+        its pages, rewriting its last entry) and feeds its last token."""
+        pos, eos, remaining, gen0, nrec, finished = self.state.unbind(0)
+        rows, s = self.rows, self.num_slots
+
+        def step():
+            scales = dict(zip(("kv_k_scale", "kv_v_scale"), self.cache[2:]))
+            logits, _ = forward_serve(
+                self.params, self.cfg, self.policy, self.last_tokens, positions=pos[:, None], kv_k=self.cache[0],
+                kv_v=self.cache[1], cache_pos=pos, page_table=self.table if self.paged else None, device=self.device,
+                **scales,
+            )
+            proc = process_logits_dynamic(
+                logits[:, 0], self.dyn, top_k=sampling.top_k, use_top_p=sampling.top_p < 1.0,
+                token_counts=self.counts if use_counts else None, cur_length=gen0 + nrec, eos_ids=eos,
+            )
+            nxt = sample(proc, sampling, self.generator).to(torch.int64)
+            record = finished == 0
+            col = self.col.expand(s, 1)
+            self.tokens.scatter_(1, col, torch.where(record, nxt, -1)[:, None])
+            if logprobs:
+                lp = torch.log_softmax(proc, dim=-1).gather(-1, nxt[:, None])[:, 0]
+                self.lps.scatter_(1, col, torch.where(record, lp, 0.0)[:, None])
+            rec = record.to(torch.int64)
+            nrec.add_(rec)
+            finished.copy_(torch.where(record & ((nxt == eos) | (nrec >= remaining)), 1, finished))
+            if use_counts:
+                self.counts[rows, nxt] += rec.to(torch.int32)
+            self.last_tokens.copy_(torch.where(record[:, None], nxt[:, None], self.last_tokens))
+            pos.add_(rec)
+            self.col += 1
+
+        return step

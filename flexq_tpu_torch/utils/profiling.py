@@ -17,7 +17,8 @@ class GenerationStats:
     prompt_tokens: int = 0
     generated_tokens: int = 0
     ttft_s: float = 0.0  # time to first token (prefill + first sample)
-    decode_s: float = 0.0  # total decode-loop wall time
+    decode_s: float = 0.0  # total decode-loop wall time (a graph capture left out)
+    capture_s: float = 0.0  # the fused loop's CUDA graph capture, when this call made it
     step_times_s: List[float] = dataclasses.field(default_factory=list)
 
     @property

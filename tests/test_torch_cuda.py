@@ -905,3 +905,199 @@ def test_beam_reorder_on_the_card_equals_cpu(gen, quant):
     for p in pools:
         p.copy_pages([3, 5, 1], [6, 7, 2])
     assert all(torch.equal(a.cpu(), b) for a, b in zip(pools[0]._buffers(), pools[1]._buffers()))
+
+
+def test_true_div_keeps_its_bits_with_the_cached_divisor(gen):
+    """quant/quantizer.py::true_div divides by a divisor kept on the card
+    (made once, so a captured graph copies nothing): the bits of a fresh
+    divisor's true division and of the CPU's, in a captured graph too."""
+    from flexq_tpu_torch.quant.quantizer import true_div
+
+    x = torch.randn(8192, generator=gen, device="cuda")
+    for d in (7, 127, 4096, 11008, 3.0):
+        want = x / torch.tensor(d, dtype=x.dtype, device="cuda")
+        assert torch.equal(true_div(x, d), want) and torch.equal(true_div(x, d), want)
+        assert torch.equal(true_div(x, d).cpu(), true_div(x.cpu(), d))
+    out = torch.empty_like(x)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out.copy_(true_div(x, 4096))
+    graph.replay()
+    assert torch.equal(out, x / torch.tensor(4096.0, device="cuda"))
+
+
+def dense_llama(gen, layers, hidden, ffn, heads, vocab):
+    """A dense LLaMA tree [in, out] of random bf16 weights on the card and
+    its ModelConfig (no files: the widths may be a 7B layer's)."""
+    from flexq_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig.llama(vocab_size=vocab, hidden_size=hidden, intermediate_size=ffn, num_layers=layers,
+                            num_heads=heads, max_seq_len=512)
+    shapes = {"q_proj": (hidden, hidden), "k_proj": (hidden, hidden), "v_proj": (hidden, hidden),
+              "o_proj": (hidden, hidden), "gate_proj": (hidden, ffn), "up_proj": (hidden, ffn),
+              "down_proj": (ffn, hidden)}
+    dense = [dict({k: {"w": 0.05 * randn(gen, *s)} for k, s in shapes.items()},
+                  input_norm=1 + 0.1 * randn(gen, hidden), post_norm=1 + 0.1 * randn(gen, hidden))
+             for _ in range(layers)]
+    return cfg, {"embed": randn(gen, vocab, hidden), "final_norm": 1 + 0.1 * randn(gen, hidden), "layers": dense,
+                 "lm_head": 0.05 * randn(gen, hidden, vocab)}
+
+
+def sched_at(gen, kind, cfg, tree, policy, **kw):
+    """A card scheduler (4 slots) over the dense, paged or int8 pool cache,
+    three requests admitted and two per-token ticks run."""
+    from flexq_tpu_torch.serve.scheduler import BatchScheduler
+
+    sched = BatchScheduler(tree, cfg, policy, num_slots=4, max_seq_len=512, paged=kind != "dense",
+                           kv_dtype=torch.int8 if kind == "int8" else torch.bfloat16, **kw)
+    for n in (10, 70, 33):
+        sched.add_request(torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist(),
+                          max_new_tokens=12, eos_id=-1)
+    for _ in range(2):
+        sched.step()
+    return sched
+
+
+def decode_step_of(sched):
+    """The scheduler's eager decode step over every slot at its current
+    positions (per-row tensor path), writing its logits into a static
+    buffer; K/V rewrites land where the last tick wrote them."""
+    positions = torch.tensor([s.pos if s.req_id is not None else 0 for s in sched.slots], device="cuda")
+    table = sched.ptable.to_device(sched.device) if sched.paged else None
+    box = {}
+
+    def step():
+        if sched.paged:
+            logits = sched._step_paged_fn(sched.last_tokens, sched.pool.state(), positions, table)
+        else:
+            logits = sched._step_fn(sched.last_tokens, sched.kv, positions)
+        if "out" not in box:
+            box["out"] = torch.empty_like(logits)
+        box["out"].copy_(logits)
+
+    return step, box
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "int8"])
+def test_captured_decode_step_equals_the_eager_step(gen, kind):
+    """A StepGraph of the scheduler's decode step replays the eager step's
+    logits bit for bit over the dense cache, the page pool and the int8
+    pool (every kernel of the step captured), and each replay adds the
+    capture's launches to the wrappers' counts (the capture itself none)."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.quantized import quantize_params
+    from flexq_tpu_torch.serve.graphs import StepGraph
+
+    cfg, dense = dense_llama(gen, 2, 256, 704, 2, 1000)
+    policy = QuantPolicy.llama_flex()
+    sched = sched_at(gen, kind, cfg, quantize_params(dense, cfg, policy), policy)
+    step, box = decode_step_of(sched)
+    step()
+    want = box["out"].clone()
+    graph = StepGraph(step, sched.device)
+    graph.run(1)  # the eager warm-up and the capture
+    assert graph.captured and torch.equal(box["out"], want)
+    box["out"].zero_()
+    reset_launch_counts()
+    graph.run(3)
+    torch.cuda.synchronize()
+    assert torch.equal(box["out"], want)
+    counts = launch_counts()
+    attn = "flash_decode" if kind == "dense" else "flash_decode_paged"
+    assert counts[attn] == 3 * cfg.num_layers and counts["rmsnorm_quant"] > 0 and counts["w6_matmul"] > 0
+    assert graph.replays == 3 and sum(counts.values()) == 3 * graph.launches_per_replay
+
+
+def test_shared_buffer_growth_after_a_capture_keeps_the_replay(gen):
+    """The split scratch and arrival counters grow by replacement; a graph
+    captured over the old tensors holds them, so a growth after the capture
+    (the old memory then handed out again and overwritten) leaves its
+    replay's logits unchanged. Widths of a 7B layer, so route B splits K
+    and flash_decode combines its splits."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.kernels import common
+    from flexq_tpu_torch.models.quantized import quantize_params
+    from flexq_tpu_torch.serve.graphs import StepGraph
+
+    cfg, dense = dense_llama(gen, 1, 4096, 11008, 32, 1000)
+    policy = QuantPolicy.llama_flex()
+    sched = sched_at(gen, "dense", cfg, quantize_params(dense, cfg, policy), policy)
+    step, box = decode_step_of(sched)
+    graph = StepGraph(step, sched.device)
+    graph.run(2)
+    torch.cuda.synchronize()
+    want = box["out"].clone()
+    dev = sched.device
+    counters, scratch = common._counters.get(dev), common._scratch.get(dev)
+    assert counters is not None and scratch is not None
+    assert any(t is counters for t in graph._held) and any(t is scratch for t in graph._held)
+    common.arrival_counters(dev, 8 * counters.numel())
+    common.split_scratch(dev, 8 * scratch.numel())
+    assert common._counters[dev] is not counters and common._scratch[dev] is not scratch
+    junk = [torch.full_like(counters, -7), torch.full_like(scratch, float("nan"))]  # the old sizes again
+    box["out"].zero_()
+    graph.run(2)
+    torch.cuda.synchronize()
+    assert torch.equal(box["out"], want)
+    assert int(counters.abs().sum()) == 0  # the held counters are left zero
+    del junk
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "int8"])
+def test_fused_ticks_on_the_card_equal_per_token_ticks(gen, kind):
+    """fused_tick=4 replays one captured step per decode step and gives the
+    per-token ticks' greedy streams; the replays' launches are counted."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.quantized import quantize_params
+
+    cfg, dense = dense_llama(gen, 2, 256, 704, 2, 1000)
+    policy = QuantPolicy.llama_flex()
+    tree = quantize_params(dense, cfg, policy)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen, device="cuda").tolist() for n in (10, 70, 33, 5)]
+    runs = []
+    for fused in (0, 4):
+        from flexq_tpu_torch.serve.scheduler import BatchScheduler
+
+        sched = BatchScheduler(tree, cfg, policy, num_slots=3, max_seq_len=512, paged=kind != "dense",
+                               kv_dtype=torch.int8 if kind == "int8" else torch.bfloat16, fused_tick=fused)
+        ids = [sched.add_request(p, max_new_tokens=m, eos_id=-1) for p, m in zip(prompts, (9, 4, 13, 6))]
+        reset_launch_counts()
+        out = sched.run()
+        runs.append(([out[i] for i in ids], sched, launch_counts()))
+    (want, _, _), (got, sched, counts) = runs
+    assert got == want
+    graphs = list(sched.fused_graphs.values())
+    assert len(graphs) == 1 and graphs[0].replays > 0 and max(sched.tick_steps) == 4
+    attn = "flash_decode" if kind == "dense" else "flash_decode_paged"
+    assert counts[attn] >= cfg.num_layers * graphs[0].replays
+
+
+def test_sampled_graph_replays_draw_the_step_loops_tokens(gen):
+    """The Engine's fused loop on the card (a captured step, the generator
+    registered with the graph) draws what the eager step loop draws under
+    one seed, in a first call (warm-up, capture, replays) and a second
+    (replays only); and sample()'s exponential race is torch.multinomial's
+    draw from the same generator state."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.quantized import quantize_params
+    from flexq_tpu_torch.serve.engine import Engine
+    from flexq_tpu_torch.serve.sampling import SamplingParams, sample
+
+    probs_logits = randn(gen, 6, 1000, dtype=torch.float32)
+    hot = SamplingParams(greedy=False)
+    g1, g2 = (torch.Generator(device="cuda").manual_seed(3) for _ in range(2))
+    want = torch.multinomial(torch.softmax(probs_logits, -1), 1, generator=g2)[:, 0]
+    assert torch.equal(sample(probs_logits, hot, g1).long(), want)
+
+    cfg, dense = dense_llama(gen, 2, 256, 704, 2, 1000)
+    policy = QuantPolicy.llama_flex()
+    eng = Engine(quantize_params(dense, cfg, policy), cfg, policy, max_seq_len=256)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 12), generator=gen, device="cuda").tolist()
+    sp = SamplingParams(greedy=False, temperature=0.8, top_p=0.9, repetition_penalty=1.1, min_length=4)
+    first, lp1, st1 = eng.generate(prompts, 16, sp, eos_id=-1, seed=5, return_logprobs=True, return_stats=True)
+    step, lp0 = eng.generate(prompts, 16, sp, eos_id=-1, seed=5, return_logprobs=True, mode="step")
+    second, lp2, st2 = eng.generate(prompts, 16, sp, eos_id=-1, seed=5, return_logprobs=True, return_stats=True)
+    other, _ = eng.generate(prompts, 16, sp, eos_id=-1, seed=6, return_logprobs=True)
+    assert first == step == second and lp1 == lp0 == lp2 and other != first
+    (_, graph), = eng._fused.values()
+    assert st1.capture_s > 0 and st2.capture_s == 0 and graph.replays == 14 + 15 + 15

@@ -3,7 +3,7 @@ hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal, with the reference's parameters in its
 order and its return order (out, logprobs, stats); the paths still to port
-raise (meshes, and the scheduler's fused ticks), the reference's refusal of
+raise (meshes; a negative fused_tick is refused), the reference's refusal of
 logprobs in spec mode stays, and half a cache is refused (the cache-less
 forward takes neither kv_k nor kv_v)."""
 
@@ -111,10 +111,12 @@ def test_unsupported_paths_raise(model):
     with pytest.raises(ValueError):  # half a cache: the cache-less forward takes neither
         forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=eng.new_cache(2)[0], kv_v=None, cache_pos=0,
                       device="cpu")
-    # the scheduler's paths still to port: meshes, fused ticks
-    for kw in (dict(mesh=object()), dict(pp_mesh=object()), dict(fused_tick=4)):
+    # the scheduler's paths still to port: meshes
+    for kw in (dict(mesh=object()), dict(pp_mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", **kw)
+    with pytest.raises(ValueError):
+        BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", fused_tick=-1)
     sched = BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, paged=True, device="cpu")
     with pytest.raises(ValueError):  # wider than the slots
         sched.add_request([1, 2, 3], max_new_tokens=2, beam_width=3)
