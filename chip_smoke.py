@@ -129,12 +129,40 @@ exits nonzero without the final line:
      (Since phase 7, every fused Engine run and every fused_tick > 0 run
      of the earlier phases, the HTTP server's CLI at its default
      --fused-tick 8 among them, replays its captured step.)
+  8. the quantize-and-evaluate path, after the earlier models are freed
+     (run inside phase 5's directory's lifetime), in true f32 (TF32 off):
+     (a) the 32-layer LLaMA-2-7B shape with random f32 weights: the dense,
+     fake-quant (fake_quant_weights + the dense forward) and packed
+     (quantize_params + the cache-less forward_serve, f32) perplexities over
+     the first four 2048-token windows of data_tiny/test.npy (B = 1, M =
+     2048) under llama_flex, llama_flex(6, 8), llama_flex(4, 8) and W8A8,
+     with the packed-vs-oracle and oracle-vs-dense logit gaps; each packed
+     path held against its oracle at the reference's bounds (8e-2 of max
+     |logit|, argmax agreement >= 0.75) on the first 2 layers of the same
+     model (the depth of the reference's test), and at 32 layers, where
+     flipped activation codes cascade, by a code witness: the oracle with
+     the packed path's activation codes handed on agrees with the packed
+     path within 1e-3 of max |logit| (its own codes off the handed ones by
+     one code, on at most 1e-3 of the entries), beside the per-layer share
+     of codes the oracle computes off the packed path's and the oracle
+     against itself with its embedding one ulp off; (b) OPT-6.7B widths at
+     8 layers under opt_flex likewise, held over the decisive rows (K14,
+     K15); (c) 256 greedy tokens through Engine.generate (bf16 weights, W*Ax
+     prompt, llama_flex and W4A8) teacher-forced through the bf16 fake-quant
+     oracle: RMSE / std and greedy agreement, as it is and with the Engine's
+     codes handed on, and the oracle against the dense model; (d)
+     analyze_act_sensitivity and smooth_llama at full width on a 512-token
+     window of data_tiny/val.npy, the fold's identity held at 1e-3, the
+     fake-quant ppl with and without it; (e) `python -m flexq_tpu_torch.main`
+     with --smooth and with --export on phase 5's directory, the export
+     equal to phase 5's leaf for leaf.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
 
 import contextlib
 import ctypes
+import dataclasses
 import http.client
 import json
 import math
@@ -154,6 +182,7 @@ import torch
 from flexq_tpu_torch.bindings import FlexQCausalLM
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.export import safetensors_io
+from flexq_tpu_torch.eval.ppl import perplexity
 from flexq_tpu_torch.export.exporter import load_packed
 from flexq_tpu_torch.kernels import (
     _build,
@@ -190,12 +219,15 @@ from flexq_tpu_torch.kernels.w6_bf16 import w6_glu_bf16_plain, w6_matmul_bf16_pl
 from flexq_tpu_torch.kernels.w6_matmul import w6_matmul_plain
 from flexq_tpu_torch.kernels.w8_matmul import w8_matmul_plain
 from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STREAM, launch as int_launch, stream_takes, w6ax_route
-from flexq_tpu_torch.models.llama import rope_cos_sin, rope_gemm_operands
-from flexq_tpu_torch.models import hf_loader, quantized
+from flexq_tpu_torch.models.llama import fake_quant_weights, forward as dense_forward, rope_cos_sin, rope_gemm_operands
+from flexq_tpu_torch.models.opt import fake_quant_weights as opt_fake_quant_weights, forward as opt_dense_forward
+from flexq_tpu_torch.models import hf_loader, llama, quantized
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear, quantize_params
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
-from flexq_tpu_torch.quant.quantizer import CLIPMIN
+from flexq_tpu_torch.quant.quantizer import CLIPMIN, dequantize, quantize
+from flexq_tpu_torch.quant.sensitivity import analyze_act_sensitivity
+from flexq_tpu_torch.quant.smooth import collect_llama_act_stats, smooth_llama
 from flexq_tpu_torch.serve import Engine, SamplingParams, beam, speculative
 from flexq_tpu_torch.serve import http as serve_http
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
@@ -927,68 +959,61 @@ def check_wa16(results, dev, gen, timer):
                extra=f" (K x {n} dense bf16 matmul; tolerance: f32 1e-4 of max|out|, bf16 1 ulp)")
 
 
-def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False):
-    """Random LLaMA weights (N(0, 0.02), residual outputs scaled by
-    1/sqrt(2L)) generated and quantized layer by layer on the card
-    (``fuse=True``: the fused qkv_proj / gate_up tree; a policy with a
-    quantized head packs the lm_head too)."""
+def random_weights(cfg: ModelConfig, gen, dev, pack=None, res_std=None):
+    """Random f32 dense weights in the reference's tree, on the card, each
+    layer handed to ``pack`` (e.g. quantize_layer) as soon as it is drawn:
+    LLaMA (N(0, 0.02), residual outputs N(0, ``res_std``), by default 0.02
+    scaled by 1/sqrt(2L), norms 1, an untied head) or pre-LN OPT (weights
+    and biases N(0, 0.02), residual outputs as LLaMA's, LayerNorm g = 1 and
+    b N(0, 0.02), max_seq_len + 2 learned positions, the head tied to the
+    embedding)."""
     std = 0.02
-    res_std = std / math.sqrt(2 * cfg.num_layers)
+    res_std = std / math.sqrt(2 * cfg.num_layers) if res_std is None else res_std
     h, f = cfg.hidden_size, cfg.intermediate_size
     nq, nkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    pack = pack or (lambda lp: lp)
 
-    def dense(k, n, s):
-        return {"w": torch.randn((k, n), generator=gen, device=dev) * s}
+    def randn(*shape, s=std):
+        return torch.randn(shape, generator=gen, device=dev) * s
 
-    layers = []
-    for _ in range(cfg.num_layers):
-        lp = {
-            "input_norm": torch.ones(h, device=dev), "post_norm": torch.ones(h, device=dev),
-            "q_proj": dense(h, nq, std), "k_proj": dense(h, nkv, std), "v_proj": dense(h, nkv, std),
-            "o_proj": dense(nq, h, res_std), "gate_proj": dense(h, f, std), "up_proj": dense(h, f, std),
-            "down_proj": dense(f, h, res_std),
-        }
-        layers.append(quantize_layer(lp, cfg, policy, dtype, dev, fuse=fuse))
-    return {
-        "embed": (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * std).to(dtype),
-        "final_norm": torch.ones(h, device=dev, dtype=dtype),
-        "layers": layers,
-        "lm_head": quantize_head((torch.randn((h, cfg.vocab_size), generator=gen, device=dev) * std).to(dtype),
-                                 policy),
-    }
+    if cfg.arch == "opt":
+        def lin(k, n, s=std):
+            return {"w": randn(k, n, s=s), "b": randn(n)}
+
+        def norm():
+            return {"g": torch.ones(h, device=dev), "b": randn(h)}
+
+        layers = [pack({"input_norm": norm(), "post_norm": norm(), "q_proj": lin(h, h), "k_proj": lin(h, h),
+                        "v_proj": lin(h, h), "o_proj": lin(h, h, res_std), "fc1": lin(h, f),
+                        "fc2": lin(f, h, res_std)}) for _ in range(cfg.num_layers)]
+        return {"embed": randn(cfg.vocab_size, h), "pos_embed": randn(cfg.max_seq_len + 2, h), "final_norm": norm(),
+                "layers": layers}
+    layers = [pack({"input_norm": torch.ones(h, device=dev), "post_norm": torch.ones(h, device=dev),
+                    "q_proj": {"w": randn(h, nq)}, "k_proj": {"w": randn(h, nkv)}, "v_proj": {"w": randn(h, nkv)},
+                    "o_proj": {"w": randn(nq, h, s=res_std)}, "gate_proj": {"w": randn(h, f)},
+                    "up_proj": {"w": randn(h, f)}, "down_proj": {"w": randn(f, h, s=res_std)}})
+              for _ in range(cfg.num_layers)]
+    return {"embed": randn(cfg.vocab_size, h), "final_norm": torch.ones(h, device=dev), "layers": layers,
+            "lm_head": randn(h, cfg.vocab_size)}
+
+
+def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False):
+    """random_weights' LLaMA quantized layer by layer on the card
+    (``fuse=True``: the fused qkv_proj / gate_up tree; a policy with a
+    quantized head packs the lm_head too)."""
+    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev, fuse=fuse))
+    return {"embed": t["embed"].to(dtype), "final_norm": t["final_norm"].to(dtype), "layers": t["layers"],
+            "lm_head": quantize_head(t["lm_head"].to(dtype), policy)}
 
 
 OPT_67B = dict(vocab_size=50272, hidden_size=4096, intermediate_size=16384, num_layers=32, num_heads=32)
 
 
 def random_opt_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16):
-    """Random pre-LN OPT weights in the reference's tree (N(0, 0.02) weights
-    and biases, residual outputs scaled by 1/sqrt(2L), LayerNorm g = 1 and
-    b N(0, 0.02), 2050 learned positions), generated and quantized layer by
-    layer on the card; the head is tied to the embedding."""
-    std = 0.02
-    res_std = std / math.sqrt(2 * cfg.num_layers)
-    h, f = cfg.hidden_size, cfg.intermediate_size
-
-    def randn(*shape, s=std):
-        return torch.randn(shape, generator=gen, device=dev) * s
-
-    def lin(k, n, s=std):
-        return {"w": randn(k, n, s=s), "b": randn(n)}
-
-    def norm():
-        return {"g": torch.ones(h, device=dev), "b": randn(h)}
-
-    layers = [quantize_layer({"input_norm": norm(), "post_norm": norm(), "q_proj": lin(h, h), "k_proj": lin(h, h),
-                              "v_proj": lin(h, h), "o_proj": lin(h, h, res_std), "fc1": lin(h, f),
-                              "fc2": lin(f, h, res_std)}, cfg, policy, dtype, dev)
-              for _ in range(cfg.num_layers)]
-    return {
-        "embed": randn(cfg.vocab_size, h).to(dtype),
-        "pos_embed": randn(cfg.max_seq_len + 2, h).to(dtype),
-        "final_norm": {"g": torch.ones(h, device=dev, dtype=dtype), "b": randn(h).to(dtype)},
-        "layers": layers,
-    }
+    """random_weights' pre-LN OPT quantized layer by layer on the card."""
+    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev))
+    return {"embed": t["embed"].to(dtype), "pos_embed": t["pos_embed"].to(dtype),
+            "final_norm": {k: v.to(dtype) for k, v in t["final_norm"].items()}, "layers": t["layers"]}
 
 
 def quantize_head(head, policy):
@@ -999,6 +1024,7 @@ def quantize_head(head, policy):
 
 
 def to_device(tree, dev):
+    """The tree's tensors moved to ``dev`` (a device, or a dtype)."""
     if isinstance(tree, dict):
         return {k: to_device(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
@@ -1627,17 +1653,23 @@ def spec_prompts(vocab: int, b: int = 4, n: int = 64, period: int = 16):
 
 
 class LogitTap:
-    """Keeps the logits of an Engine's decode steps (``steps``: [B, V] a
-    step) and verify windows (``windows``: (starts [B], [B, C, V]) a step),
-    and counts flash_prefill's launches inside windows of ``width`` tokens.
-    The tensors stay on the device until read."""
+    """Keeps the logits of an Engine's prompts (``prompts``: [B, V] a
+    prompt), decode steps (``steps``: [B, V] a step) and verify windows
+    (``windows``: (starts [B], [B, C, V]) a step), and counts
+    flash_prefill's launches inside windows of ``width`` tokens. The
+    tensors stay on the device until read."""
 
-    def __init__(self, eng, width: int):
+    def __init__(self, eng, width: int = 0):
         self.eng, self.width = eng, width
-        self.steps, self.windows, self.window_launches = [], [], 0
+        self.prompts, self.steps, self.windows, self.window_launches = [], [], [], 0
 
     def __enter__(self):
-        eng, step, spec = self.eng, self.eng._decode_step, self.eng._spec_forward
+        eng, prefill, step, spec = self.eng, self.eng._prefill, self.eng._decode_step, self.eng._spec_forward
+
+        def prompt(ids, cache, prompt_len):
+            logits, cache = prefill(ids, cache, prompt_len)
+            self.prompts.append(logits)
+            return logits, cache
 
         def decode_step(ids, cache, pos):
             logits, cache = step(ids, cache, pos)
@@ -1653,11 +1685,11 @@ class LogitTap:
             self.windows.append((starts.cpu(), logits))
             return logits, cache
 
-        eng._decode_step, eng._spec_forward = decode_step, spec_forward
+        eng._prefill, eng._decode_step, eng._spec_forward = prompt, decode_step, spec_forward
         return self
 
     def __exit__(self, *exc):
-        del self.eng._decode_step, self.eng._spec_forward
+        del self.eng._prefill, self.eng._decode_step, self.eng._spec_forward
 
     def spec_logits(self, row: int, q: int):
         """Row ``row``'s logits for the token after query position q: from
@@ -2526,7 +2558,7 @@ class Proc:
                 self.p.wait()
 
 
-def checkpoint_and_http(dev, gen, cfg=None, reqs=None, adapter_tol=2e-2):
+def checkpoint_and_http(dev, gen, cfg=None, reqs=None, adapter_tol=2e-2, workdir=None):
     """Phase 5: an HF-layout LLaMA directory (LLaMA-2-7B widths, CKPT_LAYERS
     layers) exported under llama_flex by the exporter's CLI, loaded with
     load_packed on the card and held leaf for leaf against quantize_params
@@ -2534,12 +2566,16 @@ def checkpoint_and_http(dev, gen, cfg=None, reqs=None, adapter_tol=2e-2):
     served through serve_background (serve_and_compare); the HTTP CLI started
     as a subprocess and asked for a completion and /health; and
     FlexQCausalLM.from_packed's forward on the card held against its plain
-    CPU run. Returns the HTTP run's launch counts."""
+    CPU run. Returns the HTTP run's launch counts. With ``workdir`` the HF
+    directory ("hf") and the export ("packed") are written there and kept
+    (phase 8 runs the quantize-and-evaluate CLI on them), else in a
+    temporary directory."""
     cfg = cfg or ModelConfig.llama(num_layers=CKPT_LAYERS)
     policy = QuantPolicy.llama_flex()
     log(f"ckpt: LLaMA-2-7B widths (hidden {cfg.hidden_size}, FFN {cfg.intermediate_size}, {cfg.num_heads} heads, "
         f"vocab {cfg.vocab_size}), depth cut to {cfg.num_layers} layers to keep the phase near a minute")
-    with tempfile.TemporaryDirectory(prefix="flexq_ckpt_") as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory(prefix="flexq_ckpt_"))
         hf_dir, packed = os.path.join(tmp, "hf"), os.path.join(tmp, "packed")
         os.makedirs(hf_dir)
         t0 = time.perf_counter()
@@ -2662,6 +2698,516 @@ def profile_call(label, fn) -> None:
             log(f"profile   {ms:9.3f} ms  {n:6d} calls  {key[:90]}")
 
 
+# ---- phase 8: the quantize-and-evaluate path --------------------------------
+
+EVAL_WINDOWS, EVAL_SEQLEN = 4, 2048  # the first 4 windows of data_tiny/test.npy at the CLI's --seqlen default
+OPT_EVAL_LAYERS = 8  # OPT-6.7B's widths, its 32 layers cut to 8 for the time limit
+ORACLE_PROMPT, ORACLE_NEW, ORACLE_MAX = 128, 256, 512  # scripts/oracle_parity.py's lengths
+SMOOTH_TOKENS = 512
+EVAL_BOUND, EVAL_AGREE = 8e-2, 0.75  # packed vs fake-quant oracle: the reference's bounds (tests/test_opt_model.py)
+EVAL_HOLD_LAYERS = 2  # ... at the depth its tests set them
+# at full depth, the oracle with the packed path's activation codes handed on
+# against the packed path: max |dlogit| / max |logit|, argmax agreement, and
+# the share of entries where the oracle's own codes part from the handed ones
+HANDON_TOL, HANDON_AGREE, HANDON_OFF = 1e-3, 0.99, 1e-3
+SMOOTH_TOL = 1e-3  # the smoothing fold's identity on the dense f32 logits, of max |logit|
+# the kernels phase 8 must launch (K1-K6, K9, K10, K12, K14, K15)
+EVAL_KERNELS = ("rmsnorm_quant", "w6_matmul", "w6_matmul_stream", "quant_act", "glu_quant", "flash_decode",
+                "flash_prefill", "w4_matmul", "w8_matmul", "layernorm_quant", "relu_quant")
+EVAL_PATHS = {
+    "eval W6": PRODUCERS + ("w6_matmul",),  # M = 2048: route A, the tensor cores
+    "eval W4": PRODUCERS + ("w4_matmul",),
+    "eval W8": PRODUCERS + ("w8_matmul",),
+    "eval OPT": OPT_PRODUCERS + ("w6_matmul",),
+    "oracle W6": W6AX,
+    "oracle W4": PRODUCERS + ("w4_matmul", "flash_decode", "flash_prefill"),
+}
+
+
+def data_file(name: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "data_tiny", name)
+
+
+def sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def require_launched(label, counts, path, dev) -> None:
+    """The kernels of EVAL_PATHS[path] launched in ``counts`` (on the card:
+    on the CPU every wrapper takes its plain version)."""
+    missing = [k for k in EVAL_PATHS[path] if counts[k] == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+
+
+def kept_ppl(fn, windows):
+    """The port's perplexity over ``windows`` through ``fn`` (ids -> logits),
+    the logits of each window kept on the card: (ppl, [logits], seconds)."""
+    kept = []
+
+    def fwd(ids):
+        logits = fn(ids)
+        kept.append(logits)
+        return logits
+
+    sync()
+    t0 = time.perf_counter()
+    ppl = perplexity(fwd, windows)
+    sync()
+    return ppl, kept, time.perf_counter() - t0
+
+
+def logit_gaps(got, want):
+    """Per window: max |dlogit| / max |logit|, argmax agreement over all rows
+    and over the decisive rows (the oracle's top-2 margin above the
+    window's max |dlogit|); and the decisive rows' share."""
+    rows = []
+    for g, w in zip(got, want):
+        d = (g - w).abs().max()
+        top2 = w.topk(2, dim=-1).values
+        decisive = (top2[..., 0] - top2[..., 1]) > d
+        same = g.argmax(-1) == w.argmax(-1)
+        rows.append(((d / w.abs().max()).item(), same.float().mean().item(),
+                     (same & decisive).sum().item() / max(decisive.sum().item(), 1), decisive.float().mean().item()))
+    return rows
+
+
+# a packed LLaMA layer's producer calls, in order (K1 before q/k/v, K4 before
+# o_proj, K1 with the residual before gate/up, K5 before down_proj), and the
+# oracle's quant points that quantize the same inputs
+LAYER_PRODUCERS = ("rmsnorm_quant", "quant_act", "rmsnorm_quant", "glu_quant")
+ORACLE_SLOT = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1, "gate_proj": 2, "up_proj": 2, "down_proj": 3}
+SLOT_NAMES = ("q_proj", "o_proj", "gate_proj", "down_proj")  # the one quant point a slot is counted at
+
+
+class PackedCodes:
+    """Keeps, on the device, the activation codes and scales that a packed
+    LLaMA run's producers give (as models.quantized calls them): per layer
+    and producer call, the rows of the first ``forwards`` forwards (None:
+    every forward, e.g. an Engine's prompt, then its steps), joined."""
+
+    def __init__(self, num_layers: int, forwards=None):
+        self.num_layers, self.forwards, self.calls = num_layers, forwards, 0
+        self.rows = [[[] for _ in LAYER_PRODUCERS] for _ in range(num_layers)]
+
+    def __enter__(self):
+        self.saved = {n: getattr(quantized, n) for n in set(LAYER_PRODUCERS)}
+        for n, fn in self.saved.items():
+            setattr(quantized, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(quantized, n, fn)
+
+    def _wrap(self, name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            forward, i = divmod(self.calls, len(LAYER_PRODUCERS) * self.num_layers)
+            layer, slot = divmod(i, len(LAYER_PRODUCERS))
+            if name != LAYER_PRODUCERS[slot]:
+                raise AssertionError(f"packed codes: call {self.calls} is {name}, not {LAYER_PRODUCERS[slot]}")
+            self.calls += 1
+            if self.forwards is None or forward < self.forwards:
+                self.rows[layer][slot].append(out[:2])
+            return out
+
+        return call
+
+    def codes(self, layer: int, slot: int):
+        rows = self.rows[layer][slot]
+        return torch.cat([q for q, _ in rows]), torch.cat([s for _, s in rows])
+
+
+class OracleCodes:
+    """Holds the fake-quant oracle's activation codes (models.llama's
+    _maybe_quant_act over its first forward) against a PackedCodes of the
+    packed path on the same ids: per layer, the entries whose codes part
+    and the most they part by. With ``hand_on`` the oracle takes the packed
+    path's codes and scales in place of its own, so the two can then part
+    only where their arithmetic does, not by a flipped code."""
+
+    def __init__(self, packed: PackedCodes, hand_on: bool):
+        self.packed, self.hand_on = packed, hand_on
+        self.seen = dict.fromkeys(ORACLE_SLOT, 0)
+        self.off = [[0, 0, 0] for _ in range(packed.num_layers)]  # per layer: codes off, codes, most off
+
+    def __enter__(self):
+        self.saved = llama._maybe_quant_act
+        llama._maybe_quant_act = self._quant
+        return self
+
+    def __exit__(self, *exc):
+        llama._maybe_quant_act = self.saved
+
+    def _quant(self, x, name, policy):
+        spec = policy.act_spec(name) if policy is not None and name in ORACLE_SLOT else None
+        if spec is None or not spec.enabled or self.seen[name] >= self.packed.num_layers:
+            return self.saved(x, name, policy)
+        layer, slot = self.seen[name], ORACLE_SLOT[name]
+        self.seen[name] += 1
+        q, s, _ = quantize(x, spec)
+        pq, ps = self.packed.codes(layer, slot)
+        g = -(-x.shape[-1] // spec.group_size)  # the oracle's groups (the packed FFN may be padded past them)
+        pq, ps = pq[:, : g * spec.group_size].reshape(q.shape), ps[:, :g].reshape(s.shape)
+        if name == SLOT_NAMES[slot]:
+            d = (q.int() - pq.int()).abs()
+            off = self.off[layer]
+            off[0] += int((d > 0).sum())
+            off[1] += d.numel()
+            off[2] = max(off[2], int(d.max()))
+        if self.hand_on:
+            q, s = pq, ps
+        return dequantize(q, s, None, spec, tuple(x.shape), x.dtype)
+
+    def shares(self):
+        return [off / max(total, 1) for off, total, _ in self.off]
+
+    def totals(self):
+        return sum(o[0] for o in self.off), sum(o[1] for o in self.off), max(o[2] for o in self.off)
+
+
+def fmt_shares(shares) -> str:
+    return "[" + ", ".join(f"{v:.2g}" for v in shares) + "]"
+
+
+def code_witness(label, fq, cfg, policy, window, codes, as_is, packed_logits, oracle_logits) -> bool:
+    """At full depth on the first window: the oracle again with the packed
+    path's activation codes handed on at every quant point, held against
+    the packed path (HANDON_TOL of max |logit|, HANDON_AGREE argmax
+    agreement; its own codes off the handed ones by at most one code on at
+    most HANDON_OFF of the entries): if they part only by flipped codes,
+    the handed-on run closes the gap. Logged beside it: the share of codes
+    the oracle computes off the packed path's, layer by layer, as it is
+    (``as_is``: where the cascade starts and how it grows) and handed on;
+    and the oracle against itself with its embedding rows one f32 ulp off
+    (how far this model carries an ulp)."""
+    with OracleCodes(codes, hand_on=True) as handed:
+        got = dense_forward(fq, cfg, window, policy=policy)
+    gap, agree = logit_gaps([got], [packed_logits])[0][:2]
+    del got
+    embed = fq["embed"]
+    nudged = {**fq, "embed": torch.nextafter(embed, torch.full_like(embed, math.inf))}
+    ulp_gap, ulp_agree = logit_gaps([dense_forward(nudged, cfg, window, policy=policy)], [oracle_logits])[0][:2]
+    del nudged
+    off, total, most = handed.totals()
+    as_off, as_total, as_most = as_is.totals()
+    ok = gap <= HANDON_TOL and agree >= HANDON_AGREE and most <= 1 and off <= HANDON_OFF * total
+    log(f"eval code witness {label}, {cfg.num_layers} layers, first window: the oracle with the packed path's "
+        f"activation codes handed on vs the packed path: max |dlogit|/max|logit| {gap:.3g}, argmax agreement "
+        f"{agree:.4f} (bounds {HANDON_TOL:g}, {HANDON_AGREE:g}); the oracle's own codes off the handed ones: "
+        f"{off}/{total} (most {most}; bounds {HANDON_OFF:g} of the entries, one code): {'held' if ok else 'FAILED'}")
+    log(f"eval code witness {label}: the oracle's codes off the packed path's, layer by layer, as it is "
+        f"{fmt_shares(as_is.shares())} ({as_off}/{as_total}, most {as_most}); handed on {fmt_shares(handed.shares())}")
+    log(f"eval code witness {label}: the oracle against itself with its embedding rows one f32 ulp off: "
+        f"max |dlogit|/max|logit| {ulp_gap:.3g}, argmax agreement {ulp_agree:.4f}")
+    return ok
+
+
+def cut_layers(tree, n: int):
+    """The tree with its first ``n`` layers (embedding, norms and head kept)."""
+    return {**{k: v for k, v in tree.items() if k != "layers"}, "layers": tree["layers"][:n]}
+
+
+def fake_and_packed(label, dense, cfg, policy, windows, dev, add, path, witness=False):
+    """One policy over the windows, the packed path first (its first
+    window's activation codes kept), then the fake-quant oracle (its first
+    window's codes held against them): (packed ppl, its logits, fake-quant
+    ppl, its logits, seconds of each, the packed run's launch counts,
+    whether the code witness held (``witness``; else None))."""
+    packed = quantize_params(dense, cfg, policy, dtype=torch.float32, device=dev)
+    reset_launch_counts()
+    with PackedCodes(cfg.num_layers, forwards=1) as codes:
+        packed_ppl, got, s_packed = kept_ppl(lambda x: forward_serve(packed, cfg, policy, x, device=dev)[0], windows)
+    counts = launch_counts()
+    add(counts)
+    del packed
+    torch.cuda.empty_cache()
+    require_launched(f"eval {cfg.num_layers} layers", counts, path, dev)
+    fq = fake_quant_weights(dense, policy)
+    with OracleCodes(codes, hand_on=False) as as_is:
+        fake_ppl, oracle, s_fake = kept_ppl(lambda x: dense_forward(fq, cfg, x, policy=policy), windows)
+    held = code_witness(label, fq, cfg, policy, windows[:1], codes, as_is, got[0], oracle[0]) if witness else None
+    del fq, codes
+    torch.cuda.empty_cache()
+    return packed_ppl, got, fake_ppl, oracle, s_packed, s_fake, counts, held
+
+
+def fmt_gaps(gaps) -> str:
+    return (f"per window max |dlogit|/max|logit| {[round(g[0], 4) for g in gaps]}, argmax agreement "
+            f"{[round(g[1], 4) for g in gaps]}, over the decisive rows {[round(g[2], 4) for g in gaps]} "
+            f"({[round(g[3], 3) for g in gaps]} of the rows decisive)")
+
+
+def eval_table(dense, cfg, windows, dev, add):
+    """(a): the dense, fake-quant and packed perplexities of the 32-layer
+    LLaMA-2-7B over the windows, with the packed-vs-oracle and oracle-vs-dense
+    logit gaps. Held: each packed path against its oracle at the reference's
+    bounds at the depth its test sets them (EVAL_HOLD_LAYERS: the first
+    layers of the same model, full width, the same windows), and at full
+    depth, where flipped activation codes cascade (PERF.md §6), by the code
+    witness: with the packed path's codes handed on, the oracle computes the
+    packed path's logits."""
+    ok = True
+    dense_ppl, dense_logits, s = kept_ppl(lambda x: dense_forward(dense, cfg, x), windows)
+    log(f"eval ppl dense f32 (LLaMA-2-7B widths, {cfg.num_layers} layers, random weights, {windows.shape[0]} x "
+        f"{windows.shape[1]}-token windows of data_tiny/test.npy): {dense_ppl:.4f} ({s:.1f}s)")
+    cases = (("llama_flex W6A6 (down A8)", QuantPolicy.llama_flex(), "eval W6"),
+             ("llama_flex(6, 8) W6A8", QuantPolicy.llama_flex(6, 8), "eval W6"),
+             ("llama_flex(4, 8) W4A8", QuantPolicy.llama_flex(4, 8), "eval W4"),
+             ("uniform W8A8", QuantPolicy.uniform("llama", 8, 8), "eval W8"))
+    cut = cut_layers(dense, EVAL_HOLD_LAYERS)
+    ccfg = dataclasses.replace(cfg, num_layers=EVAL_HOLD_LAYERS)
+    fake = {}
+    for label, policy, path in cases:
+        packed_ppl, got, fake_ppl, oracle, s_packed, s_fake, counts, witnessed = fake_and_packed(
+            label, dense, cfg, policy, windows, dev, add, path, witness=True)
+        fake[label] = fake_ppl
+        gaps = logit_gaps(got, oracle)
+        noise = logit_gaps(oracle, dense_logits)
+        del got, oracle
+        torch.cuda.empty_cache()
+        log(f"eval ppl {label}: fake-quant {fake_ppl:.4f} (dppl vs dense {fake_ppl - dense_ppl:+.4f}, {s_fake:.1f}s), "
+            f"packed {packed_ppl:.4f} (dppl vs dense {packed_ppl - dense_ppl:+.4f}, {s_packed:.1f}s); packed vs fake, "
+            f"{cfg.num_layers} layers (the code witness holds them): ppl gap {abs(packed_ppl - fake_ppl) / fake_ppl:.3g} "
+            f"relative, {fmt_gaps(gaps)}; fake vs dense: {fmt_gaps(noise)}")
+        log(f"eval launches {label} packed, {cfg.num_layers} layers: "
+            + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        _, got, _, oracle, _, _, _, _ = fake_and_packed(label, cut, ccfg, policy, windows, dev, add, path)
+        held = logit_gaps(got, oracle)
+        del got, oracle
+        torch.cuda.empty_cache()
+        worst, agree = max(g[0] for g in held), min(g[1] for g in held)
+        passed = worst <= EVAL_BOUND and agree >= EVAL_AGREE
+        log(f"eval hold {label}, the first {EVAL_HOLD_LAYERS} layers (the reference test's depth), packed vs fake-quant "
+            f"oracle: {fmt_gaps(held)} (bounds: max |dlogit|/max|logit| <= {EVAL_BOUND:g}, argmax agreement >= "
+            f"{EVAL_AGREE:g}): {'held' if passed else 'FAILED'}")
+        ok = ok and passed and witnessed and math.isfinite(packed_ppl)
+    del dense_logits
+    torch.cuda.empty_cache()
+    return ok, dense_ppl, fake
+
+
+def oracle_parity(cfg, dev, gen, add):
+    """(c): the port's scripts/oracle_parity.py, on its weights (every linear,
+    the embedding and the head N(0, 0.02) with no residual scaling, norms 1,
+    bf16). 256 greedy tokens through Engine.generate (B = 1, bf16 packed tree
+    and cache, the W6A16 prefill off, so the prompt is act-quantized like
+    the oracle), then the same sequence teacher-forced through the bf16
+    fake-quant oracle: logit RMSE over the oracle's std, max |dlogit|,
+    greedy agreement; the same with the Engine's activation codes handed to
+    the oracle, the share of codes the oracle computes off the Engine's
+    layer by layer, and the oracle against the dense bf16 model."""
+    prompt = np.random.default_rng(7).integers(100, 31000, ORACLE_PROMPT).tolist()
+    dense = random_weights(cfg, gen, dev, lambda lp: to_device(lp, torch.bfloat16), res_std=0.02)
+    dense = to_device(dense, torch.bfloat16)
+
+    def parity(rows, want):
+        rmse = (rows - want).pow(2).mean().sqrt().item()
+        return (f"rmse_over_std={rmse / want.std().item():.4g} max_abs={(rows - want).abs().max().item():.4g} "
+                f"greedy_agreement={(rows.argmax(-1) == want.argmax(-1)).float().mean().item():.4f}")
+
+    for label, policy, path in (("llama_flex", QuantPolicy.llama_flex(), "oracle W6"),
+                                ("W4A8", QuantPolicy.uniform("llama", 4, 8), "oracle W4")):
+        t0 = time.perf_counter()
+        eng = Engine(quantize_params(dense, cfg, policy, device=dev), cfg, policy, max_seq_len=ORACLE_MAX,
+                     prefill_bf16_threshold=ORACLE_MAX + 1, device=dev)
+        sync()
+        reset_launch_counts()
+        with PackedCodes(cfg.num_layers) as codes, LogitTap(eng) as tap:
+            out = eng.generate([prompt], max_new_tokens=ORACLE_NEW, eos_id=-1, mode="step")[0]
+        sync()
+        counts = launch_counts()
+        add(counts)
+        serve = torch.cat([*tap.prompts, *tap.steps]).float()  # [256, V]: the logits that chose each token
+        del eng, tap
+        torch.cuda.empty_cache()
+        gen_s = time.perf_counter() - t0
+        require_launched(f"oracle parity {label}", counts, path, dev)
+        if len(out) != ORACLE_NEW or not torch.isfinite(serve).all():
+            raise AssertionError(f"oracle parity {label}: a bad run")
+        seq = torch.as_tensor([prompt + out[:-1]])
+        fq = fake_quant_weights(dense, policy)
+        with OracleCodes(codes, hand_on=False) as as_is:
+            oracle = dense_forward(fq, cfg, seq, policy=policy)[0, ORACLE_PROMPT - 1:].float()
+        with OracleCodes(codes, hand_on=True) as handed:
+            handed_rows = dense_forward(fq, cfg, seq, policy=policy)[0, ORACLE_PROMPT - 1:].float()
+        del fq, codes
+        plain = dense_forward(dense, cfg, seq)[0, ORACLE_PROMPT - 1:].float()
+        torch.cuda.empty_cache()
+        log(f"oracle parity {label} (LLaMA-2-7B, {cfg.num_layers} layers, bf16 weights, packed tree and cache, "
+            f"N(0, 0.02) as scripts/oracle_parity.py makes them, {ORACLE_PROMPT}-token prompt through the W*Ax layer, "
+            f"{len(out)} greedy tokens via Engine.generate, teacher-forced through the bf16 fake-quant oracle): "
+            f"{parity(serve, oracle)} oracle_std={oracle.std().item():.4g} ({gen_s:.1f}s)")
+        log(f"oracle parity {label}, the Engine's activation codes handed to the oracle: {parity(serve, handed_rows)}; "
+            f"the oracle's codes off the Engine's, layer by layer, as it is {fmt_shares(as_is.shares())} (most "
+            f"{as_is.totals()[2]}), handed on {fmt_shares(handed.shares())} (most {handed.totals()[2]}); the oracle "
+            f"vs the dense bf16 model: {parity(oracle, plain)}")
+        log(f"oracle launches {label}: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        del serve, oracle, handed_rows, plain
+
+
+def smoothing_and_sensitivity(dense, cfg, windows, dev, fake_flex_ppl) -> bool:
+    """(d): collect_llama_act_stats + smooth_llama on one 512-token window of
+    data_tiny/val.npy (the dense logits before and after the fold within
+    SMOOTH_TOL of max |logit|), the fake-quant llama_flex ppl over the eval
+    windows with and without smoothing; analyze_act_sensitivity on the same
+    window, its per-linear KL ranking and derived policy. Frees ``dense``'s
+    layers (the caller's tree is emptied)."""
+    val = np.load(data_file("val.npy"))[:SMOOTH_TOKENS].astype(np.int64)[None]
+    t0 = time.perf_counter()
+    report = analyze_act_sensitivity(dense_forward, dense, cfg, val)
+    log(f"sensitivity analyze_act_sensitivity (LLaMA-2-7B, one {SMOOTH_TOKENS}-token window of data_tiny/val.npy, "
+        f"{time.perf_counter() - t0:.1f}s): per-linear KL ranking, the derived policy:")
+    for line in report.summary().splitlines():
+        log(f"sensitivity   {line}")
+    log("sensitivity per-linear KL: " + " ".join(f"{n}={kl:.4g}" for n, kl in report.per_linear_kl.items())
+        + f" baseline={report.baseline_kl:.4g}")
+    t0 = time.perf_counter()
+    stats = collect_llama_act_stats(dense, cfg, val)
+    smoothed = smooth_llama(dense, cfg, stats)
+    with torch.no_grad():
+        before = dense_forward(dense, cfg, val)
+        after = dense_forward(smoothed, cfg, val)
+    gap = ((after - before).abs().max() / before.abs().max()).item()
+    agree = (after.argmax(-1) == before.argmax(-1)).float().mean().item()
+    del before, after
+    dense["layers"] = []  # the smoothed tree keeps what it shares with the dense one
+    torch.cuda.empty_cache()
+    log(f"smooth collect_llama_act_stats + smooth_llama (alpha 0.5) on the {SMOOTH_TOKENS}-token window "
+        f"({time.perf_counter() - t0:.1f}s): dense f32 logits before vs after the fold max |dlogit|/max|logit| = "
+        f"{gap:.3g} (tolerance {SMOOTH_TOL:g}), argmax agreement {agree:.4f}")
+    policy = QuantPolicy.llama_flex()
+    fq = fake_quant_weights(smoothed, policy)
+    del smoothed
+    torch.cuda.empty_cache()
+    ppl, kept, s = kept_ppl(lambda x: dense_forward(fq, cfg, x, policy=policy), windows)
+    del kept, fq
+    torch.cuda.empty_cache()
+    log(f"smooth fake-quant llama_flex ppl over the eval windows: without smoothing {fake_flex_ppl:.4f}, with "
+        f"{ppl:.4f} ({s:.1f}s)")
+    return gap <= SMOOTH_TOL and math.isfinite(ppl)
+
+
+def opt_eval(dev, gen, windows, add, cfg=None) -> bool:
+    """(b): OPT-6.7B's widths (depth cut to OPT_EVAL_LAYERS), random f32
+    weights: the fake-quant and packed opt_flex perplexities over the
+    windows, the packed path held against its oracle, the argmax over the
+    decisive rows."""
+    cfg = cfg or ModelConfig.opt(**{**OPT_67B, "num_layers": OPT_EVAL_LAYERS})
+    dense = random_weights(cfg, gen, dev)
+    policy = QuantPolicy.opt_flex()
+    dense_ppl, _, s = kept_ppl(lambda x: opt_dense_forward(dense, cfg, x), windows)
+    fq = opt_fake_quant_weights(dense, policy)
+    fake_ppl, oracle, s_fake = kept_ppl(lambda x: opt_dense_forward(fq, cfg, x, policy=policy), windows)
+    del fq
+    packed = quantize_params(dense, cfg, policy, dtype=torch.float32, device=dev)
+    del dense
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    packed_ppl, got, s_packed = kept_ppl(lambda x: forward_serve(packed, cfg, policy, x, device=dev)[0], windows)
+    counts = launch_counts()
+    add(counts)
+    del packed
+    gaps = logit_gaps(got, oracle)
+    del got, oracle
+    torch.cuda.empty_cache()
+    worst, agree = max(g[0] for g in gaps), min(g[2] for g in gaps)
+    log(f"eval ppl OPT opt_flex (OPT-6.7B widths, depth cut to {cfg.num_layers} layers, random f32 weights, tied "
+        f"head; hidden {cfg.hidden_size}): dense {dense_ppl:.4f} ({s:.1f}s), fake-quant {fake_ppl:.4f} (dppl {fake_ppl - dense_ppl:+.4f}, "
+        f"{s_fake:.1f}s), packed {packed_ppl:.4f} (dppl {packed_ppl - dense_ppl:+.4f}, {s_packed:.1f}s); packed vs "
+        f"fake: ppl gap {abs(packed_ppl - fake_ppl) / fake_ppl:.3g} relative, per window max |dlogit|/max|logit| "
+        f"{[round(g[0], 4) for g in gaps]} (bound {EVAL_BOUND:g}), argmax agreement over all rows "
+        f"{[round(g[1], 4) for g in gaps]}, over the decisive rows {[round(g[2], 4) for g in gaps]} (bound "
+        f"{EVAL_AGREE:g}; {[round(g[3], 3) for g in gaps]} of the rows decisive)")
+    log("eval launches OPT opt_flex packed: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    require_launched("eval OPT", counts, "eval OPT", dev)
+    return worst <= EVAL_BOUND and agree >= EVAL_AGREE and math.isfinite(packed_ppl)
+
+
+def cli_json(args, label):
+    """``python -m flexq_tpu_torch.main ARGS`` on the card: its JSON line."""
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "flexq_tpu_torch.main", *args], capture_output=True, text=True,
+                         cwd=os.path.dirname(os.path.abspath(__file__)), timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"cli {label} failed ({run.returncode}):\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    line = run.stdout.strip().splitlines()[-1]
+    log(f"cli `python -m flexq_tpu_torch.main {' '.join(a if not a.startswith('/') else '<dir>' for a in args)}` "
+        f"({time.perf_counter() - t0:.1f}s): {line}")
+    return json.loads(line)
+
+
+def eval_cli(workdir, dev) -> None:
+    """(e): the quantize-and-evaluate CLI on phase 5's HF directory, on the
+    card: --flex_linear_quant --smooth, then --flex_linear_quant --export,
+    whose load_packed tree equals phase 5's exporter CLI's leaf for leaf."""
+    hf_dir, packed = os.path.join(workdir, "hf"), os.path.join(workdir, "packed")
+    on = ["--cpu"] if dev.type == "cpu" else []  # the card unless a CPU rehearsal
+    res = cli_json(["--model", hf_dir, "--flex_linear_quant", "--smooth", *on], "smooth")
+    out = os.path.join(workdir, "packed_main")
+    res_e = cli_json(["--model", hf_dir, "--flex_linear_quant", "--export", out, *on], "export")
+    if res["wbits"] != 6 or res_e.get("exported") != out:
+        raise AssertionError("cli: bad result lines")
+    got, want = load_packed(out, device=dev)[2], load_packed(packed, device=dev)[2]
+    trees_equal("main --export vs phase 5's exporter CLI (load_packed on the card)", got, want)
+    log("cli --eval_ppl and --tasks (datasets.save_to_disk directories read through `datasets`, a tokenizer through "
+        "`transformers`) are not run in this phase: they are held against flexq_tpu on the CPU only, by "
+        "tests/test_torch_eval.py")
+
+
+def quantize_and_evaluate(dev, workdir, cfg=None, opt_cfg=None, n_windows=EVAL_WINDOWS):
+    """Phase 8 (see the module docstring); returns its launch counts.
+    ``cfg`` / ``opt_cfg`` replace the LLaMA-2-7B and OPT-6.7B models, and
+    ``n_windows`` the eval windows (a CPU rehearsal at a tiny size)."""
+    t_phase = time.perf_counter()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32 or matmul.allow_bf16_reduced_precision_reduction or \
+            torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("phase 8 needs true f32 matmuls (TF32 off) and bf16 GEMMs reduced in f32")
+    log(f"eval: the dense models in true f32 (torch.backends.cuda.matmul.allow_tf32={matmul.allow_tf32}, float32 "
+        f"matmul precision {torch.get_float32_matmul_precision()!r}): a TF32 oracle parts from the CPU's by more "
+        f"than the 6-bit codes tolerate; the bf16 oracle's GEMMs reduce in f32 "
+        f"(allow_bf16_reduced_precision_reduction={matmul.allow_bf16_reduced_precision_reduction})")
+    totals = {k: 0 for k in launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    windows = np.load(data_file("test.npy"))[: n_windows * EVAL_SEQLEN].astype(np.int64)
+    windows = windows.reshape(n_windows, EVAL_SEQLEN)
+    cfg = cfg or ModelConfig.llama()
+    t0 = time.perf_counter()
+    dense = random_weights(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), dev)
+    sync()
+    log(f"eval: LLaMA-2-7B ({cfg.num_layers} layers, hidden {cfg.hidden_size}, FFN {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}) random f32 weights generated on the card in {time.perf_counter() - t0:.1f}s")
+    ok, dense_ppl, fake = eval_table(dense, cfg, windows, dev, add)
+    ok = smoothing_and_sensitivity(dense, cfg, windows, dev, fake["llama_flex W6A6 (down A8)"]) and ok
+    del dense
+    torch.cuda.empty_cache()
+    oracle_parity(cfg, dev, torch.Generator(device=dev).manual_seed(SEED + 22), add)
+    torch.cuda.empty_cache()
+    ok = opt_eval(dev, torch.Generator(device=dev).manual_seed(SEED + 21), windows, add, opt_cfg) and ok
+    torch.cuda.empty_cache()
+    eval_cli(workdir, dev)
+    log(f"eval launches in all: " + " ".join(f"{k}={v}" for k, v in totals.items() if v))
+    missing = [k for k in EVAL_KERNELS if totals[k] == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"phase 8: kernels never launched: {missing}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+    log(f"phase 8 quantize and evaluate: {time.perf_counter() - t_phase:.1f}s, peak device memory {peak:.1f} GiB")
+    if not ok:
+        raise AssertionError("phase 8: a packed path parts from its oracle, or the smoothing fold is not an "
+                             "identity (see the eval lines)")
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -2715,11 +3261,15 @@ def main() -> int:
     log(f"phase 4 end to end, OPT-6.7B: {time.perf_counter() - t0 - opt_graph_s:.1f}s (phase 7's {opt_graph_s:.1f}s "
         f"apart); phase 7 in all {graph_s + opt_graph_s:.1f}s")
     log_by_m()
-    t0 = time.perf_counter()
-    for k, v in checkpoint_and_http(dev, torch.Generator(device=dev).manual_seed(SEED + 10)).items():
-        counts[k] += v
-    log(f"phase 5 checkpoint and HTTP: {time.perf_counter() - t0:.1f}s; whole script after the build "
-        f"{time.perf_counter() - t_start:.1f}s")
+    with tempfile.TemporaryDirectory(prefix="flexq_ckpt_") as workdir:
+        t0 = time.perf_counter()
+        for k, v in checkpoint_and_http(dev, torch.Generator(device=dev).manual_seed(SEED + 10),
+                                        workdir=workdir).items():
+            counts[k] += v
+        log(f"phase 5 checkpoint and HTTP: {time.perf_counter() - t0:.1f}s")
+        for k, v in quantize_and_evaluate(dev, workdir).items():  # phase 8, after the earlier models are freed
+            counts[k] += v
+    log(f"whole script after the build {time.perf_counter() - t_start:.1f}s")
     missing = [n for n, c in counts.items() if c == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")

@@ -19,4 +19,10 @@ lm_head (``with_head``). Checkpoints in the exporter's packed format load
 with ``export.exporter.load_packed`` (and are written by its CLI); the
 OpenAI-compatible HTTP server is ``python -m flexq_tpu_torch.serve.http``,
 and ``bindings.FlexQCausalLM`` gives a torch-tensor forward / generate.
+
+The quantize-and-evaluate path (the reference's PTQ harness) is
+``python -m flexq_tpu_torch.main``: the dense fake-quant models
+(``models.llama`` / ``models.opt``: ``forward``, ``fake_quant_weights``),
+perplexity and zero-shot scoring (``eval``), SmoothQuant folds
+(``quant.smooth``) and the sensitivity analysis (``quant.sensitivity``).
 """

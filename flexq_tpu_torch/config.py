@@ -126,9 +126,11 @@ OPT_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj", "fc1", "fc2")
 
 @dataclasses.dataclass(frozen=True)
 class QuantPolicy:
-    """Per-linear (weight_bits, act_bits) policy. Weights and activations
-    are quantized symmetric per 128-group: the producers and the GEMMs take
-    no other group size, so a policy with another one is refused here."""
+    """Per-linear (weight_bits, act_bits) policy + group sizes. The dense
+    fake-quant models take any group size (None: per channel / per token)
+    and asymmetric ranges, as the reference's do; the packed formats hold
+    symmetric codes in 128-groups only, so every serving entry point refuses
+    any other policy (``require_servable``)."""
 
     weight_bits: Dict[str, int]
     act_bits: Dict[str, int]
@@ -136,17 +138,18 @@ class QuantPolicy:
     a_group_size: Optional[int] = GROUP_SIZE
     symmetric: bool = True
 
-    def __post_init__(self):
-        for field in ("w_group_size", "a_group_size"):
-            if getattr(self, field) != GROUP_SIZE:
-                raise ValueError(f"{field}={getattr(self, field)}: the port's producers and GEMMs take "
-                                 f"groups of {GROUP_SIZE} only")
-
     def weight_spec(self, name: str) -> QuantSpec:
         return QuantSpec(
             bits=self.weight_bits.get(name, 16),
             symmetric=self.symmetric,
             group_size=self.w_group_size,
+        )
+
+    def act_spec(self, name: str) -> QuantSpec:
+        return QuantSpec(
+            bits=self.act_bits.get(name, 16),
+            symmetric=self.symmetric,
+            group_size=self.a_group_size,
         )
 
     @staticmethod
@@ -223,3 +226,17 @@ class QuantPolicy:
 
 def _linears(arch: str):
     return LLAMA_LINEARS if arch == "llama" else OPT_LINEARS
+
+
+def require_servable(policy: QuantPolicy) -> None:
+    """Refuse a policy the packed path cannot serve: the producers and the
+    GEMMs take symmetric codes in groups of 128 only. Called where serving
+    starts (quantize_params, forward_serve, load_packed, Engine,
+    BatchScheduler, ``main.py --export``), before any weight is packed."""
+    for field in ("w_group_size", "a_group_size"):
+        if getattr(policy, field) != GROUP_SIZE:
+            raise ValueError(f"{field}={getattr(policy, field)}: the port's producers and GEMMs take groups of "
+                             f"{GROUP_SIZE} only (the dense fake-quant models take any group size)")
+    if not policy.symmetric:
+        raise ValueError("symmetric=False: the packed formats hold symmetric codes only (the dense fake-quant "
+                         "models take asymmetric ranges)")

@@ -37,7 +37,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.export.safetensors_io import load_file, save_file
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, resolve_device
 from flexq_tpu_torch.models.hf_loader import HF_LLAMA_LINEARS, HF_LLAMA_NORMS, config_from_hf, read_shards
@@ -184,6 +184,7 @@ def load_packed(out_dir: str, rank: Optional[int] = None, device="cuda"):
         a_group_size=pol["a_group_size"],
         symmetric=pol["symmetric"],
     )
+    require_servable(policy)
 
     top = load_file(os.path.join(out_dir, "embed.safetensors"), dev)
     params: Dict[str, Any] = {"embed": top["embed"], "final_norm": top["final_norm"], "layers": []}

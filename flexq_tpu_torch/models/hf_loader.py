@@ -6,8 +6,9 @@ reference. Two entry points:
   * ``from_hf_llama`` / ``from_hf_opt``: an in-memory ``transformers`` model
     (tests, small models); ``transformers`` itself is never imported here;
   * ``load_checkpoint``: config.json and the safetensors shards of a
-    directory, read by the port's own safetensors reader, without torch
-    modules (large models).
+    LLaMA-family or OPT directory, read by the port's own safetensors
+    reader, without torch modules (large models; the quantize-and-evaluate
+    CLI, ``flexq_tpu_torch/main.py``).
 The trees go to ``quantize_params``. Every entry point puts its tensors on
 the card unless the caller passes ``device="cpu"``.
 """
@@ -217,18 +218,20 @@ def read_shards(model_dir: str) -> Dict[str, torch.Tensor]:
 
 
 def load_checkpoint(model_dir: str, dtype=torch.bfloat16, device="cuda") -> Tuple[ModelConfig, Dict[str, Any]]:
-    """config.json + *.safetensors shards of a LLaMA-family directory ->
-    (cfg, dense tree in ``dtype`` on ``device``)."""
+    """config.json + *.safetensors shards of a LLaMA-family or OPT
+    directory -> (cfg, dense tree in ``dtype`` on ``device``). OPT's keys
+    are read under ``model.decoder.`` (or ``decoder.``), its head tied."""
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"load_checkpoint for arch {cfg.arch}")
     tensors = read_shards(model_dir)
 
     def t(key, transpose=False):
         out = tensors[key].to(dev).to(dtype)
         return out.T.contiguous() if transpose else out
+
+    if cfg.arch == "opt":
+        return cfg, _opt_tree(cfg, tensors, t)
 
     def norm(key):
         g = t(key)
@@ -250,3 +253,27 @@ def load_checkpoint(model_dir: str, dtype=torch.bfloat16, device="cuda") -> Tupl
     if "lm_head.weight" in tensors and not cfg.tie_word_embeddings:
         params["lm_head"] = t("lm_head.weight", True)
     return cfg, params
+
+
+def _opt_tree(cfg: ModelConfig, tensors: Dict[str, torch.Tensor], t) -> Dict[str, Any]:
+    """OPT's dense tree from its shards' tensors, as from_hf_opt builds it."""
+    root = "model.decoder." if "model.decoder.embed_tokens.weight" in tensors else "decoder."
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"{root}layers.{i}."
+
+        def lin(name):
+            return {"w": t(p + name + ".weight", True), "b": t(p + name + ".bias")}
+
+        def ln(name):
+            return {"g": t(p + name + ".weight"), "b": t(p + name + ".bias")}
+
+        layers.append({"input_norm": ln("self_attn_layer_norm"), "post_norm": ln("final_layer_norm"),
+                       "q_proj": lin("self_attn.q_proj"), "k_proj": lin("self_attn.k_proj"),
+                       "v_proj": lin("self_attn.v_proj"), "o_proj": lin("self_attn.out_proj"),
+                       "fc1": lin("fc1"), "fc2": lin("fc2")})
+    params = {"embed": t(root + "embed_tokens.weight"), "pos_embed": t(root + "embed_positions.weight"),
+              "layers": layers}
+    if root + "final_layer_norm.weight" in tensors:
+        params["final_norm"] = {"g": t(root + "final_layer_norm.weight"), "b": t(root + "final_layer_norm.bias")}
+    return params

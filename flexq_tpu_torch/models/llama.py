@@ -1,23 +1,29 @@
-"""LLaMA building blocks used by the serve path (port of the matching
-functions of flexq_tpu/models/llama.py): RoPE, the FFN activation, RMSNorm,
-and the attention over fresh keys of the cache-less forward
-(``attention_core``, ``causal_mask``).
+"""LLaMA-family decoder (MHA + GQA) in plain PyTorch (port of
+flexq_tpu/models/llama.py): the building blocks the serve path shares (RoPE,
+the FFN activation, RMSNorm, the attention over fresh keys and its masks)
+and the dense model of the quantize-and-evaluate path.
+
+The dense model (``decoder_layer``, ``forward``) is the accuracy oracle:
+plain matmuls over weights that ``fake_quant_weights`` may have
+quantize-dequantized, with every linear's input fake-quantized at run time
+under the policy (``_linear``), the reference's eval semantics. Weights are
+stored [in, out], so a linear is ``x @ w``.
 
 HF numeric conventions, as in the reference: RMSNorm stats in f32 and the
 normed row cast to the model dtype before the gamma multiply; RoPE cos/sin
-from an f32 inv_freq, applied in f32 with rotate_half.
+from an f32 inv_freq, applied in f32 with rotate_half; softmax in f32.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from flexq_tpu_torch.config import ModelConfig
-from flexq_tpu_torch.quant.quantizer import true_div
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.quant.quantizer import fake_quant, true_div
 
 
 @functools.lru_cache(maxsize=None)
@@ -102,6 +108,26 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
     return (h * torch.rsqrt(var + eps)).to(x.dtype) * gamma
 
 
+def _maybe_quant_act(x: torch.Tensor, name: str, policy: Optional[QuantPolicy]) -> torch.Tensor:
+    if policy is None:
+        return x
+    spec = policy.act_spec(name)
+    if not spec.enabled:
+        return x
+    return fake_quant(x, spec)
+
+
+def _linear(params: Dict[str, Any], name: str, x: torch.Tensor, policy: Optional[QuantPolicy]) -> torch.Tensor:
+    """Dense linear with the input fake-quantized under the policy at run
+    time (dynamic activation quant, as the reference evaluates)."""
+    x = _maybe_quant_act(x, name, policy)
+    y = x @ params[name]["w"].to(x.dtype)
+    b = params[name].get("b")
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
 ATTN_CHUNK = 1024  # key-chunk size for the blockwise path
 
 
@@ -116,6 +142,19 @@ def causal_mask(lq: int, lk: int, dtype=torch.float32, window: Optional[int] = N
         ok &= ki > qi - window
     m = torch.where(ok, 0.0, torch.finfo(dtype).min).to(dtype)
     return m[None, None]
+
+
+def span_mask(pos_q: torch.Tensor, max_len: int, window: Optional[int] = None, dtype=torch.float32) -> torch.Tensor:
+    """Additive causal mask [B, 1, Lq, max_len] for queries at absolute
+    positions ``pos_q`` (int [B, Lq]) over a max_len cache: query (b, i)
+    sees keys at positions <= pos_q[b, i] (and, with ``window``,
+    > pos_q[b, i] - window). On pos_q's device."""
+    ki = torch.arange(max_len, device=pos_q.device)[None, None, None, :]
+    pq = pos_q[:, None, :, None]
+    ok = ki <= pq
+    if window is not None:
+        ok &= ki > pq - window
+    return torch.where(ok, 0.0, torch.finfo(dtype).min).to(dtype)
 
 
 def attention_core(q, k, v, mask: Optional[torch.Tensor], num_kv_groups: int) -> torch.Tensor:
@@ -168,3 +207,126 @@ def _attention_blockwise(q, k, v, mask, chunk: int) -> torch.Tensor:
         m = m_new
     out = (acc / l).to(cdt)
     return out.transpose(1, 2).reshape(b, lq, h * d)
+
+
+def attention_core_quant(q, k8, ks, v8, vs, mask: Optional[torch.Tensor], num_kv_groups: int) -> torch.Tensor:
+    """Attention over an int8 cache with the scales folded into the math:
+    q [B, Lq, H, D]; k8 / v8 int8 [B, KVH, Lk, D] (the cache layout); ks / vs
+    f32 [B, KVH, Lk] per-(token, head) scales. scores = (q . K8) * ks / sqrt(D)
+    (q and K8 in bf16), out = sum_t bf16(p * vs) . V8 (bf16), so no
+    dequantized copy of the cache is made. -> [B, Lq, H * D] in q's dtype."""
+    b, lq, h, d = q.shape
+    if num_kv_groups > 1:
+        k8, v8 = k8.repeat_interleave(num_kv_groups, dim=1), v8.repeat_interleave(num_kv_groups, dim=1)
+        ks, vs = ks.repeat_interleave(num_kv_groups, dim=1), vs.repeat_interleave(num_kv_groups, dim=1)
+    scores = torch.einsum("bqhd,bhkd->bhqk", q.to(torch.bfloat16), k8.to(torch.bfloat16)).to(torch.float32)
+    scores = scores * ks[:, :, None, :]
+    scores = true_div(scores, math.sqrt(d))
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1)
+    pv = (probs * vs[:, :, None, :]).to(torch.bfloat16)
+    out = torch.einsum("bhqk,bhkd->bqhd", pv, v8.to(torch.bfloat16))
+    return out.to(q.dtype).reshape(b, lq, h * d)
+
+
+def decoder_layer(
+    lp: Dict[str, Any],
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, L, H]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    mask: Optional[torch.Tensor],
+    policy: Optional[QuantPolicy] = None,
+    kv: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,  # (cache k, cache v [layers, B, max, KVH, D], layer)
+    cache_pos: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """One dense decoder layer. With ``kv`` the step's K/V are written into
+    the cache at ``cache_pos`` (in place: the port's tensors are mutable)
+    and attention runs over the whole cache under ``mask``."""
+    b, l, _ = x.shape
+    h = rmsnorm(x, lp["input_norm"], cfg.norm_eps)
+    q = _linear(lp, "q_proj", h, policy).reshape(b, l, cfg.num_heads, cfg.head_dim)
+    k = _linear(lp, "k_proj", h, policy).reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    v = _linear(lp, "v_proj", h, policy).reshape(b, l, cfg.num_kv_heads, cfg.head_dim)
+    q, k = apply_rope(q, k, cos, sin)
+
+    new_kv = None
+    if kv is not None:
+        ck, cv, li = kv
+        ck[li, :, cache_pos : cache_pos + l] = k.to(ck.dtype)
+        cv[li, :, cache_pos : cache_pos + l] = v.to(cv.dtype)
+        new_kv = (ck, cv)
+        k, v = ck[li], cv[li]
+
+    attn = attention_core(q, k, v, mask, cfg.num_kv_groups)
+    x = x + _linear(lp, "o_proj", attn, policy)
+
+    h = rmsnorm(x, lp["post_norm"], cfg.norm_eps)
+    gate = _linear(lp, "gate_proj", h, policy)
+    up = _linear(lp, "up_proj", h, policy)
+    act = act_fn(cfg.act, gate.to(torch.float32)).to(gate.dtype) * up
+    x = x + _linear(lp, "down_proj", act, policy)
+    return x, new_kv
+
+
+def forward(
+    params: Dict[str, Any],
+    cfg: ModelConfig,
+    ids,  # int [B, L]
+    policy: Optional[QuantPolicy] = None,
+    positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence dense forward -> logits [B, L, V] on the params'
+    device (the perplexity-eval path): the ids go to that device; Gemma's
+    ``embed_scale``, Mistral's ``sliding_window`` and the Llama-3 RoPE
+    scaling are taken from ``cfg``. A tree with an ``lm_head`` fake-quantizes
+    the head's input under the policy; a tied head is the embedding."""
+    dev = params["embed"].device
+    ids = torch.as_tensor(ids, device=dev)
+    b, l = ids.shape
+    x = params["embed"][ids]
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    if positions is None:
+        positions = torch.arange(l, device=dev).expand(b, l)
+    cos, sin = rope_for_cfg(torch.as_tensor(positions, device=dev), cfg)
+    mask = causal_mask(l, l, window=cfg.sliding_window, device=dev)
+    for lp in params["layers"]:
+        x, _ = decoder_layer(lp, cfg, x, cos, sin, mask, policy)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    else:
+        x = _maybe_quant_act(x, "lm_head", policy)
+    return x @ head.to(x.dtype)
+
+
+def _fake_quant_linear(w: torch.Tensor, spec) -> torch.Tensor:
+    """A stored [in, out] weight quantize-dequantized per output channel,
+    its groups along ``in`` (the reference quantizes the [out, in] rows)."""
+    return fake_quant(w.T, spec).T.contiguous()
+
+
+def fake_quant_weights(params: Dict[str, Any], policy: QuantPolicy) -> Dict[str, Any]:
+    """A new tree with every policy-covered linear weight fake-quantized
+    (the lm_head too, where the tree has one and the policy covers it); the
+    input tree and its tensors are left as they were."""
+    out = dict(params)
+    out["layers"] = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for name in policy.weight_bits:
+            if name not in lp:
+                continue
+            spec = policy.weight_spec(name)
+            if not spec.enabled:
+                continue
+            lp[name] = {**lp[name], "w": _fake_quant_linear(lp[name]["w"], spec)}
+        out["layers"].append(lp)
+    if "lm_head" in out and "lm_head" in policy.weight_bits:
+        spec = policy.weight_spec("lm_head")
+        if spec.enabled:
+            out["lm_head"] = _fake_quant_linear(out["lm_head"], spec)
+    return out

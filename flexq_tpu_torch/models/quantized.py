@@ -46,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels import (
     GROUP_SIZE,
     flash_decode,
@@ -216,6 +216,7 @@ def quantize_params(
     (packed linears, ``dtype`` for the rest), the same tree the reference's
     ``quantize_params`` builds. ``fuse=True`` packs q/k/v into one
     "qkv_proj" matrix and gate/up into one "gate_up" matrix."""
+    require_servable(policy)
     dev = resolve_device(device)
     out: Dict[str, Any] = {
         "embed": _as_tensor(params["embed"], dev).to(dtype),
@@ -652,6 +653,7 @@ def forward_serve(
     (logits [B, L, V] — [B, 1, V] with ``last_only`` — and the cache state
     (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale), or None without
     a cache)."""
+    require_servable(policy)
     dev = resolve_device(device)
     is_opt = cfg.arch == "opt"
     if is_opt and not cfg.do_layer_norm_before:

@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
 from flexq_tpu_torch.serve.graphs import StepGraph
@@ -77,6 +77,7 @@ class Engine:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        require_servable(policy)
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("tensor- and pipeline-parallel serving are a later slice")
         if max_seq_len % 128:

@@ -50,7 +50,7 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from flexq_tpu_torch.config import ModelConfig, QuantPolicy
+from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
 from flexq_tpu_torch.models.quantized import forward_serve
 from flexq_tpu_torch.serve.beam import NEG as BEAM_NEG, reorder_rows, topk_lower_first
@@ -174,6 +174,7 @@ class BatchScheduler:
         if fused_tick < 0:
             raise ValueError(f"fused_tick={fused_tick} must be >= 0")
         self.device = resolve_device(device)
+        require_servable(policy)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, scheduler on {self.device}")
         if max_seq_len % 128:

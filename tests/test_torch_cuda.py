@@ -1101,3 +1101,77 @@ def test_sampled_graph_replays_draw_the_step_loops_tokens(gen):
     assert first == step == second and lp1 == lp0 == lp2 and other != first
     (_, graph), = eng._fused.values()
     assert st1.capture_s > 0 and st2.capture_s == 0 and graph.replays == 14 + 15 + 15
+
+
+# ---- the quantize-and-evaluate path ---------------------------------------
+
+
+def f32_tree(tree):
+    """A tree's tensors in f32, on the card."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [f32_tree(v) for v in tree]
+    return tree.float()
+
+
+def test_fake_quant_weights_on_the_card_equal_cpu(gen):
+    """The oracle's weights: fake_quant_weights on the card bit-equal to the
+    CPU's (128-group symmetric and 64-group asymmetric)."""
+    import dataclasses
+
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.llama import fake_quant_weights
+
+    _, tree = dense_llama(gen, 1, 256, 704, 2, 1000)
+    tree = f32_tree(tree)
+    cpu = _to(tree, "cpu")
+    for policy in (QuantPolicy.llama_flex().with_head(6, 8),
+                   dataclasses.replace(QuantPolicy.llama_flex(), w_group_size=64, symmetric=False)):
+        got, want = fake_quant_weights(tree, policy), fake_quant_weights(cpu, policy)
+        for (k, a), (_, b) in zip(_leaves(got), _leaves(want)):
+            assert torch.equal(a.cpu(), b), k
+
+
+def test_dense_forward_on_the_card_tracks_cpu(gen):
+    """The dense f32 forward (policy None and llama_flex's act fake-quant)
+    with TF32 off: within 1e-4 of max |logit| of the CPU's (f32 sum order;
+    under llama_flex a flipped activation code may move logits further, so
+    that run is held at 2e-2 with argmax agreement >= 0.95)."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.llama import fake_quant_weights, forward
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, tree = dense_llama(gen, 2, 256, 704, 2, 1000)
+    tree = f32_tree(tree)
+    ids = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, device="cuda")
+    for policy, tol in ((None, 1e-4), (QuantPolicy.llama_flex(), 2e-2)):
+        p = tree if policy is None else fake_quant_weights(tree, policy)
+        got = forward(p, cfg, ids, policy=policy).cpu()
+        want = forward(_to(p, "cpu"), cfg, ids.cpu(), policy=policy)
+        assert torch.isfinite(got).all()
+        assert ((got - want).abs().max() / want.abs().max()).item() < tol
+        assert (got.argmax(-1) == want.argmax(-1)).float().mean().item() >= 0.95
+
+
+def test_cacheless_forward_serve_on_the_card_tracks_the_oracle(gen):
+    """The packed path without a cache (the eval path: f32, the exact W*Ax
+    layer) on the card against the fake-quant oracle, at the reference's
+    bounds (8e-2 of max |logit|, argmax agreement >= 0.75), llama_flex and
+    W4A8, and the kernels launched."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.models.llama import fake_quant_weights, forward
+    from flexq_tpu_torch.models.quantized import forward_serve, quantize_params
+
+    cfg, tree = dense_llama(gen, 2, 256, 704, 2, 1000)
+    tree = f32_tree(tree)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen, device="cuda")
+    for policy in (QuantPolicy.llama_flex(), QuantPolicy.uniform("llama", 4, 8)):
+        oracle = forward(fake_quant_weights(tree, policy), cfg, ids, policy=policy)
+        reset_launch_counts()
+        got, _ = forward_serve(quantize_params(tree, cfg, policy, dtype=torch.float32), cfg, policy, ids)
+        counts = launch_counts()
+        gemm = "w6_matmul" if policy.weight_bits["q_proj"] == 6 else "w4_matmul"
+        assert counts["rmsnorm_quant"] and counts["quant_act"] and counts["glu_quant"] and counts[gemm]
+        assert ((got - oracle).abs().max() / oracle.abs().max()).item() < 8e-2
+        assert (got.argmax(-1) == oracle.argmax(-1)).float().mean().item() >= 0.75
