@@ -32,8 +32,8 @@ exits nonzero without the final line:
      over 768 keys, with a 512-key window and with GQA (H = 32, KVH = 8),
      K13 with GQA, K6 with GQA and with a 512-key window, timed, and all
      three at D = 64 and 256, correctness only), with the tolerance stated,
-     and their device times from CUDA events (median, L2 flushed before
-     each launch) beside the plain version's, the least time the card could
+     and their device times from CUDA events (utils/benchmark.bench_fn:
+     median, L2 flushed before each launch) beside the plain version's, the least time the card could
      take (bytes at 3.35 TB/s or operations at peak, H100 SXM data sheet)
      and, where one PyTorch call computes the same function, that call's
      (for the GEMMs, a dense bf16 matmul of the same shape as a yardstick);
@@ -150,12 +150,41 @@ exits nonzero without the final line:
      K15); (c) 256 greedy tokens through Engine.generate (bf16 weights, W*Ax
      prompt, llama_flex and W4A8) teacher-forced through the bf16 fake-quant
      oracle: RMSE / std and greedy agreement, as it is and with the Engine's
-     codes handed on, and the oracle against the dense model; (d)
+     codes handed on (held there at 1e-2 and 0.95), and the oracle against
+     the dense model; (d)
      analyze_act_sensitivity and smooth_llama at full width on a 512-token
      window of data_tiny/val.npy, the fold's identity held at 1e-3, the
      fake-quant ppl with and without it; (e) `python -m flexq_tpu_torch.main`
      with --smooth and with --export on phase 5's directory, the export
      equal to phase 5's leaf for leaf.
+  9. train, then gate, after phase 8 has freed its models, in true f32:
+     (a) a training corpus from this machine's own files (the port's
+     build_corpus over numpy's site-packages and the system's docs; the
+     units data_tiny/MANIFEST.txt holds out are excluded under every root
+     before a file is read), encoded by the port's own BPE encoder with
+     data_tiny/tokenizer.json, the encoder held to data_tiny/val.npy on the
+     whole of val.txt (MB, tokens, seconds); (b) scripts/torch_train_tiny.py
+     as a subprocess on the card at the reference's accuracy-gate shape
+     (hidden 512, FFN 1408, 8 layers, 8 heads / 4 kv, head_dim 64, vocab
+     8192, batch 64 x 512), evaluated on data_tiny/val.npy: seconds a step,
+     tokens/s, the val curve; the val loss must fall and the final val ppl
+     stay under 500; (c) the first 3 train_steps of a 2-layer model at the
+     same widths on the card against the CPU (loss 1e-5 relative, the first
+     step's parameters unchanged, the parameters after within the bounds
+     card_vs_cpu states); (d) the trained best.npz over
+     windows_from_stream(data_tiny/test.npy, 512): the dense f32 ppl, the
+     fake-quant and packed (cache-less forward_serve, K1 / K4 / K5 with K2,
+     K10 or K12 on route A) ppl under llama_flex, llama_flex(6, 8),
+     llama_flex(4, 8) and W8A8, dppl against f32 (the reference's
+     "dppl <= 0.1", reported), packed vs fake-quant within 1e-4 relative
+     and within 0.3 of fake-quant's step from f32, and phase 8's code
+     witness on the first 16 windows; (e) oracle parity over 256 greedy
+     Engine.generate tokens on the trained weights (llama_flex, W4A8, held
+     as in phase 8), and speculative decoding (mode="spec",
+     k = 4) on four 128-token prompts from data_tiny/test.npy: acceptance,
+     ms a token against greedy on the graph, tokens held to greedy over
+     the decisive steps. Every kernel of the phase's path (K1-K6, K9, K10,
+     K12) must launch; nothing is written into the repo.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -164,10 +193,12 @@ import contextlib
 import ctypes
 import dataclasses
 import http.client
+import itertools
 import json
 import math
 import os
 import queue
+import shutil
 import statistics
 import subprocess
 import sys
@@ -231,6 +262,8 @@ from flexq_tpu_torch.quant.smooth import collect_llama_act_stats, smooth_llama
 from flexq_tpu_torch.serve import Engine, SamplingParams, beam, speculative
 from flexq_tpu_torch.serve import http as serve_http
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
+from flexq_tpu_torch.train import corpus, trainer
+from flexq_tpu_torch.utils.benchmark import bench_fn
 
 HBM_BPS = 3.35e12  # H100 SXM HBM3
 PEAK_INT8 = 1979e12  # dense int8 tensor-core ops/s
@@ -309,32 +342,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-class Timer:
-    """Median CUDA-event time of a call. A 1 GiB buffer is rewritten before
-    each launch (~0.3 ms): weights then come from HBM, not from the 50 MB L2,
-    and the card is still busy with it while the host enqueues the call, so
-    the events time the device work, not the host's launch overhead (which
-    varies with the load on the shared host)."""
-
-    def __init__(self, dev):
-        self.flush = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
-        for _ in range(1500):  # ~0.5 s of HBM writes: the card leaves its idle clocks first
-            self.flush.zero_()
-        torch.cuda.synchronize()
-
-    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
-        for _ in range(warmup):
-            fn()
-        pairs = []
-        for _ in range(iters):
-            self.flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            pairs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+def timer(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Median device ms of a call of ``fn``: utils/benchmark.bench_fn (a
+    1 GiB buffer rewritten before each launch, so weights come from HBM, not
+    from the 50 MB L2, and the events time the device work, not the host's
+    launch overhead)."""
+    return bench_fn(fn, iters=iters, reps=1, warmup=warmup) * 1e3
 
 
 def bound(nbytes: float, ops: float, peak: float):
@@ -380,7 +393,7 @@ HEAD_7B = (4096, 32768)  # the packed lm_head: vocab 32000 padded to 32768
 SHAPES_OPT = ((4096, 4096), (4096, 16384), (16384, 4096))  # OPT-6.7B's q/k/v/o, fc1, fc2
 
 
-def int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer):
+def int_gemm_case(results, fmt, m, k, n, bits, dev, gen):
     """One exact integer GEMM of format ``fmt`` over ``bits``-bit activation
     codes, bit-exact against its plain version, and its times."""
     fn, plain = INT_GEMMS[fmt]
@@ -416,7 +429,7 @@ def int_gemm_case(results, fmt, m, k, n, bits, dev, gen, timer):
 INT_MS = {6: (4, 20, 128), 4: (4, 8, 16, 32, 128, 256), 8: (4, 8, 16, 32, 128, 256)}
 
 
-def check_int_gemms(results, dev, gen, timer):
+def check_int_gemms(results, dev, gen):
     """The exact integer GEMMs: W6Ax (K2/K3) at M = 4, 20 and 128, W4A8 (K10)
     and W8A8 (K12) at M = 4, 8, 16, 32, 128 and 256 (both sides of each
     format's route threshold) for the three 7B (K, N), and each at the
@@ -430,12 +443,12 @@ def check_int_gemms(results, dev, gen, timer):
     ticks), 32, 64 and 256 (its prefill chunks)."""
     for fmt in INT_GEMMS:
         for m, k, n in [(m, k, n) for m in INT_MS[fmt] for k, n in SHAPES_7B] + [(4, *HEAD_7B)]:
-            int_gemm_case(results, fmt, m, k, n, gemm_bits(fmt, k, n), dev, gen, timer)
+            int_gemm_case(results, fmt, m, k, n, gemm_bits(fmt, k, n), dev, gen)
     (kq, nq), (k1, n1), (k2, n2) = SHAPES_OPT
     for m, k, n, bits in ((4, k1, n1, 6), (4, k2, n2, 6), (2048, kq, nq, 8), (2048, k1, n1, 6), (2048, k2, n2, 6)):
-        int_gemm_case(results, 6, m, k, n, bits, dev, gen, timer)
+        int_gemm_case(results, 6, m, k, n, bits, dev, gen)
     for m, k, n in [(m, k, n) for m in (8, 32, 64, 256) for k, n in SHAPES_7B]:
-        int_gemm_case(results, 6, m, k, n, gemm_bits(6, k, n), dev, gen, timer)
+        int_gemm_case(results, 6, m, k, n, gemm_bits(6, k, n), dev, gen)
 
 
 def gemm_bits(fmt, k, n) -> int:
@@ -512,13 +525,13 @@ def opt_producer_cases(m, dev, gen):
 
 
 PRODUCER_MS = (4, 8, 128, 256, 2048)
-LAUNCH_FLOOR = {}  # "ms": an empty kernel's time under the same Timer
+LAUNCH_FLOOR = {}  # "ms": an empty kernel's time under the same timer
 
 
-def check_producers(results, dev, gen, timer):
+def check_producers(results, dev, gen):
     """The producers (csrc/row_quant.cu) at PRODUCER_MS rows, LLaMA's and
     OPT-6.7B's widths, each within its tolerance and timed beside an empty
-    kernel's time under the same Timer (the launch floor)."""
+    kernel's time under the same timer (the launch floor)."""
     floor = timer(lambda: fused_quant.empty_kernel(dev))
     LAUNCH_FLOOR["ms"] = floor
     log(f"launch floor: an empty kernel through the producers' host path ms={floor:.4f}")
@@ -562,7 +575,7 @@ def log_kernel_attributes() -> None:
         log(f"kernel attributes {lib} (registers / local bytes a thread): " + "; ".join(rows))
 
 
-def check_attention(results, dev, gen, timer):
+def check_attention(results, dev, gen):
     """bf16 cache: Lq = 1 and 32 over 64 cached tokens (the 32-token path),
     Lq = 1 and 512 over 512 (the 512-token path), and Lq = 5 at each row's
     own start (phase 6's verify windows); int8 cache with f32 scales: Lq = 1
@@ -657,7 +670,7 @@ def random_cache(shape, quant, gen, dev):
     return k, v, []
 
 
-def check_prefill_cases(results, dev, gen, timer):
+def check_prefill_cases(results, dev, gen):
     """K9 off the main path's two shapes, against its plain version at the
     same tolerance (2e-2 of max |out|): Lq = 256 over 768 keys (a chunked
     prefill's later chunk: its queries sit at 512..767), Lq = 512 over 1024
@@ -716,7 +729,7 @@ def check_prefill_cases(results, dev, gen, timer):
                       "2e-2 of max|out|")
 
 
-def check_decode_cases(results, dev, gen, timer):
+def check_decode_cases(results, dev, gen):
     """K6 off the main path's shapes, against its plain version at the same
     tolerance (2e-2 of each (b, h) row's max |out|): GQA (H = 32 over
     KVH = 8) over 512 keys, and a 512-key window over 1024 keys, each timed
@@ -773,7 +786,7 @@ def check_decode_cases(results, dev, gen, timer):
 PAGED_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
 
 
-def check_paged_attention(results, dev, gen, timer):
+def check_paged_attention(results, dev, gen):
     """K13 over a page pool through a scrambled page table: B = 8 rows at
     the ragged lengths above, H = KVH = 32, D = 128, PS = 128, MAXPAGES = 16
     (the scheduler's decode tick at max_seq_len 2048), bf16 and int8 pools,
@@ -835,7 +848,7 @@ def paged_case(q, pk, pv, table, lengths, scales, window):
     return kern, plain, err, row_err
 
 
-def check_paged_cases(results, dev, gen, timer):
+def check_paged_cases(results, dev, gen):
     """K13 off the main path: GQA (H = 32 over KVH = 8) at phase 2's paged
     shape (B = 8 ragged rows up to 2048 keys, bf16), timed beside SDPA over
     the same keys laid out contiguously (K/V repeated to H heads); then
@@ -899,7 +912,7 @@ def _wa16_err(name, shape, got, want) -> float:
 BF16_GEMMS = {6: (w6_matmul_bf16, w6_matmul_bf16_plain), 4: (w4_matmul_bf16, w4_matmul_bf16_plain)}
 
 
-def check_wa16(results, dev, gen, timer):
+def check_wa16(results, dev, gen):
     """K7 (W6A16) and K11 (W4A16) at the 512-token prefill (M = 4 x 512)
     for q / k (RoPE epilogue), v / o (none) and down (K = 11264), at the
     scheduler's 256-token chunk (q / k, down), and at M = 4 (weight-only
@@ -1630,15 +1643,17 @@ SPEC_K = 4  # phase 6's draft length: verify windows of 1 + SPEC_K tokens
 def run_counted(label, path, fn):
     """Call ``fn`` with the launch counts zeroed just before and read just
     after (the launches by M go to BY_M); every kernel of ``path`` must have
-    launched. Returns (fn's result, counts)."""
-    if torch.cuda.is_available():
+    launched (on the card: on the CPU every wrapper takes its plain
+    version). Returns (fn's result, counts)."""
+    on_card = torch.cuda.is_available()
+    if on_card:
         torch.cuda.synchronize()
     reset_launch_counts()
     out = fn()
     counts = launch_counts()
     add_by_m()
     missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
-    if missing:
+    if on_card and missing:
         raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
     log(f"modes {label} launches: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     return out, counts
@@ -2710,6 +2725,8 @@ EVAL_HOLD_LAYERS = 2  # ... at the depth its tests set them
 # against the packed path: max |dlogit| / max |logit|, argmax agreement, and
 # the share of entries where the oracle's own codes part from the handed ones
 HANDON_TOL, HANDON_AGREE, HANDON_OFF = 1e-3, 0.99, 1e-3
+# oracle parity (bf16), the Engine's codes handed on: rmse / std, greedy agreement
+ORACLE_HANDON_RMSE, ORACLE_HANDON_AGREE = 1e-2, 0.95
 SMOOTH_TOL = 1e-3  # the smoothing fold's identity on the dense f32 logits, of max |logit|
 # the kernels phase 8 must launch (K1-K6, K9, K10, K12, K14, K15)
 EVAL_KERNELS = ("rmsnorm_quant", "w6_matmul", "w6_matmul_stream", "quant_act", "glu_quant", "flash_decode",
@@ -2722,6 +2739,11 @@ EVAL_PATHS = {
     "oracle W6": W6AX,
     "oracle W4": PRODUCERS + ("w4_matmul", "flash_decode", "flash_prefill"),
 }
+# the policies phases 8 and 9 evaluate: (label, policy, its EVAL_PATHS key)
+EVAL_POLICIES = (("llama_flex W6A6 (down A8)", QuantPolicy.llama_flex(), "eval W6"),
+                 ("llama_flex(6, 8) W6A8", QuantPolicy.llama_flex(6, 8), "eval W6"),
+                 ("llama_flex(4, 8) W4A8", QuantPolicy.llama_flex(4, 8), "eval W4"),
+                 ("uniform W8A8", QuantPolicy.uniform("llama", 8, 8), "eval W8"))
 
 
 def data_file(name: str) -> str:
@@ -2741,19 +2763,21 @@ def require_launched(label, counts, path, dev) -> None:
         raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
 
 
-def kept_ppl(fn, windows):
+def kept_ppl(fn, windows, batch_size=1, keep=None):
     """The port's perplexity over ``windows`` through ``fn`` (ids -> logits),
-    the logits of each window kept on the card: (ppl, [logits], seconds)."""
+    ``batch_size`` windows a forward, the logits of the first ``keep``
+    forwards (None: every one) kept on the card: (ppl, [logits], seconds)."""
     kept = []
 
     def fwd(ids):
         logits = fn(ids)
-        kept.append(logits)
+        if keep is None or len(kept) < keep:
+            kept.append(logits)
         return logits
 
     sync()
     t0 = time.perf_counter()
-    ppl = perplexity(fwd, windows)
+    ppl = perplexity(fwd, windows, batch_size=batch_size)
     sync()
     return ppl, kept, time.perf_counter() - t0
 
@@ -2873,8 +2897,8 @@ def fmt_shares(shares) -> str:
 
 
 def code_witness(label, fq, cfg, policy, window, codes, as_is, packed_logits, oracle_logits) -> bool:
-    """At full depth on the first window: the oracle again with the packed
-    path's activation codes handed on at every quant point, held against
+    """At full depth on the first forward's windows: the oracle again with
+    the packed path's activation codes handed on at every quant point, held against
     the packed path (HANDON_TOL of max |logit|, HANDON_AGREE argmax
     agreement; its own codes off the handed ones by at most one code on at
     most HANDON_OFF of the entries): if they part only by flipped codes,
@@ -2894,10 +2918,11 @@ def code_witness(label, fq, cfg, policy, window, codes, as_is, packed_logits, or
     off, total, most = handed.totals()
     as_off, as_total, as_most = as_is.totals()
     ok = gap <= HANDON_TOL and agree >= HANDON_AGREE and most <= 1 and off <= HANDON_OFF * total
-    log(f"eval code witness {label}, {cfg.num_layers} layers, first window: the oracle with the packed path's "
-        f"activation codes handed on vs the packed path: max |dlogit|/max|logit| {gap:.3g}, argmax agreement "
-        f"{agree:.4f} (bounds {HANDON_TOL:g}, {HANDON_AGREE:g}); the oracle's own codes off the handed ones: "
-        f"{off}/{total} (most {most}; bounds {HANDON_OFF:g} of the entries, one code): {'held' if ok else 'FAILED'}")
+    log(f"eval code witness {label}, {cfg.num_layers} layers, first forward ({window.shape[0]} x {window.shape[1]} "
+        f"tokens): the oracle with the packed path's activation codes handed on vs the packed path: max "
+        f"|dlogit|/max|logit| {gap:.3g}, argmax agreement {agree:.4f} (bounds {HANDON_TOL:g}, {HANDON_AGREE:g}); the "
+        f"oracle's own codes off the handed ones: {off}/{total} (most {most}; bounds {HANDON_OFF:g} of the entries, "
+        f"one code): {'held' if ok else 'FAILED'}")
     log(f"eval code witness {label}: the oracle's codes off the packed path's, layer by layer, as it is "
         f"{fmt_shares(as_is.shares())} ({as_off}/{as_total}, most {as_most}); handed on {fmt_shares(handed.shares())}")
     log(f"eval code witness {label}: the oracle against itself with its embedding rows one f32 ulp off: "
@@ -2910,16 +2935,18 @@ def cut_layers(tree, n: int):
     return {**{k: v for k, v in tree.items() if k != "layers"}, "layers": tree["layers"][:n]}
 
 
-def fake_and_packed(label, dense, cfg, policy, windows, dev, add, path, witness=False):
-    """One policy over the windows, the packed path first (its first
-    window's activation codes kept), then the fake-quant oracle (its first
-    window's codes held against them): (packed ppl, its logits, fake-quant
+def fake_and_packed(label, dense, cfg, policy, windows, dev, add, path, witness=False, batch_size=1, keep=None):
+    """One policy over the windows (``batch_size`` a forward, the logits of
+    the first ``keep`` forwards kept), the packed path first (its first
+    forward's activation codes kept), then the fake-quant oracle (its first
+    forward's codes held against them): (packed ppl, its logits, fake-quant
     ppl, its logits, seconds of each, the packed run's launch counts,
     whether the code witness held (``witness``; else None))."""
     packed = quantize_params(dense, cfg, policy, dtype=torch.float32, device=dev)
     reset_launch_counts()
     with PackedCodes(cfg.num_layers, forwards=1) as codes:
-        packed_ppl, got, s_packed = kept_ppl(lambda x: forward_serve(packed, cfg, policy, x, device=dev)[0], windows)
+        packed_ppl, got, s_packed = kept_ppl(lambda x: forward_serve(packed, cfg, policy, x, device=dev)[0], windows,
+                                             batch_size, keep)
     counts = launch_counts()
     add(counts)
     del packed
@@ -2927,8 +2954,10 @@ def fake_and_packed(label, dense, cfg, policy, windows, dev, add, path, witness=
     require_launched(f"eval {cfg.num_layers} layers", counts, path, dev)
     fq = fake_quant_weights(dense, policy)
     with OracleCodes(codes, hand_on=False) as as_is:
-        fake_ppl, oracle, s_fake = kept_ppl(lambda x: dense_forward(fq, cfg, x, policy=policy), windows)
-    held = code_witness(label, fq, cfg, policy, windows[:1], codes, as_is, got[0], oracle[0]) if witness else None
+        fake_ppl, oracle, s_fake = kept_ppl(lambda x: dense_forward(fq, cfg, x, policy=policy), windows, batch_size,
+                                            keep)
+    held = code_witness(label, fq, cfg, policy, windows[:batch_size], codes, as_is, got[0], oracle[0]) if witness \
+        else None
     del fq, codes
     torch.cuda.empty_cache()
     return packed_ppl, got, fake_ppl, oracle, s_packed, s_fake, counts, held
@@ -2953,14 +2982,10 @@ def eval_table(dense, cfg, windows, dev, add):
     dense_ppl, dense_logits, s = kept_ppl(lambda x: dense_forward(dense, cfg, x), windows)
     log(f"eval ppl dense f32 (LLaMA-2-7B widths, {cfg.num_layers} layers, random weights, {windows.shape[0]} x "
         f"{windows.shape[1]}-token windows of data_tiny/test.npy): {dense_ppl:.4f} ({s:.1f}s)")
-    cases = (("llama_flex W6A6 (down A8)", QuantPolicy.llama_flex(), "eval W6"),
-             ("llama_flex(6, 8) W6A8", QuantPolicy.llama_flex(6, 8), "eval W6"),
-             ("llama_flex(4, 8) W4A8", QuantPolicy.llama_flex(4, 8), "eval W4"),
-             ("uniform W8A8", QuantPolicy.uniform("llama", 8, 8), "eval W8"))
     cut = cut_layers(dense, EVAL_HOLD_LAYERS)
     ccfg = dataclasses.replace(cfg, num_layers=EVAL_HOLD_LAYERS)
     fake = {}
-    for label, policy, path in cases:
+    for label, policy, path in EVAL_POLICIES:
         packed_ppl, got, fake_ppl, oracle, s_packed, s_fake, counts, witnessed = fake_and_packed(
             label, dense, cfg, policy, windows, dev, add, path, witness=True)
         fake[label] = fake_ppl
@@ -2998,15 +3023,28 @@ def oracle_parity(cfg, dev, gen, add):
     fake-quant oracle: logit RMSE over the oracle's std, max |dlogit|,
     greedy agreement; the same with the Engine's activation codes handed to
     the oracle, the share of codes the oracle computes off the Engine's
-    layer by layer, and the oracle against the dense bf16 model."""
+    layer by layer, and the oracle against the dense bf16 model. Returns
+    whether the handed-on parity held."""
     prompt = np.random.default_rng(7).integers(100, 31000, ORACLE_PROMPT).tolist()
     dense = random_weights(cfg, gen, dev, lambda lp: to_device(lp, torch.bfloat16), res_std=0.02)
-    dense = to_device(dense, torch.bfloat16)
+    return oracle_parity_on(to_device(dense, torch.bfloat16), cfg, dev, add, prompt,
+                     "N(0, 0.02) as scripts/oracle_parity.py makes them")
+
+
+def oracle_parity_on(dense, cfg, dev, add, prompt, weights: str) -> bool:
+    """Oracle parity (phase 8 (c), phase 9 (e)) on the bf16 tree ``dense``
+    (``weights`` says what it holds) from ``prompt``: llama_flex and W4A8,
+    ORACLE_NEW greedy tokens each. Held, for each: with the Engine's
+    activation codes handed on, the oracle within ORACLE_HANDON_RMSE rmse /
+    std of the Engine's logits and greedy agreement ORACLE_HANDON_AGREE;
+    as it is, the oracle is only logged (flipped codes cascade)."""
+    ok = True
 
     def parity(rows, want):
-        rmse = (rows - want).pow(2).mean().sqrt().item()
-        return (f"rmse_over_std={rmse / want.std().item():.4g} max_abs={(rows - want).abs().max().item():.4g} "
-                f"greedy_agreement={(rows.argmax(-1) == want.argmax(-1)).float().mean().item():.4f}")
+        rmse = (rows - want).pow(2).mean().sqrt().item() / want.std().item()
+        agree = (rows.argmax(-1) == want.argmax(-1)).float().mean().item()
+        return rmse, agree, (f"rmse_over_std={rmse:.4g} max_abs={(rows - want).abs().max().item():.4g} "
+                             f"greedy_agreement={agree:.4f}")
 
     for label, policy, path in (("llama_flex", QuantPolicy.llama_flex(), "oracle W6"),
                                 ("W4A8", QuantPolicy.uniform("llama", 4, 8), "oracle W4")):
@@ -3030,22 +3068,27 @@ def oracle_parity(cfg, dev, gen, add):
         seq = torch.as_tensor([prompt + out[:-1]])
         fq = fake_quant_weights(dense, policy)
         with OracleCodes(codes, hand_on=False) as as_is:
-            oracle = dense_forward(fq, cfg, seq, policy=policy)[0, ORACLE_PROMPT - 1:].float()
+            oracle = dense_forward(fq, cfg, seq, policy=policy)[0, len(prompt) - 1:].float()
         with OracleCodes(codes, hand_on=True) as handed:
-            handed_rows = dense_forward(fq, cfg, seq, policy=policy)[0, ORACLE_PROMPT - 1:].float()
+            handed_rows = dense_forward(fq, cfg, seq, policy=policy)[0, len(prompt) - 1:].float()
         del fq, codes
-        plain = dense_forward(dense, cfg, seq)[0, ORACLE_PROMPT - 1:].float()
+        plain = dense_forward(dense, cfg, seq)[0, len(prompt) - 1:].float()
         torch.cuda.empty_cache()
-        log(f"oracle parity {label} (LLaMA-2-7B, {cfg.num_layers} layers, bf16 weights, packed tree and cache, "
-            f"N(0, 0.02) as scripts/oracle_parity.py makes them, {ORACLE_PROMPT}-token prompt through the W*Ax layer, "
+        handed_rmse, handed_agree, handed_line = parity(serve, handed_rows)
+        held = handed_rmse <= ORACLE_HANDON_RMSE and handed_agree >= ORACLE_HANDON_AGREE
+        ok = ok and held
+        log(f"oracle parity {label} ({cfg.num_layers} layers, hidden {cfg.hidden_size}, head_dim {cfg.head_dim}, "
+            f"bf16 weights, packed tree and cache, {weights}, {len(prompt)}-token prompt through the W*Ax layer, "
             f"{len(out)} greedy tokens via Engine.generate, teacher-forced through the bf16 fake-quant oracle): "
-            f"{parity(serve, oracle)} oracle_std={oracle.std().item():.4g} ({gen_s:.1f}s)")
-        log(f"oracle parity {label}, the Engine's activation codes handed to the oracle: {parity(serve, handed_rows)}; "
-            f"the oracle's codes off the Engine's, layer by layer, as it is {fmt_shares(as_is.shares())} (most "
-            f"{as_is.totals()[2]}), handed on {fmt_shares(handed.shares())} (most {handed.totals()[2]}); the oracle "
-            f"vs the dense bf16 model: {parity(oracle, plain)}")
+            f"{parity(serve, oracle)[2]} oracle_std={oracle.std().item():.4g} ({gen_s:.1f}s)")
+        log(f"oracle parity {label}, the Engine's activation codes handed to the oracle: {handed_line} (bounds "
+            f"{ORACLE_HANDON_RMSE:g}, {ORACLE_HANDON_AGREE:g}): {'held' if held else 'FAILED'}; the oracle's codes off "
+            f"the Engine's, layer by layer, as it is {fmt_shares(as_is.shares())} (most {as_is.totals()[2]}), handed on "
+            f"{fmt_shares(handed.shares())} (most {handed.totals()[2]}); the oracle "
+            f"vs the dense bf16 model: {parity(oracle, plain)[2]}")
         log(f"oracle launches {label}: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
         del serve, oracle, handed_rows, plain
+    return ok
 
 
 def smoothing_and_sensitivity(dense, cfg, windows, dev, fake_flex_ppl) -> bool:
@@ -3191,7 +3234,7 @@ def quantize_and_evaluate(dev, workdir, cfg=None, opt_cfg=None, n_windows=EVAL_W
     ok = smoothing_and_sensitivity(dense, cfg, windows, dev, fake["llama_flex W6A6 (down A8)"]) and ok
     del dense
     torch.cuda.empty_cache()
-    oracle_parity(cfg, dev, torch.Generator(device=dev).manual_seed(SEED + 22), add)
+    ok = oracle_parity(cfg, dev, torch.Generator(device=dev).manual_seed(SEED + 22), add) and ok
     torch.cuda.empty_cache()
     ok = opt_eval(dev, torch.Generator(device=dev).manual_seed(SEED + 21), windows, add, opt_cfg) and ok
     torch.cuda.empty_cache()
@@ -3204,7 +3247,275 @@ def quantize_and_evaluate(dev, workdir, cfg=None, opt_cfg=None, n_windows=EVAL_W
     log(f"phase 8 quantize and evaluate: {time.perf_counter() - t_phase:.1f}s, peak device memory {peak:.1f} GiB")
     if not ok:
         raise AssertionError("phase 8: a packed path parts from its oracle, or the smoothing fold is not an "
-                             "identity (see the eval lines)")
+                             "identity (see the eval and oracle parity lines)")
+    return totals
+
+
+# ---- phase 9: train the accuracy-gate model, then gate its weights ---------
+
+TRAIN_STEPS, TRAIN_EVAL_EVERY = 600, 100  # the trainer's steps and evals: about 130 s of steps on an H100 (PERF.md)
+TRAIN_MAX_MINUTES = 3.5  # the trainer stops at its first eval past this
+CORPUS_MB = 16  # the training corpus cut from the machine's own files
+VAL_PPL_BOUND = 500.0  # the trained model's final val ppl, well under the vocabulary's 8192
+CARD_CPU_LAYERS, CARD_CPU_BATCH, CARD_CPU_STEPS = 2, 8, 3  # (c): 2 layers at the trained widths, 8 x 512 tokens
+GATE_SEQ, GATE_BATCH = 512, 16  # (d): windows_from_stream(test, 512), 16 windows a forward
+# (d), every served format: packed vs fake-quant ppl, relative; and that gap
+# as a share of the fake-quant ppl's own step from the dense model's (a path
+# that skipped quantization would part from fake-quant by the whole step)
+PACKED_FAKE_BOUND, PACKED_SHARE_BOUND = 1e-4, 0.3
+SPEC_PROMPT, SPEC_NEW, SPEC_ROWS = 128, 64, 4  # (e): spec decoding on prompts from test.npy
+# (e)'s speculative decoding: the W*Ax prompt (K9's tiles at 128 queries), the
+# [B, 1 + k] verify windows (K9's short-prompt kernel, the exact GEMM on route
+# A), plain greedy's decode steps (K6, K3)
+PATH_KERNELS["spec W*Ax prompt"] = PRODUCERS + ("w6_matmul", "flash_prefill")
+# the kernels phase 9 must launch (K1-K6, K9, K10, K12)
+GATE_KERNELS = PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode", "flash_prefill", "w4_matmul",
+                            "w8_matmul")
+
+
+def corpus_and_tokens(cdir: str) -> np.ndarray:
+    """(a): a training corpus from this machine's own files (the port's
+    build_corpus over numpy's site-packages and the system's docs and
+    licenses), the units data_tiny/MANIFEST.txt holds out excluded under
+    every root before a file of theirs is read (so no document of theirs
+    reaches the train split), no unit held out of it (all train);
+    encoded with the port's encode_file and data_tiny/tokenizer.json, the
+    encoder held against data_tiny/val.npy on the whole of val.txt; the
+    repo's tokenizer and val / test streams copied beside it. Returns the
+    train stream."""
+    t0 = time.perf_counter()
+    held = corpus.read_manifest_units(data_file("MANIFEST.txt"))
+    roots = corpus.default_roots()
+    names = sorted({u.split("/", 1)[1] for u in held})  # "site-packages/filelock" -> "filelock"
+    exclude = [f"{os.path.basename(r)}/{n}" for r in roots for n in names]
+    present = [f"{os.path.basename(r)}/{n}" for r in roots for n in names if os.path.exists(os.path.join(r, n))]
+    m = corpus.build_corpus(cdir, roots=roots, max_mb=CORPUS_MB, heldout_mb=0, exclude_units=exclude)
+    build_s = time.perf_counter() - t0
+    if m["val_units"] or m["test_units"] or m["train_docs"] != m["n_docs"]:
+        raise AssertionError("corpus: every document belongs in the train split")
+    log(f"train corpus: build_corpus over {roots} ({build_s:.1f}s): {m['n_docs']} documents, "
+        f"{m['train_bytes'] / 1e6:.2f} MB; data_tiny's held-out units {held} excluded under every root "
+        f"({exclude}; present on this machine: {present or 'none'})")
+    for name in ("tokenizer.json", "val.npy", "test.npy"):
+        shutil.copy(data_file(name), os.path.join(cdir, name))
+    tok = os.path.join(cdir, "tokenizer.json")
+    t0 = time.perf_counter()
+    n = corpus.encode_file(tok, os.path.join(cdir, "train.txt"), os.path.join(cdir, "train.npy"))
+    enc_s = time.perf_counter() - t0
+    log(f"train corpus encoded by the port's encode_file: {m['train_bytes'] / 1e6:.2f} MB -> {n} tokens in "
+        f"{enc_s:.1f}s ({m['train_bytes'] / 1e6 / enc_s:.2f} MB/s)")
+    t0 = time.perf_counter()
+    corpus.encode_file(tok, data_file("val.txt"), os.path.join(cdir, "val_port.npy"))
+    got, want = np.load(os.path.join(cdir, "val_port.npy")), np.load(data_file("val.npy"))
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    log(f"encoder check: encode_file(data_tiny/val.txt) against data_tiny/val.npy (the tokenizers library's ids, "
+        f"{-(-os.path.getsize(data_file('val.txt')) // (1 << 20))} chunks of 1 Mi characters): {got.size} vs "
+        f"{want.size} tokens, {'equal' if same else 'DIFFERENT'} ({time.perf_counter() - t0:.1f}s)")
+    if not same:
+        raise AssertionError("encoder check: the port's encode_file parts from data_tiny/val.npy")
+    return np.load(os.path.join(cdir, "train.npy"))
+
+
+def train_tiny(cdir: str, odir: str, dev) -> bool:
+    """(b): scripts/torch_train_tiny.py as a subprocess on ``dev`` at the
+    reference's accuracy-gate shape (its defaults), TRAIN_STEPS steps; the
+    val curve read from its history.jsonl, its summary from its last line. Held:
+    the val loss falls from the first eval to the last, and the final val
+    ppl is at most VAL_PPL_BOUND."""
+    cmd = [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", "torch_train_tiny.py"),
+           "--corpus-dir", cdir, "--out-dir", odir, "--steps", str(TRAIN_STEPS), "--eval-every", str(TRAIN_EVAL_EVERY),
+           "--max-minutes", str(TRAIN_MAX_MINUTES), "--device", dev.type]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"trainer failed ({run.returncode}):\n{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    for line in run.stdout.strip().splitlines():
+        log(f"train | {line}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])
+    with open(os.path.join(odir, "history.jsonl")) as f:
+        hist = [json.loads(line) for line in f]
+    falls = len(hist) >= 2 and hist[-1]["val_loss"] < hist[0]["val_loss"]
+    final_ppl = hist[-1]["val_ppl"]
+    ok = falls and final_ppl <= VAL_PPL_BOUND
+    log(f"train: {summary['steps']} steps in {wall:.1f}s of wall (the process, its start and evals included): "
+        f"{summary['s_per_step']} s a step and {summary['tokens_per_s']} tokens/s over its {summary['timed_steps']} "
+        f"timed steps ({summary['train_s']} s, evals and checkpoints left out; the first 50-step block "
+        f"{summary['first_block_s']} s, the median one {summary['s_per_step_median_block']} s a step), peak "
+        f"{summary['peak_gib']} GiB; val curve "
+        f"{[(h['step'], h['val_loss'], h['val_ppl']) for h in hist]}: val loss falls {hist[0]['val_loss']} -> "
+        f"{hist[-1]['val_loss']}, final val ppl {final_ppl} (bound {VAL_PPL_BOUND:g}, under the vocabulary's "
+        f"8192): {'held' if ok else 'FAILED'}")
+    return ok
+
+
+def card_vs_cpu(cfg, tokens, dev) -> bool:
+    """(c): the first CARD_CPU_STEPS train_steps of a CARD_CPU_LAYERS-layer
+    model at the trained widths, on ``dev`` and on the CPU from the same
+    init_params and batches, TF32 off. Held: the first step (lr(0) = 0)
+    leaves the parameters bit for bit on both; the loss each step within
+    1e-5 relative (f32 sums in another order); the parameters: none apart
+    by more than 2 x the summed lr (an update's sign flips where a gradient
+    entry is below the sums' rounding: Adam moves it by +-lr either way) and
+    at most 1e-4 of the entries apart by more than 1e-3 x the summed lr."""
+    ccfg = dataclasses.replace(cfg, num_layers=CARD_CPU_LAYERS)
+    tc = trainer.TrainConfig(batch_size=CARD_CPU_BATCH, seq_len=GATE_SEQ, total_steps=TRAIN_STEPS)
+    batches = list(itertools.islice(trainer.batch_iterator(tokens, tc, seed=1), CARD_CPU_STEPS))
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        params = trainer.init_params(ccfg, 0, device=d)
+        opt = trainer.make_optimizer(tc, params)
+        state, losses, first_kept = opt.init(params), [], None
+        for ids in batches:
+            before = params
+            params, state, loss = trainer.train_step(params, state, ids, ccfg, opt)
+            losses.append(float(loss))
+            if first_kept is None:
+                first_kept = all(torch.equal(a, b) for a, b in zip(trainer.tree_leaves(before),
+                                                                  trainer.tree_leaves(params)))
+        runs[d.type] = params, losses, first_kept, time.perf_counter() - t0
+    (pg, lg, kg, sg), (pc, lc, kc, sc) = runs[dev.type], runs["cpu"]
+    lr_sum = sum(opt.schedule(c) for c in range(CARD_CPU_STEPS))
+    diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(trainer.tree_leaves(pg),
+                                                                       trainer.tree_leaves(pc))])
+    worst, far = diffs.max().item(), (diffs > 1e-3 * lr_sum).float().mean().item()
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    ok = kg and kc and loss_gap <= 1e-5 and worst <= 2 * lr_sum and far <= 1e-4
+    log(f"train card vs cpu ({CARD_CPU_LAYERS} layers at the trained widths, {CARD_CPU_STEPS} steps of "
+        f"{CARD_CPU_BATCH} x {GATE_SEQ} tokens, lr summed {lr_sum:.3g}): losses {dev.type} {lg} cpu {lc} (largest "
+        f"relative gap {loss_gap:.3g}, bound 1e-5); first step leaves the parameters unchanged: {dev.type} {kg}, cpu "
+        f"{kc}; parameters after: max |dp| {worst:.3g} (bound {2 * lr_sum:.3g}), share of entries apart by more than "
+        f"{1e-3 * lr_sum:.3g} {far:.3g} (bound 1e-4); {sg:.1f}s on {dev.type}, {sc:.1f}s on the cpu: "
+        f"{'held' if ok else 'FAILED'}")
+    return ok
+
+
+def gate(params, cfg, dev, add) -> bool:
+    """(d): the trained weights over windows_from_stream(test.npy, 512),
+    GATE_BATCH windows a forward: the dense f32 ppl, and per policy of
+    EVAL_POLICIES phase 8's fake_and_packed: the fake-quant ppl
+    (fake_quant_weights + the dense forward) and the packed ppl
+    (quantize_params + the cache-less forward_serve, f32), with the code
+    witness on the first forward. Held: the witness, and the packed ppl
+    within PACKED_FAKE_BOUND relative of the fake-quant ppl and within
+    PACKED_SHARE_BOUND of the fake-quant ppl's step from the dense ppl.
+    "dppl <= 0.1" is the reference's acceptance metric: reported, not held
+    (minutes of training)."""
+    windows = trainer.windows_from_stream(np.load(data_file("test.npy")), GATE_SEQ)
+    dense_ppl, _, s = kept_ppl(lambda x: dense_forward(params, cfg, x), windows, GATE_BATCH, keep=0)
+    log(f"gate ppl dense f32 (the trained {cfg.num_layers}-layer model, hidden {cfg.hidden_size}, head_dim "
+        f"{cfg.head_dim}, over {windows.shape[0]} x {GATE_SEQ}-token windows of data_tiny/test.npy): {dense_ppl:.4f} "
+        f"({s:.1f}s)")
+    ok = math.isfinite(dense_ppl)
+    for label, policy, path in EVAL_POLICIES:
+        packed_ppl, got, fake_ppl, oracle, s_packed, s_fake, counts, witnessed = fake_and_packed(
+            label, params, cfg, policy, windows, dev, add, path, witness=True, batch_size=GATE_BATCH, keep=1)
+        rel = abs(packed_ppl - fake_ppl) / fake_ppl
+        share = abs(packed_ppl - fake_ppl) / max(abs(fake_ppl - dense_ppl), 1e-30)
+        held = rel <= PACKED_FAKE_BOUND and share <= PACKED_SHARE_BOUND and math.isfinite(packed_ppl)
+        log(f"gate ppl {label}: fake-quant {fake_ppl:.4f} (dppl vs f32 {fake_ppl - dense_ppl:+.4f}, {s_fake:.1f}s), "
+            f"packed {packed_ppl:.4f} (dppl vs f32 {packed_ppl - dense_ppl:+.4f}, {s_packed:.1f}s); packed vs "
+            f"fake-quant ppl {rel:.3g} relative (bound {PACKED_FAKE_BOUND:g}), {share:.3g} of fake-quant's step from "
+            f"f32 (bound {PACKED_SHARE_BOUND:g}): {'held' if held else 'FAILED'}; first forward "
+            f"{fmt_gaps(logit_gaps(got, oracle))}")
+        log(f"gate launches {label} packed: " + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+        ok = ok and held and witnessed
+        del got, oracle
+        torch.cuda.empty_cache()
+    return ok
+
+
+def spec_on_trained(params, cfg, dev, add):
+    """(e): speculative decoding (Engine.generate mode="spec", k = SPEC_K,
+    n-gram drafts) on SPEC_ROWS prompts from test.npy (the W*Ax prompt),
+    SPEC_NEW new tokens: acceptance and decode ms a token against plain
+    greedy on the captured step graph (mode="fused"), its tokens held to
+    plain greedy over the decisive steps as phase 6 holds them."""
+    policy = QuantPolicy.llama_flex()
+    test = np.load(data_file("test.npy"))
+    starts = np.linspace(0, test.size - SPEC_PROMPT - 1, SPEC_ROWS).astype(np.int64)
+    ps = [test[s : s + SPEC_PROMPT].astype(np.int64).tolist() for s in starts]
+    eng = Engine(quantize_params(params, cfg, policy, device=dev), cfg, policy, max_seq_len=ORACLE_MAX,
+                 prefill_bf16_threshold=ORACLE_MAX + 1, device=dev)
+    eng.generate(ps, max_new_tokens=2, eos_id=-1)  # warm-up: the first use of every kernel, the graph's capture
+    eng.generate(ps, max_new_tokens=4, eos_id=-1, mode="spec")
+    with LogitTap(eng, 1 + SPEC_K) as plain_tap:
+        plain = eng.generate(ps, max_new_tokens=SPEC_NEW, eos_id=-1, mode="step")
+    fused, pstats = eng.generate(ps, max_new_tokens=SPEC_NEW, eos_id=-1, return_stats=True)
+    if fused != plain:
+        raise AssertionError("spec on trained weights: plain greedy's fused and step loops disagree")
+    with LogitTap(eng, 1 + SPEC_K) as spec_tap:
+        (got, st), counts = run_counted("spec trained", "spec W*Ax prompt", lambda: eng.generate(
+            ps, max_new_tokens=SPEC_NEW, eos_id=-1, mode="spec", return_stats=True))
+    add(counts)
+    held, decisive, compared = decisive_hold("spec trained", plain, got, plain_tap, spec_tap, SPEC_PROMPT,
+                                             [(r, r) for r in range(SPEC_ROWS)])
+    plain_ms = pstats.decode_s / (SPEC_NEW - 1) * 1e3
+    spec_ms = st.decode_s / (SPEC_NEW - 1) * 1e3
+    ok = hold_passes(held, decisive)
+    log(f"spec trained B={SPEC_ROWS} prompt={SPEC_PROMPT} (test.npy) k={SPEC_K} new={SPEC_NEW}: "
+        f"acceptance_rate={st.acceptance_rate:.3f} ({st.accepted} of {st.drafted} drafted) "
+        f"tokens_per_verify_step={st.tokens_per_step:.2f} ({st.tokens_per_step / SPEC_ROWS:.2f} a row) "
+        f"decode_ms_per_token={spec_ms:.2f} against plain greedy's on the graph {plain_ms:.2f} "
+        f"({plain_ms / spec_ms:.2f}x); spec == plain greedy rows {sum(a == b for a, b in zip(got, plain))}/{SPEC_ROWS}; "
+        f"decisive steps held {held}/{decisive} (tolerance >= 95%), {decisive}/{compared} of the steps compared "
+        f"decisive: {'held' if ok else 'FAILED'}")
+    del eng, plain_tap, spec_tap
+    torch.cuda.empty_cache()
+    return ok
+
+
+def train_and_gate(dev):
+    """Phase 9 (see the module docstring); returns its launch counts."""
+    t_phase = time.perf_counter()
+    matmul = torch.backends.cuda.matmul
+    if matmul.allow_tf32 or torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("phase 9 needs true f32 matmuls (TF32 off)")
+    totals = {k: 0 for k in launch_counts()}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] += v
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the trainer is another process: leave it the card
+        log(f"train: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card")
+    with tempfile.TemporaryDirectory(prefix="flexq_train_") as work:
+        cdir, odir = os.path.join(work, "corpus"), os.path.join(work, "ckpt")
+        t0 = time.perf_counter()
+        tokens = corpus_and_tokens(cdir)
+        log(f"phase 9 (a) corpus and tokens: {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        ok = train_tiny(cdir, odir, dev)
+        log(f"phase 9 (b) train: {time.perf_counter() - t0:.1f}s")
+        params, cfg, meta = trainer.load_checkpoint(os.path.join(odir, "best.npz"), device=dev)
+        log(f"gate checkpoint: best.npz of step {meta['step']}, val ppl {meta['val_ppl']:.3f}; "
+            f"{cfg.num_layers} layers, hidden {cfg.hidden_size}, FFN {cfg.intermediate_size}, heads {cfg.num_heads} / "
+            f"{cfg.num_kv_heads} kv, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}")
+        t0 = time.perf_counter()
+        ok = card_vs_cpu(cfg, tokens, dev) and ok
+        log(f"phase 9 (c) card vs cpu: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ok = gate(params, cfg, dev, add) and ok
+    log(f"phase 9 (d) gate: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    bf16 = to_device(params, torch.bfloat16)
+    del params
+    test = np.load(data_file("test.npy"))
+    ok = oracle_parity_on(bf16, cfg, dev, add, test[:ORACLE_PROMPT].astype(np.int64).tolist(),
+                          f"trained (best.npz of step {meta['step']})") and ok
+    ok = spec_on_trained(bf16, cfg, dev, add) and ok
+    log(f"phase 9 (e) oracle parity and spec decoding: {time.perf_counter() - t0:.1f}s")
+    del bf16
+    torch.cuda.empty_cache()
+    log(f"phase 9 launches in all: " + " ".join(f"{k}={v}" for k, v in totals.items() if v))
+    missing = [k for k in GATE_KERNELS if totals[k] == 0]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"phase 9: kernels never launched: {missing}")
+    log(f"phase 9 train and gate: {time.perf_counter() - t_phase:.1f}s (budget 300 s)")
+    if not ok:
+        raise AssertionError("phase 9: a hold failed (see the train, gate, oracle parity and spec lines)")
     return totals
 
 
@@ -3227,23 +3538,21 @@ def main() -> int:
     log_kernel_attributes()
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    timer = Timer(dev)
     results = {}
     t_start = t0 = time.perf_counter()
-    check_producers(results, dev, gen, timer)
-    check_int_gemms(results, dev, gen, timer)
-    check_wa16(results, dev, gen, timer)
-    check_attention(results, dev, gen, timer)
-    check_paged_attention(results, dev, gen, timer)
+    check_producers(results, dev, gen)
+    check_int_gemms(results, dev, gen)
+    check_wa16(results, dev, gen)
+    check_attention(results, dev, gen)
+    check_paged_attention(results, dev, gen)
     # the attention cases off the main path draw from their own generators,
     # so the cases above keep their inputs
     gen_attn = torch.Generator(device=dev).manual_seed(SEED + 5)
-    check_prefill_cases(results, dev, gen_attn, timer)
-    check_paged_cases(results, dev, gen_attn, timer)
-    check_decode_cases(results, dev, torch.Generator(device=dev).manual_seed(SEED + 6), timer)
+    check_prefill_cases(results, dev, gen_attn)
+    check_paged_cases(results, dev, gen_attn)
+    check_decode_cases(results, dev, torch.Generator(device=dev).manual_seed(SEED + 6))
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
-    del timer  # free its 1 GiB buffer before the model phases measure peak memory
-    torch.cuda.empty_cache()
+    torch.cuda.empty_cache()  # free bench_fn's 1 GiB flush buffer before the model phases measure peak memory
 
     # each model phase draws its weights from its own seeded generator, so
     # adding a kernel check above never changes the models below
@@ -3269,6 +3578,8 @@ def main() -> int:
         log(f"phase 5 checkpoint and HTTP: {time.perf_counter() - t0:.1f}s")
         for k, v in quantize_and_evaluate(dev, workdir).items():  # phase 8, after the earlier models are freed
             counts[k] += v
+    for k, v in train_and_gate(dev).items():  # phase 9, after phase 8 has freed its models
+        counts[k] += v
     log(f"whole script after the build {time.perf_counter() - t_start:.1f}s")
     missing = [n for n, c in counts.items() if c == 0]
     if missing:

@@ -39,7 +39,7 @@ measures its producers the same way, in turns with this tree's (parent,
 this, this, parent).
 
 The variants of ``parts`` compute wrong results on purpose: they only take
-times. Times are chip_smoke.Timer's (CUDA events, median of 20, L2 flushed).
+times. Times are chip_smoke.timer's (utils/benchmark.bench_fn: CUDA events, median of 20, L2 flushed).
 """
 
 import ctypes
@@ -220,7 +220,7 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = chip_smoke.Timer(dev)
+    timer = chip_smoke.timer
     if what == "host":
         host(dev, gen, timer, parent)
     else:

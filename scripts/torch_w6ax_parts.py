@@ -29,7 +29,7 @@ flexq_tpu_torch/build/) and times it:
 
 Each variant runs at the formats asked for. The variants compute wrong
 results on purpose: they only take times.
-Times are chip_smoke.Timer's (CUDA events, median of 20, L2 flushed).
+Times are chip_smoke.timer's (utils/benchmark.bench_fn: CUDA events, median of 20, L2 flushed).
 """
 
 import ctypes
@@ -160,7 +160,7 @@ def main() -> int:
     print(smi)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = chip_smoke.Timer(dev)
+    timer = chip_smoke.timer
     {"routes": routes, "parts": parts}[what](dev, gen, timer, formats)
     return 0
 

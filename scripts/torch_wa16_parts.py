@@ -12,7 +12,7 @@ four ways and timed at the same shapes (needs nvcc and an NVIDIA GPU):
 The variants compute wrong results on purpose: they only take times. Each
 is the source with one condition switched off by a text substitution, built
 with the same nvcc flags as kernels/_build.py into flexq_tpu_torch/build/.
-Times are chip_smoke.Timer's (CUDA events, median of 20, L2 flushed).
+Times are chip_smoke.timer's (utils/benchmark.bench_fn: CUDA events, median of 20, L2 flushed).
 
     python3 scripts/torch_wa16_parts.py
 """
@@ -77,7 +77,7 @@ def main() -> int:
     libs = build()
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    timer = chip_smoke.Timer(dev)
+    timer = chip_smoke.timer
     data = {}
     for m, k, n in SHAPES:
         hi, lo = pack6(torch.randint(-32, 32, (k, n), generator=gen, device=dev, dtype=torch.int8))

@@ -1175,3 +1175,85 @@ def test_cacheless_forward_serve_on_the_card_tracks_the_oracle(gen):
         assert counts["rmsnorm_quant"] and counts["quant_act"] and counts["glu_quant"] and counts[gemm]
         assert ((got - oracle).abs().max() / oracle.abs().max()).item() < 8e-2
         assert (got.argmax(-1) == oracle.argmax(-1)).float().mean().item() >= 0.75
+
+
+def test_train_step_on_the_card_tracks_cpu(gen):
+    """Three train_steps of a 2-layer model (hidden 128, GQA) on the card and
+    on the CPU from the same init_params and batches, TF32 off: the loss
+    within 1e-5 relative each step; the parameters as chip_smoke.py phase 9
+    (c) holds them: none apart by more than 2 x the summed lr (Adam moves an
+    entry by about +-lr whatever its gradient's size, so an entry whose
+    gradient is below the f32 sums' rounding may move the other way) and at
+    most 1e-4 of the entries apart by more than 1e-3 x the summed lr; Adam's
+    moments within 1e-4 of each leaf's max; the first step (lr(0) = 0)
+    leaves the parameters bit for bit on both."""
+    from flexq_tpu_torch.train import trainer
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = ModelConfig.llama(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2, num_heads=2,
+                            num_kv_heads=1, max_seq_len=128)
+    tc = trainer.TrainConfig(batch_size=4, seq_len=64, total_steps=30, warmup_steps=2)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, 20000).astype(np.uint16)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = trainer.init_params(cfg, 0, device=dev)
+        opt = trainer.make_optimizer(tc, params)
+        state, losses, it = opt.init(params), [], trainer.batch_iterator(tokens, tc, seed=1)
+        for step in range(3):
+            before = params
+            params, state, loss = trainer.train_step(params, state, next(it), cfg, opt)
+            losses.append(float(loss))
+            if step == 0:
+                assert all(torch.equal(a, b) for a, b in zip(trainer.tree_leaves(before),
+                                                             trainer.tree_leaves(params)))
+        runs[dev] = params, state, losses
+    (pg, sg, lg), (pc, sc, lc) = runs["cuda"], runs["cpu"]
+    assert all(abs(a - b) <= 1e-5 * abs(b) for a, b in zip(lg, lc))
+    lr_sum = sum(trainer.make_lr_schedule(tc)(c) for c in range(3))
+    diffs = torch.cat([(a.cpu() - b).abs().flatten() for a, b in zip(trainer.tree_leaves(pg),
+                                                                       trainer.tree_leaves(pc))])
+    assert diffs.max().item() <= 2 * lr_sum
+    assert (diffs > 1e-3 * lr_sum).float().mean().item() <= 1e-4
+    for moment in ("mu", "nu"):
+        for a, b in zip(trainer.tree_leaves(sg[moment]), trainer.tree_leaves(sc[moment])):
+            assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    assert sg["count"] == sc["count"] == 3
+
+
+def test_bench_fn_on_the_card_brackets_the_call(gen):
+    """bench_fn's CUDA events bracket the device work: a 4096^3 bf16 matmul
+    (about 0.14 ms at the card's peak) times within 0.5-2x of the same
+    calls timed on the host around synchronize (20 back to back), and the
+    result is a positive finite number of seconds."""
+    import math
+    import time
+
+    from flexq_tpu_torch.utils.benchmark import bench_fn
+
+    a = torch.randn(4096, 4096, generator=gen, device="cuda").to(torch.bfloat16)
+    sec = bench_fn(torch.matmul, (a, a), iters=10)
+    assert math.isfinite(sec) and sec > 0 and bench_fn.last_fallback is False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        torch.matmul(a, a)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / 20
+    assert 0.5 * host <= sec <= 2 * host, (sec, host)
+
+
+def test_trace_holds_a_cuda_kernel(gen, tmp_path):
+    """profiling.trace on the card writes a Chrome trace holding the CUDA
+    kernel of the traced matmul, inside a ``scope`` range."""
+    import json
+
+    from flexq_tpu_torch.utils.profiling import scope, trace
+
+    a = torch.randn(512, 512, generator=gen, device="cuda")
+    with trace(str(tmp_path)):
+        with scope("traced_matmul"):
+            a @ a
+    (path,) = tmp_path.glob("trace_*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert any(e.get("name") == "traced_matmul" for e in events)
