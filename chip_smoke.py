@@ -185,6 +185,23 @@ exits nonzero without the final line:
      ms a token against greedy on the graph, tokens held to greedy over
      the decisive steps. Every kernel of the phase's path (K1-K6, K9, K10,
      K12) must launch; nothing is written into the repo.
+ 10. tensor and data parallelism, after phase 9 (phase 2 holds every kernel
+     at a tp = 2 rank's local shapes): (b) a one-rank NCCL world in this
+     process, the Engine's fused loop over forward_serve_tp on phase 4's
+     32-layer model, its all-reduces and all-gathers captured in the step
+     graph: the tokens of phase 4's 32-token run, decode ms a step beside
+     the single-device graph's; (a) two child ranks (``chip_smoke.py
+     --tp-rank r <dir>``) sharing the card over gloo: 2-layer forward parity
+     at 7B and OPT-6.7B widths against one rank (logged; held by the code
+     witness: the one rank with the TP run's activation codes and W*A16
+     layer inputs handed on, 2e-2 of max |logit|), the 32-layer Engine at
+     tp = 2 (mode="step"; held by the witness) and at tp = 1 x dp = 2 (held
+     over the decisive steps), phase 4's mix through the paged scheduler at
+     tp = 2 (held over the decisive steps), and phase 5's directory exported
+     with --tp 2 and served over HTTP by a leader ReplicatedScheduler with
+     rank 1 following (equal to a direct tp = 2 run). A rank that fails or
+     outlives its timeout fails the phase; the ranks' launches join the
+     kernels' counts.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -199,6 +216,7 @@ import math
 import os
 import queue
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -214,7 +232,7 @@ from flexq_tpu_torch.bindings import FlexQCausalLM
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.export import safetensors_io
 from flexq_tpu_torch.eval.ppl import perplexity
-from flexq_tpu_torch.export.exporter import load_packed
+from flexq_tpu_torch.export.exporter import load_packed, load_packed_sharded
 from flexq_tpu_torch.kernels import (
     _build,
     flash_decode,
@@ -253,7 +271,8 @@ from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STRE
 from flexq_tpu_torch.models.llama import fake_quant_weights, forward as dense_forward, rope_cos_sin, rope_gemm_operands
 from flexq_tpu_torch.models.opt import fake_quant_weights as opt_fake_quant_weights, forward as opt_dense_forward
 from flexq_tpu_torch.models import hf_loader, llama, quantized
-from flexq_tpu_torch.models.quantized import forward_serve, quantize_layer, quantize_linear, quantize_params
+from flexq_tpu_torch.models.quantized import (all_gather_cat, forward_serve, quantize_layer, quantize_linear,
+                                              quantize_params)
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import CLIPMIN, dequantize, quantize
@@ -261,6 +280,9 @@ from flexq_tpu_torch.quant.sensitivity import analyze_act_sensitivity
 from flexq_tpu_torch.quant.smooth import collect_llama_act_stats, smooth_llama
 from flexq_tpu_torch.serve import Engine, SamplingParams, beam, speculative
 from flexq_tpu_torch.serve import http as serve_http
+from flexq_tpu_torch.parallel.distributed import initialize, process_mesh, shutdown
+from flexq_tpu_torch.parallel.tp import forward_serve_tp, shard_params
+from flexq_tpu_torch.serve.replicated import ReplicatedScheduler
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
 from flexq_tpu_torch.train import corpus, trainer
 from flexq_tpu_torch.utils.benchmark import bench_fn
@@ -470,10 +492,9 @@ def _quant_err(name, shape, got, want):
     return float(dq.max().item())
 
 
-def producer_cases(m, dev, gen):
+def producer_cases(m, dev, gen, k=4096, f=11264):
     """(name, shape, kernel call, plain call, bytes, ops) of the producers at
     M rows, K = 4096 and F = 11264 (the 7B hidden and padded FFN widths)."""
-    k, f = 4096, 11264
     x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     res = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     gamma = (1 + 0.1 * torch.randn(k, generator=gen, device=dev)).to(torch.bfloat16)
@@ -493,13 +514,12 @@ def producer_cases(m, dev, gen):
     ]
 
 
-def opt_producer_cases(m, dev, gen):
+def opt_producer_cases(m, dev, gen, k=4096, f=16384):
     """(name, shape, kernel call, plain call, bytes, ops, yardstick) of OPT's
     producers at M rows: K14 at K = 4096 (6 and 8 bits, with and without
     the residual), K15 at F = 16384 (OPT-6.7B's hidden and FFN widths);
     the yardsticks F.layer_norm and torch.relu compute the producer without
     its quant."""
-    k, f = 4096, 16384
     x = (torch.randn((m, k), generator=gen, device=dev) + 0.5).to(torch.bfloat16)
     res = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
     gamma = (1 + 0.1 * torch.randn(k, generator=gen, device=dev)).to(torch.bfloat16)
@@ -538,6 +558,13 @@ def check_producers(results, dev, gen):
     cases = []
     for m in PRODUCER_MS:
         cases += [c + (None,) for c in producer_cases(m, dev, gen)] + opt_producer_cases(m, dev, gen)
+    run_producer_cases(results, cases)
+
+
+def run_producer_cases(results, cases):
+    """Each producer case within its tolerance against its plain version,
+    then timed beside the launch floor."""
+    floor = LAUNCH_FLOOR["ms"]
     errs = []
     for name, shape, kern, plain, _, _, _ in cases:
         got, want = kern(), plain()
@@ -651,6 +678,104 @@ def check_attention(results, dev, gen):
     nbytes = 2 * kvh * sum(VERIFY_LENGTHS) * d * 2 + 2 * b * lq * h * d * 2
     record(results, "flash_prefill", VERIFY_SHAPE, err, ms, plain_ms, nbytes, 4 * h * keys * d, PEAK_BF16, lib_ms,
            extra=" (tolerance: 2e-2 of max|out|)")
+
+
+def attention_case(results, b, lq, h, kvh, d, s, ln, quant, dev, gen):
+    """K6 (lq = 1) or K9 over a dense bf16 or int8 cache [2, B, KVH, S, D],
+    every row at ``ln`` keys, against its plain version (2e-2 of max |out|;
+    K6 per (b, h) row), timed beside SDPA over the same keys (dequantized to
+    bf16, repeated to H heads for GQA, causal for lq > 1)."""
+    ck, cv, scales = random_cache((2, b, kvh, s, d), quant, gen, dev)
+    q = torch.randn((b, lq, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    lengths = torch.full((b,), ln, dtype=torch.int32, device=dev)
+    if lq == 1:
+        name = "flash_decode"
+        kern = lambda: flash_decode(q[:, 0], ck, cv, lengths, *scales, layer_idx=1)
+    else:
+        name = "flash_prefill"
+        kern = lambda: flash_prefill(q, ck, cv, lengths, *scales, layer_idx=1)
+    plain = lambda: attend_cache_plain(q, ck, cv, lengths, 1, None, torch.bfloat16, lq == 1, torch.bfloat16, *scales)
+    got, want = kern().float().reshape(b, lq, h, d), plain().float().reshape(b, lq, h, d)
+    err = (got - want).abs().max().item()
+    worst = ((got - want).abs().amax(-1) / want.abs().amax(-1)).max().item() if lq == 1 else \
+        err / want.abs().max().item()
+    shape = f"B={b} Lq={lq} H={h} KVH={kvh} D={d} S={s} len={ln}" + (" int8" if quant else "")
+    if not worst <= 2e-2:
+        raise AssertionError(f"{name} {shape}: max abs err {err}")
+
+    def valid(c, sc):
+        x = c[1, :, :, :ln].float() * (sc[1, :, :, :ln, None] if quant else 1.0)
+        return x.to(torch.bfloat16).repeat_interleave(h // kvh, dim=1)
+
+    k_valid, v_valid = valid(ck, scales[0] if quant else None), valid(cv, scales[1] if quant else None)
+    qt = q.transpose(1, 2).contiguous()
+    pos = ln - lq + torch.arange(lq, device=dev)
+    mask = torch.arange(ln, device=dev)[None, :] <= pos[:, None]
+    lib = lambda: torch.nn.functional.scaled_dot_product_attention(qt, k_valid, v_valid,
+                                                                  attn_mask=None if lq == 1 else mask)
+    ms, plain_ms, lib_ms = timer(kern), timer(plain, iters=5, warmup=1), timer(lib)
+    keys = int((pos + 1).sum().item())
+    kv_bytes = 2 * b * kvh * ln * (d + 4) if quant else 2 * b * kvh * ln * d * 2
+    record(results, name, shape, err, ms, plain_ms, kv_bytes + 2 * b * lq * h * d * 2, 4 * b * h * keys * d,
+           PEAK_BF16, lib_ms, extra=" (tolerance: 2e-2 of max|out|" + (" per (b, h) row)" if lq == 1 else ")"))
+
+
+# tensor parallelism at tp = 2 (phase 10): each rank's local (K, N)
+TP2_7B = dict(qkv=(4096, 2048), gate_up=(4096, 5632), o=(2048, 4096), down=(5632, 4096), head=(4096, 16384))
+TP2_OPT = dict(fc1=(4096, 8192), fc2=(8192, 4096))
+# the accuracy-gate model of phase 9: hidden 512, FFN 1408, 8 heads / 4 kv heads of 64
+GATE_KN = dict(q=(512, 512), gate_up=(512, 1408), down=(1408, 512))
+
+
+def check_parallel_shapes(results, dev, gen):
+    """Every kernel of phase 10's tp = 2 path at a rank's local shapes
+    (LLaMA-2-7B's and OPT-6.7B's heads, FFN and vocab halved: q/k/v
+    4096 -> 2048, gate/up 4096 -> 5632, o 2048 -> 4096, down 5632 -> 4096,
+    the packed head 4096 -> 16384, OPT's fc1 4096 -> 8192 and fc2
+    8192 -> 4096, 16 heads), each against its plain version at its
+    tolerance and timed: the exact GEMMs (K2 / K3 at M = 4 and 128, K10 and
+    K12 at M = 4), the W*A16 GEMMs at a 4 x 512-token prefill (K7 with and
+    without RoPE, K8, K11), the producers at M = 4 and 2048 (K4 at K = 2048,
+    K5 at F = 5632, K15 at F = 8192; K1 and K14 keep K = 4096), attention
+    (K6, K9 on both kernels, K13) at H = KVH = 16. Then the accuracy-gate
+    model's shapes (phase 9) that PERF.md's table had no time for: K1-K5,
+    K10 and K12 at M = 4 and 16 x 512, K6 and K9 at 8 heads over 4 kv heads
+    of 64."""
+    t = TP2_7B
+    for m in (4, 128):
+        for (k, n), bits in ((t["qkv"], 6), (t["gate_up"], 6), (t["o"], 6), (t["down"], 8), (TP2_OPT["fc1"], 6),
+                             (TP2_OPT["fc2"], 6)):
+            int_gemm_case(results, 6, m, k, n, bits, dev, gen)
+    int_gemm_case(results, 6, 4, *t["head"], 8, dev, gen)
+    for fmt in (4, 8):
+        for k, n in (t["qkv"], t["gate_up"], t["o"], t["down"], t["head"]):
+            int_gemm_case(results, fmt, 4, k, n, 8, dev, gen)
+    cases = []
+    for fmt in BF16_GEMMS:
+        for (k, n), rope in ((t["qkv"], True), (t["qkv"], False), (t["o"], False), (t["down"], False)):
+            cases.append(wa16_case(fmt, 2048, k, n, rope, dev, gen))
+    cases.append(wa16_case(4, 2048, *t["gate_up"], False, dev, gen))  # W4 runs gate and up as two GEMMs
+    k, n = t["gate_up"]
+    cases += glu_cases(wa16_planes(6, k, n, dev, gen), wa16_planes(6, k, n, dev, gen), 2048, dev, gen)
+    run_wa16_cases(results, cases, dev, gen)
+    prod = []
+    for m in (4, 2048):
+        prod += [c + (None,) for c in producer_cases(m, dev, gen, k=2048, f=5632) if c[0] != "rmsnorm_quant"]
+        prod += [c for c in opt_producer_cases(m, dev, gen, f=8192) if c[0] == "relu_quant"]
+    run_producer_cases(results, prod)
+    for lq, ln in ((1, 64), (1, 512), (32, 64), (512, 512)):
+        attention_case(results, 4, lq, 16, 16, 128, 2048, ln, False, dev, gen)
+    attention_case(results, 4, 1, 16, 16, 128, 2048, 512, True, dev, gen)
+    check_paged_attention(results, dev, gen, h=16, kvh=16)
+    # the accuracy-gate model
+    for m in (4, 16 * 512):
+        for (k, n) in GATE_KN.values():
+            for fmt in (6, 4, 8):
+                int_gemm_case(results, fmt, m, k, n, 8 if fmt != 6 or k == 1408 else 6, dev, gen)
+        gate_prod = [c + (None,) for c in producer_cases(m, dev, gen, k=512, f=1408)]
+        run_producer_cases(results, gate_prod)
+    attention_case(results, 4, 1, 8, 4, 64, 2048, 512, False, dev, gen)
+    attention_case(results, 16, 512, 8, 4, 64, 512, 512, False, dev, gen)
 
 
 def log_check(results, name, shape, err, tol):
@@ -786,7 +911,7 @@ def check_decode_cases(results, dev, gen):
 PAGED_LENGTHS = (1, 127, 128, 129, 700, 1500, 2047, 2048)
 
 
-def check_paged_attention(results, dev, gen):
+def check_paged_attention(results, dev, gen, h=32, kvh=32):
     """K13 over a page pool through a scrambled page table: B = 8 rows at
     the ragged lengths above, H = KVH = 32, D = 128, PS = 128, MAXPAGES = 16
     (the scheduler's decode tick at max_seq_len 2048), bf16 and int8 pools,
@@ -795,7 +920,7 @@ def check_paged_attention(results, dev, gen):
     K6's tolerance, taken per (b, h) row. Yardstick: SDPA over the same
     keys laid out contiguously (dequantized to bf16 for the int8 pool),
     masked to each row's keys."""
-    b, h, kvh, ps, d, maxp = 8, 32, 32, 128, 128, 16
+    b, ps, d, maxp = 8, 128, 128, 16
     npages = 1 + b * maxp
     shape = (2, npages, kvh, ps, d)
     table = (torch.randperm(npages - 1, generator=gen, device=dev) + 1).reshape(b, maxp).to(torch.int32)
@@ -920,45 +1045,62 @@ def check_wa16(results, dev, gen):
     packed head's shape); K8 at M = 2048 with separate and fused gate / up
     planes and at M = 256. Each against its plain version in f32 and in bf16
     output; times of the bf16 output."""
-    def planes(fmt, k, n):
-        return (*int_weight(fmt, k, n, gen, dev), torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4)
-
     cases = []
     (kq, nq), (kg, ng), (kd, nd) = SHAPES_7B
     shapes = ((2048, kq, nq, True), (2048, kq, nq, False), (2048, kd, nd, False), (256, kq, nq, True),
               (256, kd, nd, False), (4, kq, nq, True), (4, kd, nd, False))
     # W4 has no fused GLU: K11 also runs gate / up (K = 4096, N = 11264) and the head
     w4_only = ((2048, kg, ng, False), (256, kg, ng, False), (4, kg, ng, False), (4, *HEAD_7B, False))
-    for fmt, (fn, plain) in BF16_GEMMS.items():
+    for fmt in BF16_GEMMS:
         for m, k, n, rope in shapes + (w4_only if fmt == 4 else ()):
-            x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-            w = planes(fmt, k, n)
-            kw = {}
-            if rope:
-                pos = torch.arange(m, device=dev).reshape(1, m) % 512  # B x 512-token prompts
-                cos, sin = rope_cos_sin(pos, 128, 10000.0)
-                kw = dict(zip(("rope_cos", "rope_sin2"), rope_gemm_operands(cos, sin)))
-            nbytes = m * k * 2 + k * n * fmt // 8 + (k // 128) * n * 4 + m * n * 2 + (2 * m * 128 * 4 if rope else 0)
-            cases.append((fn.__name__, f"M={m} K={k} N={n}" + (" rope" if rope else ""), x,
-                          lambda fn=fn, x=x, w=w, kw=kw, dt=None: fn(x, *w, out_dtype=dt, **kw),
-                          lambda plain=plain, x=x, w=w, kw=kw: plain(x, *w, torch.float32, **kw),
-                          nbytes, 2 * m * n * k, (k, n)))
+            cases.append(wa16_case(fmt, m, k, n, rope, dev, gen))
+    g, u = wa16_planes(6, kg, ng, dev, gen), wa16_planes(6, kg, ng, dev, gen)
+    cases += glu_cases(g, u, 2048, dev, gen, fused=True) + glu_cases(g, u, 256, dev, gen)  # 512-token prefill; chunk
+    run_wa16_cases(results, cases, dev, gen)
 
-    k, n = kg, ng
-    g, u = planes(6, k, n), planes(6, k, n)
-    gu = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
-    for m in (2048, 256):  # the 512-token prefill; the scheduler's chunk
-        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
-        nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
-        cases.append(("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
-                      lambda dt=None, x=x: w6_glu_matmul_bf16(x, *g, *u, out_dtype=dt),
-                      lambda x=x: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k,
+
+def wa16_planes(fmt, k, n, dev, gen):
+    return (*int_weight(fmt, k, n, gen, dev), torch.rand((k // 128, n), generator=gen, device=dev) * 0.004 + 1e-4)
+
+
+def wa16_case(fmt, m, k, n, rope, dev, gen, head_dim=128):
+    """(name, shape, x, kernel call, plain call, bytes, ops, (K, N)) of K7
+    (fmt 6) or K11 (fmt 4) at [M, K] x [K, N], with the RoPE epilogue over
+    B x 512-token positions."""
+    fn, plain = BF16_GEMMS[fmt]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = wa16_planes(fmt, k, n, dev, gen)
+    kw = {}
+    if rope:
+        pos = torch.arange(m, device=dev).reshape(1, m) % 512  # B x 512-token prompts
+        cos, sin = rope_cos_sin(pos, head_dim, 10000.0)
+        kw = dict(zip(("rope_cos", "rope_sin2"), rope_gemm_operands(cos, sin)))
+    nbytes = m * k * 2 + k * n * fmt // 8 + (k // 128) * n * 4 + m * n * 2 + (2 * m * head_dim * 4 if rope else 0)
+    return (fn.__name__, f"M={m} K={k} N={n}" + (" rope" if rope else ""), x,
+            lambda dt=None: fn(x, *w, out_dtype=dt, **kw), lambda: plain(x, *w, torch.float32, **kw),
+            nbytes, 2 * m * n * k, (k, n))
+
+
+def glu_cases(g, u, m, dev, gen, fused=False):
+    """K8 over separate gate / up planes (and, with ``fused``, over one
+    gate | up plane) at M rows."""
+    k, n = g[0].shape[0] * 2, g[0].shape[1]
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    nbytes = m * k * 2 + 2 * (k * n * 3 // 4 + (k // 128) * n * 4) + m * n * 2
+    plain = lambda: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32)
+    cases = [("w6_glu_matmul_bf16", f"M={m} K={k} N={n}", x,
+              lambda dt=None: w6_glu_matmul_bf16(x, *g, *u, out_dtype=dt), plain, nbytes, 4 * m * n * k, (k, 2 * n))]
+    if fused:
+        gu = [torch.cat([a, b], dim=1).contiguous() for a, b in zip(g, u)]
+        cases.append(("w6_glu_fused_bf16", f"M={m} K={k} N={n} fused", x,
+                      lambda dt=None: w6_glu_fused_bf16(x, *gu, out_dtype=dt), plain, nbytes, 4 * m * n * k,
                       (k, 2 * n)))
-        if m == 2048:
-            cases.append(("w6_glu_fused_bf16", f"M={m} K={k} N={n} fused", x,
-                          lambda dt=None, x=x: w6_glu_fused_bf16(x, *gu, out_dtype=dt),
-                          lambda x=x: w6_glu_bf16_plain(x, *g, *u, "silu", torch.float32), nbytes, 4 * m * n * k,
-                          (k, 2 * n)))
+    return cases
+
+
+def run_wa16_cases(results, cases, dev, gen):
+    """Each W*A16 case against its plain version in f32 and bf16 output,
+    then timed (bf16 output) beside a dense bf16 matmul of the same shape."""
     for name, shape, x, kern, plain, nbytes, ops, (k, n) in cases:
         want = plain()
         err = max(_wa16_err(name, shape, kern(dt=dt), want) for dt in (torch.float32, torch.bfloat16))
@@ -1045,26 +1187,40 @@ def to_device(tree, dev):
     return tree.to(dev)
 
 
+def dense_cache(cfg, b: int, s: int, kv_dtype, dev, kv_heads=None):
+    """A zeroed dense serve cache (k, v[, k_scale, v_scale]) of b rows and s
+    positions, over ``kv_heads`` kv heads (default the model's)."""
+    shape = (cfg.num_layers, b, kv_heads or cfg.num_kv_heads, s, cfg.head_dim)
+    c = tuple(torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in "kv")
+    if kv_dtype == torch.int8:
+        c += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=dev) for _ in "kv")
+    return c
+
+
+def cache_kw(c) -> dict:
+    return dict(kv_k=c[0], kv_v=c[1], **dict(zip(("kv_k_scale", "kv_v_scale"), c[2:])))
+
+
 def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat16, tol=None,
-           decisive_argmax=False, min_decisive=0.5) -> bool:
+           decisive_argmax=False, min_decisive=0.5, forward=forward_serve, ref_dev=None, kv_heads=None,
+           held_steps=None, hold_argmax=True, prefix="slice parity", what="2 layers, 7B width, card vs CPU plain"
+           ) -> bool:
     """forward_serve on the card vs the CPU plain versions (same weights):
     an l-token prompt (the W6A16 layer from 64 tokens), then 2 decode
     steps, B = 2. ``tol`` replaces the per-step logit bounds below;
     ``decisive_argmax`` holds the argmax agreement over the rows whose CPU
     top-2 margin exceeds the step's max |dlogit| (elsewhere the two sides'
     measured gap, or a tie of the bf16 logits, can part the argmax), and
-    asks that at least ``min_decisive`` of all rows be decisive."""
-    cpu = torch.device("cpu")
+    asks that at least ``min_decisive`` of all rows be decisive.
+    ``forward`` (forward_serve's arguments; its cache of ``kv_heads`` kv
+    heads) replaces the card's side, ``ref_dev`` the CPU as the reference's
+    device; only the steps in ``held_steps`` (None: all) are held to their
+    bound, the others logged, and without ``hold_argmax`` the argmax is
+    logged only."""
+    ref_dev = ref_dev or torch.device("cpu")
     b, s = 2, 256
-    shape = (cfg.num_layers, b, cfg.num_kv_heads, s, cfg.head_dim)
-
-    def new_cache(d):
-        c = tuple(torch.zeros(shape, dtype=kv_dtype, device=d) for _ in "kv")
-        if kv_dtype == torch.int8:
-            c += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=d) for _ in "kv")
-        return c
-
-    caches = {d: new_cache(d) for d in (dev, cpu)}
+    runs = {"got": [forward, params, dev, dense_cache(cfg, b, s, kv_dtype, dev, kv_heads)],
+            "ref": [forward_serve, params_cpu, ref_dev, dense_cache(cfg, b, s, kv_dtype, ref_dev)]}
     ids = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (b, l))
     pos, ok, agree, total = 0, True, 0, 0
     decisive_agree = decisive_total = 0
@@ -1072,25 +1228,24 @@ def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat
         n = ids.shape[1]
         positions = torch.as_tensor(np.broadcast_to(np.arange(pos, pos + n), (b, n)).copy())
         outs = {}
-        for d, p in ((dev, params), (cpu, params_cpu)):
-            c = caches[d]
-            logits, caches[d] = forward_serve(
-                p, cfg, policy, torch.as_tensor(ids), positions=positions, kv_k=c[0], kv_v=c[1], cache_pos=pos,
-                prefill_bf16=n >= 64, device=d, **dict(zip(("kv_k_scale", "kv_v_scale"), c[2:])))
-            outs[d] = logits.float().cpu()
-        ref = outs[cpu]
-        if not torch.isfinite(outs[dev]).all():
+        for role, run in runs.items():
+            fn, p, d, c = run
+            logits, run[3] = fn(p, cfg, policy, torch.as_tensor(ids), positions=positions, cache_pos=pos,
+                                prefill_bf16=n >= 64, device=d, **cache_kw(c))
+            outs[role] = logits.float().cpu()
+        ref, got = outs["ref"], outs["got"]
+        if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite logits on the card")
-        worst = ((outs[dev] - ref).abs().max() / ref.abs().max()).item()
-        parted = outs[dev].argmax(-1) != ref.argmax(-1)
+        worst = ((got - ref).abs().max() / ref.abs().max()).item()
+        parted = got.argmax(-1) != ref.argmax(-1)
         agree += int((~parted).sum())
         top2 = ref.topk(2, dim=-1).values
         margin = top2[..., 0] - top2[..., 1]
-        decisive = margin > (outs[dev] - ref).abs().max()
+        decisive = margin > (got - ref).abs().max()
         decisive_agree += int((decisive & ~parted).sum())
         decisive_total += int(decisive.sum())
-        if parted.any():  # the CPU's top-2 margin where the argmax parts, over max |logit|
-            log(f"slice parity {label}: argmax parts where the CPU's top-2 margin / max|logit| is "
+        if parted.any():  # the reference's top-2 margin where the argmax parts, over max |logit|
+            log(f"{prefix} {label}: argmax parts where the reference's top-2 margin / max|logit| is "
                 f"{[round(v, 5) for v in (margin[parted] / ref.abs().max()).tolist()]}")
         total += ref.shape[0] * ref.shape[1]
         # W6Ax decode steps over a cache that the W6A16 prefill wrote: K/V
@@ -1102,18 +1257,23 @@ def parity(label, params, params_cpu, cfg, policy, l, dev, kv_dtype=torch.bfloat
         # cache, parting card from CPU)
         loose = step > 0 and l >= 64 and not policy.no_act_quant
         step_tol = tol if tol is not None else 1e-1 if loose else 2e-2
-        what = f"{n}-token prompt" if step == 0 else f"decode step {step}"
-        log(f"slice parity {label} (2 layers, 7B width, card vs CPU plain), {what}: "
-            f"max |dlogit|/max|logit| = {worst:.3g} (tolerance {step_tol:g})")
-        ok = ok and worst <= step_tol
+        held = held_steps is None or step in held_steps
+        step_name = f"{n}-token prompt" if step == 0 else f"decode step {step}"
+        log(f"{prefix} {label} ({what}), {step_name}: max |dlogit|/max|logit| = {worst:.3g} "
+            f"({f'tolerance {step_tol:g}' if held else 'logged'})")
+        ok = ok and (worst <= step_tol or not held)
         pos += n
         ids = ref[:, -1].argmax(-1).numpy()[:, None]
+    if not hold_argmax:
+        log(f"{prefix} {label}: argmax agreement {agree}/{total} over the prompt and decode steps, "
+            f"{decisive_agree}/{decisive_total} over the decisive rows (logged)")
+        return ok
     if decisive_argmax:
-        log(f"slice parity {label}: argmax agreement {agree}/{total} over the prompt and decode steps, "
+        log(f"{prefix} {label}: argmax agreement {agree}/{total} over the prompt and decode steps, "
             f"{decisive_agree}/{decisive_total} over the rows whose CPU top-2 margin exceeds the step's max |dlogit| "
             f"(tolerance >= 95% of those, and at least {min_decisive:.0%} of the rows decisive)")
         return ok and decisive_total >= min_decisive * total and decisive_agree >= 0.95 * decisive_total
-    log(f"slice parity {label}: argmax agreement {agree}/{total} over the prompt and decode steps "
+    log(f"{prefix} {label}: argmax agreement {agree}/{total} over the prompt and decode steps "
         f"(tolerance >= 95%)")
     return ok and agree >= 0.95 * total
 
@@ -1186,12 +1346,29 @@ def paged_parity(label, params, params_cpu, cfg, policy, dev, kv_dtype) -> bool:
     return ok and agree >= 0.95 * total
 
 
+class Patch:
+    """While the context is open, each function of models.quantized named in
+    ``names`` is replaced by ``self._wrap(name, fn)``."""
+
+    names = ()
+
+    def __enter__(self):
+        self.saved = {n: getattr(quantized, n) for n in self.names}
+        for n, fn in self.saved.items():
+            setattr(quantized, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(quantized, n, fn)
+
+
 # the functions of models.quantized that a Tap wraps: the int8 cache's
 # quantizer and the activation producers (K1, K4, K5; OPT's K14, K15)
 TAPPED = ("_kv_quant", "rmsnorm_quant", "quant_act", "glu_quant", "layernorm_quant", "relu_quant")
 
 
-class Tap:
+class Tap(Patch):
     """Wraps the functions in TAPPED where models.quantized calls them. Each
     call's tensor inputs and outputs are kept on the CPU; given the Tap of
     an earlier run of the same forward, each call's codes are compared with
@@ -1200,21 +1377,13 @@ class Tap:
     for the names in ``hand_on`` that run's outputs are handed on in place
     of this call's."""
 
+    names = TAPPED
+
     def __init__(self, given=None, hand_on=()):
         self.given, self.hand_on = given, hand_on
         self.calls = {n: [] for n in TAPPED}
         # name -> [codes off, codes, most off], over the calls with equal / unequal inputs
         self.off = {n: {True: [0, 0, 0], False: [0, 0, 0]} for n in TAPPED}
-
-    def __enter__(self):
-        self.saved = {n: getattr(quantized, n) for n in TAPPED}
-        for n in TAPPED:
-            setattr(quantized, n, self._wrap(n, self.saved[n]))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(quantized, n, fn)
 
     def _wrap(self, name, fn):
         def call(*args, **kw):
@@ -1260,14 +1429,10 @@ def cache_witness(params, params_cpu, cfg, policy, dev, what="W6Ax", lengths=Non
             n = len(prompt)
 
             def run(d, p, tap):
-                shape = (cfg.num_layers, 1, cfg.num_kv_heads, 128, cfg.head_dim)
-                c = [torch.zeros(shape, dtype=kv_dtype, device=d) for _ in "kv"]
-                if kv_dtype == torch.int8:
-                    c += [torch.zeros(shape[:-1], dtype=torch.float32, device=d) for _ in "kv"]
+                c = dense_cache(cfg, 1, 128, kv_dtype, d)
                 with tap:
-                    logits, _ = forward_serve(p, cfg, policy, torch.as_tensor([prompt]), kv_k=c[0], kv_v=c[1],
-                                              cache_pos=0, device=d,
-                                              **dict(zip(("kv_k_scale", "kv_v_scale"), c[2:])))
+                    logits, _ = forward_serve(p, cfg, policy, torch.as_tensor([prompt]), cache_pos=0, device=d,
+                                              **cache_kw(c))
                 return logits[0].float().cpu(), [t.cpu() for t in c]
 
             card_tap = Tap()
@@ -1706,6 +1871,16 @@ class LogitTap:
     def __exit__(self, *exc):
         del self.eng._prefill, self.eng._decode_step, self.eng._spec_forward
 
+    def at(self, row: int, i: int):
+        """Row ``row``'s logits for its token i: the prompt's for token 0,
+        else decode step i - 1's."""
+        return self.prompts[0][row] if i == 0 else self.steps[i - 1][row]
+
+    def spec_at(self, prompt_len: int):
+        """decisive_hold's logits of a speculative run: token i (from 1) of
+        row r is drawn at query position prompt_len + i - 1."""
+        return lambda row, i: self.spec_logits(row, prompt_len + i - 1)
+
     def spec_logits(self, row: int, q: int):
         """Row ``row``'s logits for the token after query position q: from
         the last window that started at or before q (each step's window
@@ -1771,19 +1946,19 @@ class OracleDrafts:
         speculative.ngram_draft_device, speculative.ngram_draft = self.saved
 
 
-def decisive_hold(label, plain, got, plain_tap, spec_tap, prompt_len, rows):
-    """Spec tokens against plain greedy's, per (plain row, spec row) of
-    ``rows`` up to its first parting token: a step is decisive where the
-    plain run's top-2 margin exceeds the gap between the two runs' logits
-    there. Logs every parted step's margin; returns (decisive steps held,
-    decisive steps, steps compared). A hold passes only over at least one
-    decisive step (``hold_passes``)."""
+def decisive_hold(label, plain, got, plain_at, got_at, rows, first=1):
+    """The token streams of two runs, per (plain row, other row) of
+    ``rows`` from token ``first`` up to its first parting token: a step is
+    decisive where the plain run's top-2 margin exceeds the gap between the
+    two runs' logits there (``plain_at(r, i)`` / ``got_at(r, i)``: the
+    logits token i of row r was drawn from). Logs every parted step's
+    margin; returns (decisive steps held, decisive steps, steps compared).
+    A hold passes only over at least one decisive step (``hold_passes``)."""
     held = decisive = compared = 0
     for r, rs in rows:
-        for i in range(1, min(len(plain[r]), len(got[rs]))):
+        for i in range(first, min(len(plain[r]), len(got[rs]))):
             compared += 1
-            a = plain_tap.steps[i - 1][r].float()
-            b = spec_tap.spec_logits(rs, prompt_len + i - 1).float()
+            a, b = plain_at(r, i).float(), got_at(rs, i).float()
             top2 = a.topk(2).values
             margin = (top2[0] - top2[1]).item()
             gap = (a - b).abs().max().item()
@@ -1792,9 +1967,9 @@ def decisive_hold(label, plain, got, plain_tap, spec_tap, prompt_len, rows):
                 decisive += 1
                 held += same
             if not same:
-                log(f"modes {label}: row {r} parts from plain greedy at token {i}: top-2 margin "
-                    f"{margin / a.abs().max().item():.4%} of max |logit|, gap between the runs' logits "
-                    f"{gap / a.abs().max().item():.4%} ({'decisive' if margin > gap else 'a near-tie'})")
+                log(f"{label}: row {r} parts at token {i}: top-2 margin {margin / a.abs().max().item():.4%} of max "
+                    f"|logit|, gap between the runs' logits {gap / a.abs().max().item():.4%} "
+                    f"({'decisive' if margin > gap else 'a near-tie'})")
                 break
     return held, decisive, compared
 
@@ -1868,8 +2043,8 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
         (got, st), counts = run_counted("spec fused", "spec", lambda: speculative.generate_speculative(
             eng, ps, max_new_tokens=n_spec, k=SPEC_K, eos_id=-1, return_stats=True))
     add(counts)
-    held, decisive, compared = decisive_hold("spec fused B=4", plain, got, plain_tap, spec_tap, len(ps[0]),
-                                             [(r, r) for r in range(b)])
+    held, decisive, compared = decisive_hold("modes spec fused B=4", plain, got, plain_tap.at,
+                                             spec_tap.spec_at(len(ps[0])), [(r, r) for r in range(b)])
     m20 = w6_matmul.launches_by_m.get(b * (1 + SPEC_K), 0)  # the spec run's, read before the next reset
     route_a = w6ax_route(b * (1 + SPEC_K), cfg.hidden_size, cfg.hidden_size) == W6AX_MMA
     plain_ms = pstats.decode_s / (n_spec - 1) * 1e3
@@ -1919,8 +2094,8 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
         (ogot, ost), counts = run_counted("spec fused oracle drafts", "spec", lambda: speculative.generate_speculative(
             eng, ps, max_new_tokens=n_spec, k=SPEC_K, eos_id=-1, return_stats=True))
     add(counts)
-    oheld, odecisive, ocompared = decisive_hold("spec fused oracle drafts", plain, ogot, plain_tap, oracle_tap,
-                                                len(ps[0]), [(r, r) for r in range(b)])
+    oheld, odecisive, ocompared = decisive_hold("modes spec fused oracle drafts", plain, ogot, plain_tap.at,
+                                                oracle_tap.spec_at(len(ps[0])), [(r, r) for r in range(b)])
     log(f"modes spec fused B={b} k={SPEC_K} new={n_spec}, oracle drafts: acceptance_rate={ost.acceptance_rate:.3f} "
         f"tokens_per_verify_step={ost.tokens_per_step:.2f} ({ost.tokens_per_step / b:.2f} a row, {ost.steps} steps) "
         f"decode_ms_per_token={ost.decode_s / (n_spec - 1) * 1e3:.2f}; equal to the ungated run's stream "
@@ -1948,8 +2123,8 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
                                                       return_stats=True, fused=False))
             add(counts)
             host_streams[what] = host
-            h1, d1, c1 = decisive_hold(f"spec host B=1 {what} row {r}", plain1, host, plain1_tap, host_tap,
-                                       len(ps[0]), [(0, 0)])
+            h1, d1, c1 = decisive_hold(f"modes spec host B=1 {what} row {r}", plain1, host, plain1_tap.at,
+                                       host_tap.spec_at(len(ps[0])), [(0, 0)])
             hheld, hdecisive, hcompared = hheld + h1, hdecisive + d1, hcompared + c1
             log(f"modes spec host loop B=1 {what} row {r}: acceptance_rate={hst.acceptance_rate:.3f} "
                 f"tokens_per_verify_step={hst.tokens_per_step:.2f} decode_ms_per_token="
@@ -2166,6 +2341,7 @@ def end_to_end(dev, gen):
     p32 = prompts.tolist()
     out, counts, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev)
     add(counts)
+    PHASE4.update(p32=prompts, out32=out)
     step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step", counted=False)
     if out != step_out:
         raise AssertionError("fused and step decode loops disagree")
@@ -2782,18 +2958,28 @@ def kept_ppl(fn, windows, batch_size=1, keep=None):
     return ppl, kept, time.perf_counter() - t0
 
 
+def logit_match(got, want):
+    """``got`` against ``want`` ([..., V]): max |dlogit| / max |logit|, and
+    over the rows the argmax agreements, the rows, the agreements over the
+    decisive rows (want's top-2 margin above the max |dlogit|) and the
+    decisive rows."""
+    got, want = got.float().reshape(-1, got.shape[-1]), want.float().reshape(-1, want.shape[-1])
+    d = (got - want).abs().max()
+    top2 = want.topk(2, dim=-1).values
+    decisive = (top2[:, 0] - top2[:, 1]) > d
+    same = got.argmax(-1) == want.argmax(-1)
+    return ((d / want.abs().max()).item(), int(same.sum()), same.numel(), int((same & decisive).sum()),
+            int(decisive.sum()))
+
+
 def logit_gaps(got, want):
     """Per window: max |dlogit| / max |logit|, argmax agreement over all rows
     and over the decisive rows (the oracle's top-2 margin above the
     window's max |dlogit|); and the decisive rows' share."""
     rows = []
     for g, w in zip(got, want):
-        d = (g - w).abs().max()
-        top2 = w.topk(2, dim=-1).values
-        decisive = (top2[..., 0] - top2[..., 1]) > d
-        same = g.argmax(-1) == w.argmax(-1)
-        rows.append(((d / w.abs().max()).item(), same.float().mean().item(),
-                     (same & decisive).sum().item() / max(decisive.sum().item(), 1), decisive.float().mean().item()))
+        gap, agree, n, dec_agree, dec = logit_match(g, w)
+        rows.append((gap, agree / n, dec_agree / max(dec, 1), dec / n))
     return rows
 
 
@@ -2805,25 +2991,17 @@ ORACLE_SLOT = {"q_proj": 0, "k_proj": 0, "v_proj": 0, "o_proj": 1, "gate_proj": 
 SLOT_NAMES = ("q_proj", "o_proj", "gate_proj", "down_proj")  # the one quant point a slot is counted at
 
 
-class PackedCodes:
+class PackedCodes(Patch):
     """Keeps, on the device, the activation codes and scales that a packed
     LLaMA run's producers give (as models.quantized calls them): per layer
     and producer call, the rows of the first ``forwards`` forwards (None:
     every forward, e.g. an Engine's prompt, then its steps), joined."""
 
+    names = tuple(dict.fromkeys(LAYER_PRODUCERS))
+
     def __init__(self, num_layers: int, forwards=None):
         self.num_layers, self.forwards, self.calls = num_layers, forwards, 0
         self.rows = [[[] for _ in LAYER_PRODUCERS] for _ in range(num_layers)]
-
-    def __enter__(self):
-        self.saved = {n: getattr(quantized, n) for n in set(LAYER_PRODUCERS)}
-        for n, fn in self.saved.items():
-            setattr(quantized, n, self._wrap(n, fn))
-        return self
-
-    def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(quantized, n, fn)
 
     def _wrap(self, name, fn):
         def call(*args, **kw):
@@ -3449,8 +3627,8 @@ def spec_on_trained(params, cfg, dev, add):
         (got, st), counts = run_counted("spec trained", "spec W*Ax prompt", lambda: eng.generate(
             ps, max_new_tokens=SPEC_NEW, eos_id=-1, mode="spec", return_stats=True))
     add(counts)
-    held, decisive, compared = decisive_hold("spec trained", plain, got, plain_tap, spec_tap, SPEC_PROMPT,
-                                             [(r, r) for r in range(SPEC_ROWS)])
+    held, decisive, compared = decisive_hold("modes spec trained", plain, got, plain_tap.at,
+                                             spec_tap.spec_at(SPEC_PROMPT), [(r, r) for r in range(SPEC_ROWS)])
     plain_ms = pstats.decode_s / (SPEC_NEW - 1) * 1e3
     spec_ms = st.decode_s / (SPEC_NEW - 1) * 1e3
     ok = hold_passes(held, decisive)
@@ -3519,7 +3697,636 @@ def train_and_gate(dev):
     return totals
 
 
+# ---- phase 10: tensor and data parallelism ---------------------------------
+
+TP_RANKS = 2  # two ranks share the one card over gloo
+TP_TIMEOUT_S = 420  # the ranks' wall clock, the model draws and every part included
+TP_ENGINE_LAYERS = 32  # the Engine and scheduler runs' depth (LLaMA-2-7B's)
+PHASE4 = {}  # phase 4's prompts and tokens, which phase 10 (b) holds the one-rank NCCL world to
+
+
+def stream_hold(label, want, got, want_at, got_at) -> bool:
+    """Two runs' token streams, row by row from the first token, over the
+    decisive steps (decisive_hold's rule)."""
+    held, decisive, compared = decisive_hold(label, want, got, want_at, got_at, [(r, r) for r in range(len(want))],
+                                             first=0)
+    equal = sum(a == b for a, b in zip(want, got))
+    log(f"{label}: streams equal {equal}/{len(want)}; decisive steps held {held}/{decisive} of {compared} "
+        f"compared (tolerance: >= 95% of at least one decisive step)")
+    return hold_passes(held, decisive)
+
+
+class SchedTap:
+    """Keeps, per request, the logits each of its tokens was drawn from (a
+    BatchScheduler's first token and its decode ticks). Where ``force``
+    holds a request's stream, its tokens are taken in place of the sampled
+    ones (a replay of another run)."""
+
+    def __init__(self, sched):
+        self.rows, self.force = {}, {}
+        batch, one = sched._sample_batch, sched._sample_one
+
+        def forced(slot, tok):
+            stream = self.force.get(slot.req_id)
+            return tok if stream is None else stream[len(slot.prior) + len(slot.generated)]
+
+        def sample_batch(idx, logits):
+            for i in idx:
+                self.rows.setdefault(sched.slots[i].req_id, []).append(logits[i].float().clone())
+            return [(forced(sched.slots[i], t), lp) for i, (t, lp) in zip(idx, batch(idx, logits))]
+
+        def sample_one(row, slot):
+            self.rows.setdefault(slot.req_id, []).append(row.float().clone())
+            return forced(slot, one(row, slot))
+
+        sched._sample_batch, sched._sample_one = sample_batch, sample_one
+
+    def at(self, ids):
+        """decisive_hold's logits, rows in the order of ``ids``."""
+        return lambda r, i: self.rows[ids[r]][i]
+
+
+def run_mix(sched, reqs, force=None):
+    """sched_run's arrival pattern (8 requests, 4 ticks, then 8): the streams
+    in request order and the SchedTap. ``force``: per request, the stream
+    to take in place of the sampled tokens."""
+    tap = SchedTap(sched)
+    ids = []
+
+    def add(part):
+        ids.extend(sched.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in part)
+        if force is not None:
+            tap.force.update(zip(ids, force))
+
+    add(reqs[:8])
+    out = {}
+    for _ in range(4):
+        out.update(sched.step())
+    add(reqs[8:])
+    out.update(sched.run())
+    tap.ids = ids
+    return [out[i] for i in ids], tap
+
+
+RELAY_PRODUCERS = ("rmsnorm_quant", "quant_act", "glu_quant", "layernorm_quant", "relu_quant")
+ROW_INPUTS = ("quant_act", "glu_quant", "relu_quant")  # the producers of a row-parallel linear's input
+RELAY_LAYERS = ("llama_layer_serve_prefill",)  # the W*A16 layer: no activation codes, its input handed on
+# the code witness's departure bounds: how far the one rank's own values may
+# part from the TP run's it is handed. A row-parallel linear's input (o_proj's,
+# down_proj's, fc2's) is computed on the one rank from handed codes through
+# the column-parallel linears, attention and the cache, which the TP ranks
+# run on their local shards: at most one code apart, on at most TP_ROW_OFF of
+# the entries (the producers' own kernel tolerance). The residual stream
+# drifts from the TP run's, as each rank rounds its half of a row-parallel
+# sum to bf16, and its codes part by a code or two at depth: its scales
+# within TP_SCALE_OFF of the handed max, each W*A16 layer's input within
+# TP_INPUT_OFF, and the logits (witness_hold's tol) hold that drift. A
+# planted fault (one rank's q_proj or gate shard zeroed) must fail them
+# (PERF.md §6)
+TP_ROW_OFF, TP_SCALE_OFF, TP_INPUT_OFF = 1e-3, 0.05, 2e-2
+
+
+def rel_gap(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+class Departure:
+    """How far the one rank's own activation codes, scales and W*A16 layer
+    inputs part from those a CodeRelay hands it, over the calls: per kind
+    of producer ("row": a row-parallel linear's input; "residual": the
+    residual stream's) the entries off, the entries, the most codes apart
+    and the scales' gap."""
+
+    def __init__(self):
+        self.kinds = {k: dict(off=0, total=0, apart=0, scale=0.0) for k in ("row", "residual")}
+        self.input = 0.0
+
+    def codes(self, name, own, handed, rows=None):
+        if rows is not None:  # the rows that count (a decode tick's slots in decode)
+            own, handed = [t[rows] for t in own[:2]], [t[rows] for t in handed]
+        k = self.kinds["row" if name in ROW_INPUTS else "residual"]
+        d = (own[0].int() - handed[0].int()).abs()
+        apart = int(d.max())
+        k["off"] += int((d > 0).sum())
+        k["total"] += d.numel()
+        k["apart"] = max(k["apart"], apart)
+        k["scale"] = max(k["scale"], rel_gap(own[1], handed[1]))
+
+    def layer_input(self, own, handed):
+        self.input = max(self.input, rel_gap(own, handed))
+
+    def held(self) -> bool:
+        row, res = self.kinds["row"], self.kinds["residual"]
+        return (row["apart"] <= 1 and row["off"] <= TP_ROW_OFF * row["total"] and res["scale"] <= TP_SCALE_OFF
+                and self.input <= TP_INPUT_OFF)
+
+    def __str__(self):
+        row, res = self.kinds["row"], self.kinds["residual"]
+        return (f"the one rank's own values off the handed ones: a row-parallel input's codes {row['off']}/"
+                f"{row['total']} = {row['off'] / max(row['total'], 1):.3g}, most {row['apart']} apart (bounds: "
+                f"{TP_ROW_OFF:g} of the entries, one code), scales {row['scale']:.3g}; the residual's codes "
+                f"{res['off']}/{res['total']} = {res['off'] / max(res['total'], 1):.3g}, most {res['apart']} apart "
+                f"(logged), scales {res['scale']:.3g} (bound {TP_SCALE_OFF:g}); W*A16 layer inputs {self.input:.3g} "
+                f"of the handed max (bound {TP_INPUT_OFF:g})")
+
+
+class CodeRelay(Patch):
+    """Phase 10's code witness. On a tensor-parallel rank (``mesh``): keeps
+    every producer call's codes and scales, in call order, those of a
+    row-parallel linear's input (o_proj's, down_proj's, fc2's: each rank
+    quantizes its K slice, group by group) gathered over the model group
+    into the whole row, the others as they are (every rank quantizes the
+    all-reduced activations alike), and the input of each W*A16 layer,
+    which quantizes no activation (the all-reduced residual, alike on every
+    rank). With ``feed`` (such a relay) on one rank: hands those codes and
+    scales, and those layer inputs, on in place of each call's own, in the
+    same order, and measures in ``departure`` how far its own part from
+    them (over the rows of ``rows``, a mask, where it is set): a fault in
+    what the handed values replace (a column-parallel GEMM, local
+    attention, a local cache) shows there. A packed head's producer is not
+    relayed (phase 10's heads are bf16)."""
+
+    names = RELAY_PRODUCERS + RELAY_LAYERS
+
+    def __init__(self, mesh=None, feed=None, o_width=None, departure=None):
+        self.mesh, self.feed, self.o_width = mesh, feed, o_width
+        self.departure = departure or Departure()
+        self.calls, self.rows = [], None
+
+    def _handed(self, name):
+        want, *handed = self.feed.calls[len(self.calls)]
+        if want != name:
+            raise AssertionError(f"code relay: call {len(self.calls)} is {name}, the relay's {want}")
+        self.calls.append(name)
+        return handed
+
+    def _wrap(self, name, fn):
+        if name in RELAY_LAYERS:
+            def layer(lp, cfg, x, *args, **kw):
+                if self.feed is None:
+                    self.calls.append((name, x.clone()))
+                    return fn(lp, cfg, x, *args, **kw)
+                (given,) = self._handed(name)
+                self.departure.layer_input(x, given)
+                return fn(lp, cfg, given, *args, **kw)
+
+            return layer
+
+        def producer(*args, **kw):
+            out = fn(*args, **kw)
+            if self.feed is None:
+                q, sc = out[0], out[1]
+                if name == "quant_act" and q.shape[-1] != self.o_width:
+                    raise AssertionError(f"code relay: quant_act of width {q.shape[-1]} (a packed head?)")
+                if name in ROW_INPUTS and self.mesh.tp > 1:
+                    q, sc = (all_gather_cat(t, self.mesh.model_group, -1) for t in (q, sc))
+                self.calls.append((name, q, sc))
+                return out
+            q, sc = self._handed(name)
+            self.departure.codes(name, out, (q, sc), self.rows)
+            return (q, sc) + tuple(out[2:])
+
+        return producer
+
+
+def witness_hold(label, tp_steps, w_steps, departure, tol=2e-2) -> bool:
+    """The tensor-parallel logits against the one rank's with the TP run's
+    codes (and W*A16 layer inputs) handed on, step by step ([rows, V]
+    each): max |dlogit| / max |logit| within ``tol`` (phase 3's bound), the
+    argmax held over the decisive rows (the witness's top-2 margin above
+    the step's max |dlogit|), and the one rank's own codes, scales and
+    layer inputs within the departure bounds of what it was handed."""
+    per_step = [logit_match(b, a) for a, b in zip(w_steps, tp_steps)]
+    worst = [m[0] for m in per_step]
+    agree, total, dec_agree, dec_total = (sum(m[i] for m in per_step) for i in range(1, 5))
+    ok = max(worst) <= tol and hold_passes(dec_agree, dec_total) and departure.held()
+    log(f"tp witness {label}: the one rank with the TP run's activation codes and W*A16 layer inputs handed on: "
+        f"max |dlogit|/max|logit| {worst[0]:.3g} at the first of {len(worst)} steps, {max(worst):.3g} over all "
+        f"(tolerance {tol:g}); argmax agreement {agree}/{total}, {dec_agree}/{dec_total} over the decisive rows "
+        f"(tolerance >= 95% of at least one); {departure}")
+    return ok
+
+
+def tp_parity(label, mesh, local, full, cfg, policy, l, dev, kv_dtype=torch.bfloat16, tol=None,
+              planted=False) -> bool:
+    """forward_serve_tp on this rank's shard against the one-rank
+    forward_serve over the whole tree, both on the card (parity()'s run: an
+    l-token prompt, the W*A16 layer from 64 tokens, then 2 decode steps,
+    B = 2). Held: a W*A16 prompt's logits at phase 3's 2e-2; elsewhere each
+    rank rounds its half of a row-parallel sum to bf16 before the
+    all-reduce, which flips 6-bit codes downstream, so those are logged and
+    held by the code witness (witness_hold): the one rank with the TP run's
+    codes and W*A16 layer inputs handed on. ``planted``: ``local`` carries
+    a planted fault, and the witness's departure bounds must refuse it."""
+    steps = []  # per TP forward: its ids, its other arguments, its logits, the codes it kept
+    o_width = cfg.num_heads * cfg.head_dim // mesh.tp
+
+    def forward(p, cfg, policy, ids, device, **kw):
+        reset_launch_counts()
+        with CodeRelay(mesh, o_width=o_width) as relay:
+            logits, cache = forward_serve_tp(p, cfg, policy, ids, mesh, **kw)
+        if not planted:
+            TP_COUNTS.append(launch_counts())
+        steps.append((ids, {k: v for k, v in kw.items() if not k.startswith("kv_")}, logits, relay))
+        return logits, cache
+
+    raw = parity(label, local, full, cfg, policy, l, dev, kv_dtype, tol=tol, forward=forward, ref_dev=dev,
+                 kv_heads=cfg.num_kv_heads // mesh.tp, held_steps=(0,) if l >= 64 else (), hold_argmax=False,
+                 prefix="tp parity", what="2 layers, tp = 2 over gloo vs one rank, both on the card")
+    wc, w_steps, departure = dense_cache(cfg, 2, 256, kv_dtype, dev), [], Departure()
+    for ids, kw, _, relay in steps:
+        with CodeRelay(feed=relay, departure=departure):
+            logits, wc = forward_serve(full, cfg, policy, ids, device=dev, **kw, **cache_kw(wc))
+        w_steps.append(logits)
+    held = witness_hold(f"parity {label}", [st[2] for st in steps], w_steps, departure, tol or 2e-2)
+    if planted:
+        refused = not departure.held()
+        log(f"tp planted fault {label}: the witness's departure bounds {'refuse it' if refused else 'MISS it'}")
+        return refused
+    return raw and held
+
+
+TP_COUNTS = []  # the launch counts of each phase 10 main-path run in this process
+
+
+def plant_fault(local, mesh, name):
+    """``local`` with, on model rank 1, every layer's ``name`` shard zeroed
+    (its scales): a fault in a column-parallel GEMM that the code witness
+    hands on past and only its departure bounds can see."""
+    if mesh.model_index != 1:
+        return local
+    return dict(local, layers=[dict(lp, **{name: dict(lp[name], scale=torch.zeros_like(lp[name]["scale"]))})
+                               for lp in local["layers"]])
+
+
+def tp_slice_parity(mesh, dev, gen) -> bool:
+    """(a) forward parity at 7B width, 2 layers: llama_flex (16-token W6Ax
+    and 128-token W6A16 prompts over bf16 and int8 caches), W4A8 and W8A8
+    (16 and 128 tokens), weight-only W4A16 (128 tokens); OPT-6.7B's widths
+    under opt_flex (16 tokens, bf16 and int8 caches; phase 3's 1e-1 for
+    OPT's logits). Every rank draws the same layers and keeps its shard.
+    Then the planted faults: rank 1's q_proj shard zeroed under the W6Ax
+    prompt, its gate_proj shard under the W6A16 one, each of which the
+    witness's departure bounds must refuse."""
+    cfg = ModelConfig.llama(num_layers=2)
+    ok = []
+    flex = QuantPolicy.llama_flex()
+    full = random_params(cfg, flex, gen, dev)
+    local = shard_params(full, mesh)
+    for l, kvd in ((16, torch.bfloat16), (16, torch.int8), (128, torch.bfloat16), (128, torch.int8)):
+        name = ("W6Ax" if l < 64 else "W6A16") + (" int8 cache" if kvd == torch.int8 else "")
+        ok.append(tp_parity(name, mesh, local, full, cfg, flex, l, dev, kvd))
+    for l, name in ((16, "q_proj"), (128, "gate_proj")):
+        ok.append(tp_parity(f"{'W6Ax' if l < 64 else 'W6A16'}, rank 1's {name} zeroed (planted)", mesh,
+                            plant_fault(local, mesh, name), full, cfg, flex, l, dev, planted=True))
+    for bits in (4, 8):
+        policy = QuantPolicy.uniform(wbits=bits, abits=8)
+        full = random_params(cfg, policy, gen, dev)
+        local = shard_params(full, mesh)
+        ok += [tp_parity(f"W{bits}A8", mesh, local, full, cfg, policy, l, dev) for l in (16, 128)]
+        if bits == 4:
+            ok.append(tp_parity("weight-only W4A16", mesh, local, full, cfg, QuantPolicy.weight_only(wbits=4), 128,
+                                dev))
+    ocfg = ModelConfig.opt(**dict(OPT_67B, num_layers=2))
+    opt = QuantPolicy.opt_flex()
+    full = random_opt_params(ocfg, opt, gen, dev)
+    local = shard_params(full, mesh)
+    ok += [tp_parity(f"OPT opt_flex{' int8 cache' if kvd == torch.int8 else ''}", mesh, local, full, ocfg, opt, 16,
+                     dev, kvd, tol=1e-1) for kvd in (torch.bfloat16, torch.int8)]
+    del full, local
+    torch.cuda.empty_cache()
+    return all(ok)
+
+
+def tp_engine_runs(mesh, dev, full, cfg, policy, lead) -> bool:
+    """(a) the Engine at tp = 2 (mode="step": gloo's collectives cannot be
+    captured) on LLaMA-2-7B's shape, B = 4, 32 new tokens, over 32- and
+    512-token prompts. Its tokens against the one-rank Engine's are logged
+    over the decisive steps: at 32 random layers the two runs' logits part
+    by a quarter of max |logit| (one rounding a layer, cascaded through
+    flipped codes: §7 of PERF.md), which leaves few decisive steps. Held:
+    the code witness, the one rank replaying the TP run's tokens with its
+    codes and W*A16 layer inputs handed on (witness_hold). Then tp = 1,
+    dp = 2 (each rank two of the four rows, the whole tree) against the
+    one-rank run over the decisive steps."""
+    rng = np.random.default_rng(SEED)
+    p32, p512 = rng.integers(0, cfg.vocab_size, (4, 32)), rng.integers(0, cfg.vocab_size, (4, 512))
+    ok = True
+    refs = {}
+    if lead:  # the one-rank references (rank 1 waits at its next collective)
+        one = Engine(full, cfg, policy, max_seq_len=2048)
+        for name, p in (("32", p32), ("512", p512)):
+            with LogitTap(one) as tap:
+                out = one.generate(p, max_new_tokens=32, eos_id=-1, mode="step")
+            refs[name] = (out, tap)
+        del one
+    local = shard_params(full, mesh)
+    eng = Engine(local, cfg, policy, max_seq_len=2048, mesh=mesh)
+    eng.generate(p32, max_new_tokens=2, eos_id=-1, mode="step")  # warm-up
+    o_width = cfg.num_heads * cfg.head_dim // mesh.tp
+    for name, p in (("32", p32), ("512", p512)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with LogitTap(eng) as tap:
+            out, stats = eng.generate(p, max_new_tokens=32, eos_id=-1, mode="step", return_stats=True)
+        TP_COUNTS.append(launch_counts())
+        with CodeRelay(mesh, o_width=o_width) as relay:  # the same run again, its codes kept
+            again = eng.generate(p, max_new_tokens=32, eos_id=-1, mode="step")
+        ms = sum(stats.step_times_s) / len(stats.step_times_s) * 1e3
+        if lead:
+            log(f"tp engine tp=2 dp=1 {name}-token prompts (32 layers, B=4, 32 new, mode=step): ttft_ms="
+                f"{stats.ttft_s * 1e3:.1f} decode_ms_per_step={ms:.2f} (two ranks time-sharing one card over gloo: a "
+                f"smoke figure, not a multi-GPU speed); the run again with its codes kept gives its tokens: "
+                f"{again == out}")
+            want, want_tap = refs[name]
+            stream_hold(f"tp engine tp=2 {name}-token vs one rank (logged)", want, out, want_tap.at, tap.at)
+            w_steps, departure = engine_replay(full, cfg, policy, p, out, relay)
+            ok = witness_hold(f"engine tp=2 {name}-token (32 layers)", [tap.prompts[0]] + tap.steps, w_steps,
+                              departure) and ok and again == out
+        del relay
+    del eng, local
+    torch.cuda.empty_cache()
+    dmesh = process_mesh(1, 2)
+    eng = Engine(full, cfg, policy, max_seq_len=2048, mesh=dmesh)
+    reset_launch_counts()
+    with LogitTap(eng) as tap:
+        out, stats = eng.generate(p32, max_new_tokens=32, eos_id=-1, mode="step", return_stats=True)
+    TP_COUNTS.append(launch_counts())
+    if lead:
+        ms = sum(stats.step_times_s) / len(stats.step_times_s) * 1e3
+        log(f"tp engine tp=1 dp=2 32-token prompts (each rank 2 of the 4 rows): decode_ms_per_step={ms:.2f}")
+        want, want_tap = refs["32"]
+        ok = stream_hold("tp engine dp=2 32-token vs one rank", want, out, want_tap.at, tap.at) and ok
+    del eng
+    return ok
+
+
+def engine_replay(full, cfg, policy, prompts, tokens, relay):
+    """The one-rank Engine fed ``tokens`` (a run's, row by row) with
+    ``relay``'s codes handed on: the prompt's last logits, then each decode
+    step's ([B, V] each), and the departure of its own codes."""
+    one = Engine(full, cfg, policy, max_seq_len=2048)
+    b, l = prompts.shape
+    with CodeRelay(feed=relay) as fed:
+        logits, cache = one.prefill_prompts(prompts.tolist(), one.new_cache(b))
+        steps = [logits]
+        for i in range(len(tokens[0]) - 1):
+            ids = torch.tensor([row[i] for row in tokens], device=logits.device)[:, None]
+            logits, cache = one._decode_step(ids, cache, l + i)
+            steps.append(logits)
+    return steps, fed.departure
+
+
+def tp_scheduler_run(mesh, dev, full, cfg, policy, lead) -> bool:
+    """(a) the paged BatchScheduler at tp = 2, fused_tick=0, over phase 4's
+    16-request mix (its codes kept for the witness): its streams against
+    the one-rank scheduler's over the decisive steps, and the code witness,
+    the one-rank scheduler replaying the TP run's streams (its tokens
+    forced) with the TP run's codes and W*A16 layer inputs handed on, held
+    request by request (witness_hold)."""
+    reqs = sched_requests(cfg.vocab_size)
+    ok = True
+    if lead:
+        ref = run_mix(BatchScheduler(full, cfg, policy, **SCHED, paged=True, device=dev), reqs)
+    local = shard_params(full, mesh)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = BatchScheduler(local, cfg, policy, **SCHED, paged=True, mesh=mesh)
+    with CodeRelay(mesh, o_width=cfg.num_heads * cfg.head_dim // mesh.tp) as relay:
+        got = run_mix(sched, reqs)
+    TP_COUNTS.append(launch_counts())
+    if lead:
+        n = sum(map(len, got[0]))
+        log(f"tp sched paged tp=2 (32 layers, 16 requests, fused_tick=0): {n} tokens in "
+            f"{time.perf_counter() - t0:.1f}s, "
+            f"mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.1f} (two ranks on one card over gloo, "
+            f"the code relay's gathers included); pool free after {sched.pool.free_pages}/{sched.pool.num_pages - 1}")
+        ok = stream_hold("tp sched paged tp=2 vs one rank", ref[0], got[0], ref[1].at(ref[1].ids),
+                         got[1].at(got[1].ids))
+        ok = ok and sched.pool.free_pages == sched.pool.num_pages - 1
+        one = BatchScheduler(full, cfg, policy, **SCHED, paged=True, device=dev)
+        tick = one._step_paged_fn
+
+        def decode_tick(*args):  # its departure over the slots in decode: the idle rows read garbage pages
+            fed.rows = torch.tensor([sl.req_id is not None and sl.phase == "decode" for sl in one.slots], device=dev)
+            try:
+                return tick(*args)
+            finally:
+                fed.rows = None
+
+        one._step_paged_fn = decode_tick
+        with CodeRelay(feed=relay) as fed:
+            replay = run_mix(one, reqs, force=got[0])
+        per_request = [[torch.stack(tap.rows[i]) for i in tap.ids] for tap in (got[1], replay[1])]
+        ok = witness_hold("sched paged tp=2 (32 layers, request by request)", *per_request, fed.departure) and ok
+        ok = ok and replay[0] == got[0]
+        del one
+    del sched, local, relay
+    return ok
+
+
+def tp_http(mesh, dev, ckpt, lead) -> bool:
+    """(a) the --tp 2 export (phase 5's 4-layer HF directory through the
+    exporter CLI with --tp 2), read by each rank from its rank files
+    (load_packed_sharded); a direct tp = 2 scheduler run over 4 requests;
+    then rank 0 serves the same 4 requests, concurrent, over HTTP through a
+    leader ReplicatedScheduler while rank 1 follows its command log. The
+    completions must equal the direct run's."""
+    cfg, policy, local = load_packed_sharded(ckpt, mesh)
+    reqs = http_requests(cfg.vocab_size)[:4]
+    kw = dict(SCHED, paged=True, mesh=mesh)
+    direct = BatchScheduler(local, cfg, policy, **kw)
+    ids = [direct.add_request(p, max_new_tokens=n, eos_id=-1) for p, n in reqs]
+    out = direct.run()
+    want = [out[i] for i in ids]
+    del direct
+    sched = BatchScheduler(local, cfg, policy, **kw)
+    store = torch.distributed.FileStore(os.path.join(os.path.dirname(ckpt), "replication"), mesh.tp * mesh.dp)
+    if not lead:
+        port = int(store.get("port"))
+        ReplicatedScheduler(sched, leader=False, leader_addr=("127.0.0.1", port)).serve_forever()
+        return True
+    leader = ReplicatedScheduler(sched, leader=True, port=0, num_followers=1, host="127.0.0.1",
+                                 announce=lambda port: store.set("port", str(port)))
+    server, service, port = serve_http.serve_background(leader, model_name="flexq-llama-7b-width-tp2")
+    got = [None] * len(reqs)
+    try:
+        def call(r):
+            p, n = reqs[r]
+            got[r] = http_post(port, "/v1/completions", {"prompt": p, "max_tokens": n, "temperature": 0,
+                                                         "eos_id": -1})["choices"][0]["token_ids"]
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=call, args=(r,)) for r in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        TP_COUNTS.append(launch_counts())
+        log(f"tp http --tp 2 (4-layer 7B-width export, rank files): 4 concurrent completions in "
+            f"{time.perf_counter() - t0:.1f}s through the leader, rank 1 following; equal to the direct tp = 2 run: "
+            f"{got == want}")
+    finally:
+        service.shutdown()
+        server.shutdown()
+        leader.shutdown()
+    return got == want
+
+
+def tp_rank(rank: int, workdir: str) -> None:
+    """One rank of phase 10 (a) (``chip_smoke.py --tp-rank r workdir``): a
+    gloo world of TP_RANKS processes on the one card. Writes its holds,
+    seconds, peak memory and main-path launch counts to workdir/rank{r}.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = initialize(f"file://{os.path.join(workdir, 'store')}", TP_RANKS, rank, backend="gloo", device="cuda",
+                     timeout_s=TP_TIMEOUT_S)
+    mesh = process_mesh(TP_RANKS, 1)
+    lead = rank == 0
+    res = {"holds": {}, "seconds": {}}
+    t0 = time.perf_counter()
+    res["holds"]["forward parity"] = tp_slice_parity(mesh, dev, torch.Generator(device=dev).manual_seed(SEED + 1))
+    res["seconds"]["forward parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg = ModelConfig.llama(num_layers=TP_ENGINE_LAYERS)
+    flex = QuantPolicy.llama_flex()
+    full = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 2), dev)  # phase 4's weights
+    res["holds"]["engine"] = tp_engine_runs(mesh, dev, full, cfg, flex, lead)
+    res["seconds"]["engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["holds"]["scheduler"] = tp_scheduler_run(mesh, dev, full, cfg, flex, lead)
+    res["seconds"]["scheduler"] = time.perf_counter() - t0
+    del full
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["holds"]["http"] = tp_http(mesh, dev, os.path.join(workdir, "ckpt_tp2"), lead)
+    res["seconds"]["http"] = time.perf_counter() - t0
+    totals = {k: 0 for k in KERNELS}
+    for c in TP_COUNTS:
+        for k, v in c.items():
+            totals[k] += v
+    res["counts"] = totals
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    shutdown()
+
+
+def tp_children(dev, gen, workdir):
+    """(a): the 4-layer HF directory exported with --tp 2, then TP_RANKS
+    child processes (tp_rank) on the one card; every child must exit 0
+    within TP_TIMEOUT_S (else all are killed and the phase fails). Returns
+    the ranks' results."""
+    hf, ckpt = os.path.join(workdir, "hf"), os.path.join(workdir, "ckpt_tp2")
+    os.makedirs(hf)
+    write_hf_checkpoint(hf, ModelConfig.llama(num_layers=CKPT_LAYERS), gen, dev)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "flexq_tpu_torch.export.exporter", "--model-dir", hf, "--out", ckpt,
+                    "--tp", str(TP_RANKS)], check=True, capture_output=True, text=True, timeout=300,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"tp exporter --tp {TP_RANKS}: {time.perf_counter() - t0:.1f}s, files {sorted(os.listdir(ckpt))[:4]}...")
+    torch.cuda.empty_cache()
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(TP_RANKS)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), workdir],
+                              stdout=logs[r], stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
+             for r in range(TP_RANKS)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    for r in range(TP_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.log")) as f:
+            for line in f.read().splitlines():
+                log(f"[rank {r}] {line}")
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * TP_RANKS:
+        raise AssertionError(f"phase 10: a rank failed or outlived {TP_TIMEOUT_S}s: exit codes {rcs}")
+    out = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def nccl_one_rank(dev):
+    """(b): a one-rank NCCL world in this process: the Engine's fused loop
+    over forward_serve_tp on phase 4's 32-layer model, its all-reduces and
+    all-gathers captured in the step graph, against phase 4's 32-token
+    tokens; decode ms a step beside the single-device graph's."""
+    cfg, policy = ModelConfig.llama(), QuantPolicy.llama_flex()
+    params = random_params(cfg, policy, torch.Generator(device=dev).manual_seed(SEED + 2), dev)
+    p32, want = PHASE4["p32"], PHASE4["out32"]
+    one = Engine(params, cfg, policy, max_seq_len=2048)
+    one.generate(p32, max_new_tokens=2, eos_id=-1)
+    _, st1 = one.generate(p32, max_new_tokens=32, eos_id=-1, return_stats=True)
+    del one
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    initialize(f"127.0.0.1:{port}", 1, 0, backend="nccl", device=dev)
+    try:
+        mesh = process_mesh(1, 1)
+        eng = Engine(params, cfg, policy, max_seq_len=2048, mesh=mesh)
+        eng.generate(p32, max_new_tokens=2, eos_id=-1)  # warm-up: the eager step, the capture
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, st = eng.generate(p32, max_new_tokens=32, eos_id=-1, return_stats=True)
+        counts = launch_counts()
+        graph = next(iter(eng._fused.values()))[1]
+        log(f"tp (b) one-rank NCCL world, 32 layers, B=4, 32-token prompts, mode=fused (collectives captured in the "
+            f"step graph): tokens equal phase 4's {out == want}; decode_ms_per_step={st.decode_s / 31 * 1e3:.3f} vs "
+            f"the single-device graph's {st1.decode_s / 31 * 1e3:.3f} in this call; launches_per_replay="
+            f"{graph.launches_per_replay}, replays={graph.replays}")
+        missing = [k for k in PATH_KERNELS["32-token"] if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"phase 10 (b): kernels of the path never launched: {missing}")
+    finally:
+        shutdown()
+    del eng, params
+    torch.cuda.empty_cache()
+    return out == want, counts
+
+
+def tensor_parallel(dev, gen):
+    """Phase 10: (b) the one-rank NCCL world in this process, then (a) the
+    two gloo ranks on the one card. Returns the main-path launch counts of
+    both (the ranks' summed)."""
+    t_phase = t0 = time.perf_counter()
+    ok_b, counts = nccl_one_rank(dev)
+    totals = dict(counts)
+    log(f"phase 10 (b) one-rank NCCL world: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="flexq_tp_") as workdir:
+        ranks = tp_children(dev, gen, workdir)
+    for r, res in enumerate(ranks):
+        for k, v in res["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"phase 10 (a) rank {r}: seconds " + " ".join(f"{k}={v:.1f}" for k, v in res["seconds"].items())
+            + f"; peak_gib={res['peak_gib']:.2f}; holds {res['holds']}")
+    log(f"phase 10 (a) two gloo ranks on one card: {time.perf_counter() - t0:.1f}s")
+    log(f"phase 10 launches: " + " ".join(f"{k}={v}" for k, v in totals.items() if v))
+    log(f"phase 10 tensor parallelism: {time.perf_counter() - t_phase:.1f}s")
+    if not ok_b or not all(all(res["holds"].values()) for res in ranks):
+        raise AssertionError("phase 10: a hold failed (see the tp lines)")
+    return totals
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":  # one rank of phase 10 (a), started by tp_children
+        tp_rank(int(sys.argv[2]), sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -3551,6 +4358,9 @@ def main() -> int:
     check_prefill_cases(results, dev, gen_attn)
     check_paged_cases(results, dev, gen_attn)
     check_decode_cases(results, dev, torch.Generator(device=dev).manual_seed(SEED + 6))
+    t1 = time.perf_counter()
+    check_parallel_shapes(results, dev, torch.Generator(device=dev).manual_seed(SEED + 7))
+    log(f"kernels at the tp = 2 shard shapes and the gate model's: {time.perf_counter() - t1:.1f}s")
     log(f"kernels vs plain: all within tolerance ({time.perf_counter() - t0:.1f}s)")
     torch.cuda.empty_cache()  # free bench_fn's 1 GiB flush buffer before the model phases measure peak memory
 
@@ -3579,6 +4389,8 @@ def main() -> int:
         for k, v in quantize_and_evaluate(dev, workdir).items():  # phase 8, after the earlier models are freed
             counts[k] += v
     for k, v in train_and_gate(dev).items():  # phase 9, after phase 8 has freed its models
+        counts[k] += v
+    for k, v in tensor_parallel(dev, torch.Generator(device=dev).manual_seed(SEED + 10)).items():  # phase 10
         counts[k] += v
     log(f"whole script after the build {time.perf_counter() - t_start:.1f}s")
     missing = [n for n, c in counts.items() if c == 0]

@@ -1,10 +1,10 @@
-"""Offline exporter (HF checkpoint -> packed format v2) and its loader
-(port of flexq_tpu/export/exporter.py, one rank).
+"""Offline exporter (HF checkpoint -> packed format v2) and its loaders
+(port of flexq_tpu/export/exporter.py).
 
 CLI:
     python -m flexq_tpu_torch.export.exporter --model-dir <hf_dir> --out <dir> \\
         [--policy llama_flex|opt_flex|uniform|weight_only] [--wbits 6] [--abits 6] \\
-        [--head-bits 0] [--device cuda|cpu]
+        [--head-bits 0] [--tp 1] [--device cuda|cpu]
 
 Layout, the reference's (a directory either package writes, both load):
     out/meta.json               format version, tensor_parallel, the
@@ -14,6 +14,13 @@ Layout, the reference's (a directory either package writes, both load):
     out/layer_{i}.safetensors   per linear {name}.hi/.lo/.scale (W6),
                                 .q4/.scale (W4), .q8/.scale (W8) or .w
                                 (16-bit), and .b; the norms, bf16
+With ``--tp N`` each layer file is written as N rank files
+``layer_{i}.rank{r}.safetensors`` and the head as ``head.rank{r}.safetensors``
+(a bf16 head under the key lm_head.w), each tensor cut by the split rules
+of parallel/tp.py (``split_dim``): the reference's per-rank files, byte for
+byte. ``load_packed(dir, rank=r)`` reads rank r's files only,
+``rank=None`` reassembles the whole tree, and ``load_packed_sharded(dir,
+mesh)`` reads this rank's files for a mesh of the export's tp.
 
 Weights are quantized symmetric per 128-group along K by the port's own
 quantizer and packers (``models/quantized.py::quantize_linear``, on the card
@@ -22,8 +29,7 @@ those of the reference's NumPy and native paths. The reference's rules are
 kept: down_proj's K padded to the padded FFN width, every packed N padded to
 a multiple of 1024 (N >= 2048) or 128, biases padded to the plane's N, the
 Gemma norm offset folded into the stored gamma, no packed head for a tied
-model. The rank files of a tensor-parallel export (``--tp``) are not
-written or read here yet.
+model.
 """
 
 from __future__ import annotations
@@ -42,16 +48,40 @@ from flexq_tpu_torch.export.safetensors_io import load_file, save_file
 from flexq_tpu_torch.kernels.common import GROUP_SIZE, resolve_device
 from flexq_tpu_torch.models.hf_loader import HF_LLAMA_LINEARS, HF_LLAMA_NORMS, config_from_hf, read_shards
 from flexq_tpu_torch.models.quantized import _padded_width, quantize_linear
+from flexq_tpu_torch.parallel.tp import rank_slice, split_dim
 from flexq_tpu_torch.quant.quantizer import QuantSpec
 
 FORMAT_VERSION = 2  # biased nibble+crumb planes (packing/pack6.py)
 
 
-def _refuse_tp(tp: int, rank: Optional[int] = None) -> None:
-    if tp != 1 or rank not in (None, 0):
-        raise NotImplementedError(
-            f"tensor-parallel checkpoints (tp={tp}, rank={rank}) are not served by the port yet: "
-            "its rank files and load_packed_sharded come with tensor parallelism")
+def _key_dim(key: str) -> Optional[int]:
+    """The split dimension of a dotted key ({name}.{part}; a plain key,
+    a norm or the embedding, is replicated)."""
+    if "." not in key:
+        return None
+    name, part = key.split(".", 1)
+    return split_dim(name, part)
+
+
+def _rank_slice(key: str, a: torch.Tensor, tp: int, r: int) -> torch.Tensor:
+    """One exported tensor cut to rank r."""
+    return rank_slice(a, _key_dim(key), tp, r).contiguous()
+
+
+def _rank_concat(key: str, shards) -> torch.Tensor:
+    """The inverse of ``_rank_slice``: the whole tensor from its rank shards."""
+    dim = _key_dim(key)
+    return shards[0] if dim is None else torch.cat(shards, dim)
+
+
+def _save_ranks(out: Dict[str, torch.Tensor], out_dir: str, stem: str, tp: int) -> None:
+    """``stem``.safetensors, or its tp rank files."""
+    if tp == 1:
+        save_file(out, os.path.join(out_dir, f"{stem}.safetensors"))
+        return
+    for r in range(tp):
+        save_file({k: _rank_slice(k, v, tp, r) for k, v in out.items()},
+                  os.path.join(out_dir, f"{stem}.rank{r}.safetensors"))
 
 
 def _emit_packed(out: Dict[str, torch.Tensor], name: str, w: torch.Tensor, bits: int) -> None:
@@ -87,8 +117,10 @@ def export_checkpoint(
     device="cuda",
 ) -> None:
     """Quantize and pack the HF checkpoint in ``model_dir`` (config.json and
-    *.safetensors of a LLaMA-family model) into ``out_dir``."""
-    _refuse_tp(tp)
+    *.safetensors of a LLaMA-family model) into ``out_dir``; ``tp > 1``
+    writes the layers and the head as rank files."""
+    if tp < 1:
+        raise ValueError(f"tp={tp} must be >= 1")
     dev = resolve_device(device)
     with open(os.path.join(model_dir, "config.json")) as f:
         cfg = config_from_hf(json.load(f))
@@ -131,7 +163,7 @@ def export_checkpoint(
                 if bits < 16:  # biases ride padded to the packed plane's N
                     b = torch.nn.functional.pad(b, (0, w.shape[1] - b.shape[0]))
                 out[f"{name}.b"] = bf16(b)
-        save_file(out, os.path.join(out_dir, f"layer_{i}.safetensors"))
+        _save_ranks(out, out_dir, f"layer_{i}", tp)
         print(f"layer {i + 1}/{cfg.num_layers} exported", flush=True)
 
     top = {
@@ -141,11 +173,16 @@ def export_checkpoint(
     if "lm_head.weight" in tensors and not cfg.tie_word_embeddings:
         hw = t("lm_head.weight", transpose=True)  # [H, V]
         head_bits = policy.weight_bits.get("lm_head", 16)
+        head: Dict[str, torch.Tensor] = {}
         if head_bits < 16:
             hw = torch.nn.functional.pad(hw, (0, _padded_width(hw.shape[1]) - hw.shape[1]))
-            _emit_packed(top, "lm_head", hw, head_bits)
+            _emit_packed(head, "lm_head", hw, head_bits)
         else:
-            top["lm_head"] = bf16(hw)
+            head["lm_head" if tp == 1 else "lm_head.w"] = bf16(hw)
+        if tp == 1:
+            top.update(head)
+        else:  # the vocab-parallel head's rank files
+            _save_ranks(head, out_dir, "head", tp)
     save_file(top, os.path.join(out_dir, "embed.safetensors"))
 
     meta = {
@@ -164,17 +201,24 @@ def export_checkpoint(
         json.dump(meta, f, indent=2)
 
 
-def load_packed(out_dir: str, rank: Optional[int] = None, device="cuda"):
-    """An exported directory -> (cfg, policy, serve tree on ``device``), the
-    tree ``quantize_params`` builds. One rank only: a tensor-parallel
-    export (tp > 1) or ``rank`` > 0 is refused before any tensor is read."""
-    _refuse_tp(1, rank)
-    dev = resolve_device(device)
+def read_meta(out_dir: str) -> Dict[str, Any]:
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
     if meta["format_version"] != FORMAT_VERSION:
         raise ValueError(f"packed format v{meta['format_version']} != v{FORMAT_VERSION}")
-    _refuse_tp(meta.get("tensor_parallel", 1), rank)
+    return meta
+
+
+def load_packed(out_dir: str, rank: Optional[int] = None, device="cuda"):
+    """An exported directory -> (cfg, policy, serve tree on ``device``), the
+    tree ``quantize_params`` builds. Of a tensor-parallel export (``--tp
+    N``), ``rank=r`` reads only rank r's files (the tree ``shard_params``
+    gives rank r) and ``rank=None`` reassembles the whole tree."""
+    dev = resolve_device(device)
+    meta = read_meta(out_dir)
+    tp = meta.get("tensor_parallel", 1)
+    if rank is not None and not 0 <= rank < tp:
+        raise ValueError(f"rank={rank} of a tp={tp} export")
     cfg = ModelConfig(**meta["config"])
     pol = meta["policy"]
     policy = QuantPolicy(
@@ -186,17 +230,32 @@ def load_packed(out_dir: str, rank: Optional[int] = None, device="cuda"):
     )
     require_servable(policy)
 
+    def load_flat(stem: str) -> Dict[str, torch.Tensor]:
+        """One logical file: whole (tp = 1), rank ``rank``'s, or the rank
+        files concatenated (rank None)."""
+        if tp == 1:
+            path = os.path.join(out_dir, f"{stem}.safetensors")
+            return load_file(path, dev) if os.path.exists(path) else {}
+        paths = [os.path.join(out_dir, f"{stem}.rank{r}.safetensors") for r in range(tp)]
+        if not os.path.exists(paths[0]):
+            return {}
+        if rank is not None:
+            return load_file(paths[rank], dev)
+        shards = [load_file(p, dev) for p in paths]
+        return {key: _rank_concat(key, [s[key] for s in shards]) for key in shards[0]}
+
     top = load_file(os.path.join(out_dir, "embed.safetensors"), dev)
+    top.update(load_flat("head"))
     params: Dict[str, Any] = {"embed": top["embed"], "final_norm": top["final_norm"], "layers": []}
     if "lm_head" in top:
         params["lm_head"] = top["lm_head"]
     else:  # a packed head under dotted keys (lm_head.hi/.lo/.scale)
         head = {key.split(".", 1)[1]: val for key, val in top.items() if key.startswith("lm_head.")}
-        if head:
-            params["lm_head"] = head
+        if head:  # a bf16 head of rank files comes back as {"w": ...}
+            params["lm_head"] = head["w"] if set(head) == {"w"} else head
     for i in range(cfg.num_layers):
         lp: Dict[str, Any] = {}
-        for key, val in load_file(os.path.join(out_dir, f"layer_{i}.safetensors"), dev).items():
+        for key, val in load_flat(f"layer_{i}").items():
             if "." in key:
                 name, part = key.split(".", 1)
                 lp.setdefault(name, {})[part] = val
@@ -204,6 +263,18 @@ def load_packed(out_dir: str, rank: Optional[int] = None, device="cuda"):
                 lp[key] = val
         params["layers"].append(lp)
     return cfg, policy, params
+
+
+def load_packed_sharded(out_dir: str, mesh):
+    """This rank's tree of a ``--tp N`` export (N the mesh's tp), read from
+    its rank files only, on the mesh's device: the tree ``shard_params``
+    gives this rank, ready for ``forward_serve_tp``, ``Engine(mesh=)`` and
+    ``BatchScheduler(mesh=)``. A tp = 1 export is read whole on a tp = 1
+    mesh."""
+    tp = read_meta(out_dir).get("tensor_parallel", 1)
+    if mesh.tp != tp:
+        raise ValueError(f"the mesh's model axis is {mesh.tp}, the export's tp {tp}: serve it with --tp {tp}")
+    return load_packed(out_dir, rank=mesh.model_index if tp > 1 else None, device=mesh.device)
 
 
 def main(argv=None) -> None:
@@ -216,11 +287,10 @@ def main(argv=None) -> None:
     ap.add_argument("--head-bits", type=int, default=0,
                     help="quantize the lm_head at this width (0 = keep bf16)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel rank files: only 1 (the port does not write rank files yet)")
+                    help="write per-rank tensor-parallel files (layer_{i}.rank{r}, head.rank{r}); load with "
+                         "load_packed(rank=r) or load_packed_sharded(dir, mesh)")
     ap.add_argument("--device", default="cuda", help="where the weights are quantized (cuda, or cpu)")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        ap.error(f"--tp {args.tp}: tensor-parallel rank files are not written by the port yet")
     export_checkpoint(args.model_dir, args.out, args.policy, args.wbits, args.abits, head_bits=args.head_bits,
                       tp=args.tp, device=args.device)
 

@@ -44,6 +44,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
@@ -81,6 +82,15 @@ from flexq_tpu_torch.models.opt import POS_OFFSET, layernorm
 from flexq_tpu_torch.packing.pack4 import pack4
 from flexq_tpu_torch.packing.pack6 import pack6
 from flexq_tpu_torch.quant.quantizer import QuantSpec, quantize
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The pieces of ``x`` of every rank of ``group``, concatenated along
+    ``dim`` in rank order (the reference's tiled all_gather)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -332,15 +342,23 @@ def _self_attention(q, k, v, kv, cache_pos, lengths, mask, window=None):
     return _attend(q, _kv_write_read(kv, k, v, cache_pos), lengths, window)
 
 
-def _finish_linear(wq, y, n_out: Optional[int]) -> torch.Tensor:
-    if "b" in wq:  # stored at the padded plane width: add before the slice
+def _finish_linear(wq, y, n_out: Optional[int], group=None) -> torch.Tensor:
+    """A linear's bias and its slice to ``n_out`` columns. With a process
+    ``group`` (a row-parallel linear under tensor parallelism) the ranks'
+    partial sums are all-reduced first, in the model dtype, where the
+    reference runs its psum, and the bias is added once, after."""
+    if group is None and "b" in wq:  # stored at the padded plane width: add before the slice
         y = y + wq["b"].to(y.dtype)
     if n_out is not None and y.shape[-1] != n_out:
         y = y[:, :n_out].contiguous()
+    if group is not None:
+        dist.all_reduce(y, group=group)
+        if "b" in wq:
+            y = y + wq["b"][: y.shape[-1]].to(y.dtype)
     return y
 
 
-def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
+def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None, group=None) -> torch.Tensor:
     """Exact W*Ax linear of quantized activations: W6Ax (K2/K3), W4A8 (K10)
     or W8A8 (K12). A 16-bit weight under a quantized-activation policy
     dequantizes the input per group and runs a plain product, as the
@@ -355,10 +373,10 @@ def _qlinear(wq, xq, xs, out_dtype, n_out: Optional[int] = None) -> torch.Tensor
         m, k = xq.shape
         xf = xq.to(torch.float32).reshape(m, k // GROUP_SIZE, GROUP_SIZE) * xs[:, :, None]
         y = xf.reshape(m, k).to(out_dtype) @ wq["w"].to(out_dtype)
-    return _finish_linear(wq, y, n_out)
+    return _finish_linear(wq, y, n_out, group)
 
 
-def _qlinear_bf16(wq, x, out_dtype, n_out: Optional[int] = None) -> torch.Tensor:
+def _qlinear_bf16(wq, x, out_dtype, n_out: Optional[int] = None, group=None) -> torch.Tensor:
     """W*A16 linear: W6A16 (K7) or W4A16 (K11). A W8 weight is dequantized
     per group to x's dtype and a 16-bit weight used as it is, each in a
     plain product, left to torch.matmul as the reference left it to XLA."""
@@ -370,7 +388,7 @@ def _qlinear_bf16(wq, x, out_dtype, n_out: Optional[int] = None) -> torch.Tensor
         y = x @ dequant_int(wq["q8"], wq["scale"], x.dtype)
     else:
         y = x @ wq["w"].to(x.dtype)
-    return _finish_linear(wq, y, n_out)
+    return _finish_linear(wq, y, n_out, group)
 
 
 def _split_qkv(qkv, cfg: ModelConfig):
@@ -403,11 +421,14 @@ def llama_layer_serve(
     lengths: Optional[torch.Tensor],
     window: Optional[int] = None,
     mask: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """One quantized decoder layer: fused norm->quant, W6Ax q/k/v (or the
     fused qkv_proj), rope, cache write + attention, quant + o_proj, fused
     residual-add + norm -> quant, W6Ax gate/up (or gate_up), fused GLU ->
-    quant, W6Ax down, residual add."""
+    quant, W6Ax down, residual add. With a process ``group`` (tensor
+    parallelism: ``cfg`` the local head and FFN counts, ``lp`` the local
+    shard) o_proj's and down_proj's outputs are all-reduced over it."""
     b, l, hidden = x.shape
     dtype = x.dtype
     x2 = x.reshape(b * l, hidden)
@@ -428,7 +449,7 @@ def llama_layer_serve(
 
     attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask, window)
     oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
-    o = _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
+    o = _qlinear(lp["o_proj"], oq, os_, dtype, hidden, group=group)
 
     fq, fs, x2 = rmsnorm_quant(
         o, lp["post_norm"], bits=policy.act_bits.get("gate_proj", 6), residual=x2, eps=cfg.norm_eps
@@ -441,7 +462,7 @@ def llama_layer_serve(
         gate = _qlinear(lp["gate_proj"], fq, fs, dtype, ffn_pad)
         up = _qlinear(lp["up_proj"], fq, fs, dtype, ffn_pad)
     dq, ds = glu_quant(gate, up, bits=policy.act_bits.get("down_proj", 8), act=cfg.act)
-    down = _qlinear(lp["down_proj"], dq, ds, dtype, hidden)
+    down = _qlinear(lp["down_proj"], dq, ds, dtype, hidden, group=group)
     x2 = x2 + down
     return x2.reshape(b, l, hidden)
 
@@ -457,6 +478,7 @@ def llama_layer_serve_prefill(
     lengths: Optional[torch.Tensor],
     window: Optional[int] = None,
     mask: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """The W*A16 layer (large M): weights dequantized to bf16 inside the
     GEMM kernel, activations unquantized. Its branches are the reference's:
@@ -464,7 +486,8 @@ def llama_layer_serve_prefill(
     head_dim 128 take the RoPE epilogue on the f32 accumulator (which rounds
     differently from apply_rope on the rounded output); otherwise three
     GEMMs and apply_rope. A W6 gate_up plane or unbiased W6 gate/up take
-    the fused GLU kernel; otherwise two GEMMs and act(gate) * up."""
+    the fused GLU kernel; otherwise two GEMMs and act(gate) * up. ``group``:
+    as in ``llama_layer_serve``."""
     b, l, hidden = x.shape
     dtype = x.dtype
     x2 = x.reshape(b * l, hidden)
@@ -506,7 +529,7 @@ def llama_layer_serve_prefill(
         q, k = apply_rope(q, k, cos, sin)
 
     attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask, window)
-    o = _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
+    o = _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden, group=group)
     x2 = x2 + o
 
     h = rmsnorm(x2, lp["post_norm"], cfg.norm_eps)
@@ -526,7 +549,7 @@ def llama_layer_serve_prefill(
             gate = _qlinear_bf16(lp["gate_proj"], h, dtype, ffn_pad)
             up = _qlinear_bf16(lp["up_proj"], h, dtype, ffn_pad)
         act = (act_fn(cfg.act, gate.to(torch.float32)) * up.to(torch.float32)).to(dtype)
-    down = _qlinear_bf16(lp["down_proj"], act, dtype, hidden)
+    down = _qlinear_bf16(lp["down_proj"], act, dtype, hidden, group=group)
     x2 = x2 + down
     return x2.reshape(b, l, hidden)
 
@@ -540,6 +563,7 @@ def opt_layer_serve(
     cache_pos,
     lengths: Optional[torch.Tensor],
     mask: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """One quantized pre-LN OPT decoder layer: fused LayerNorm -> quant
     (K14) at q_proj's bits, biased W*Ax q/k/v, cache write + multi-head
@@ -549,9 +573,9 @@ def opt_layer_serve(
     reference adds o_proj's and fc2's after the slice to ``hidden`` so that,
     under tensor parallelism, they follow the all-reduce: on one device the
     two give the same values. Under a no-act-quant policy the layer is
-    ``_opt_layer_serve_bf16``."""
+    ``_opt_layer_serve_bf16``. ``group``: as in ``llama_layer_serve``."""
     if policy.no_act_quant:
-        return _opt_layer_serve_bf16(lp, cfg, x, kv, cache_pos, lengths, mask)
+        return _opt_layer_serve_bf16(lp, cfg, x, kv, cache_pos, lengths, mask, group)
     b, l, hidden = x.shape
     dtype = x.dtype
     x2 = x.reshape(b * l, hidden)
@@ -564,17 +588,18 @@ def opt_layer_serve(
 
     attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask)
     oq, os_ = quant_act(attn.reshape(b * l, nq), bits=policy.act_bits.get("o_proj", 6))
-    x2 = x2 + _qlinear(lp["o_proj"], oq, os_, dtype, hidden)
+    x2 = x2 + _qlinear(lp["o_proj"], oq, os_, dtype, hidden, group=group)
 
     norm = lp["post_norm"]
     fq, fs = layernorm_quant(x2, norm["g"], norm["b"], bits=policy.act_bits.get("fc1", 6), eps=cfg.norm_eps)
     h = _qlinear(lp["fc1"], fq, fs, dtype, _ffn_width(lp["fc2"], cfg))
     hq, hs = relu_quant(h, bits=policy.act_bits.get("fc2", 6))
-    x2 = x2 + _qlinear(lp["fc2"], hq, hs, dtype, hidden)
+    x2 = x2 + _qlinear(lp["fc2"], hq, hs, dtype, hidden, group=group)
     return x2.reshape(b, l, hidden)
 
 
-def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, kv, cache_pos, lengths, mask=None):
+def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor, kv, cache_pos, lengths, mask=None,
+                          group=None):
     """The OPT layer with unquantized activations (weight-only and fp16
     policies): plain LayerNorm producers, the W*A16 GEMMs (K7 for W6, K11
     for W4; W8 and 16-bit weights in a plain product), ReLU in f32 cast back
@@ -589,16 +614,17 @@ def _opt_layer_serve_bf16(lp: Dict[str, Any], cfg: ModelConfig, x: torch.Tensor,
                for n in ("q_proj", "k_proj", "v_proj"))
 
     attn = _self_attention(q, k, v, kv, cache_pos, lengths, mask)
-    x2 = x2 + _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden)
+    x2 = x2 + _qlinear_bf16(lp["o_proj"], attn.reshape(b * l, nq), dtype, hidden, group=group)
 
     h = layernorm(x2, lp["post_norm"]["g"], lp["post_norm"]["b"], cfg.norm_eps)
     h = _qlinear_bf16(lp["fc1"], h, dtype, _ffn_width(lp["fc2"], cfg))
     h = torch.relu(h.to(torch.float32)).to(dtype)
-    x2 = x2 + _qlinear_bf16(lp["fc2"], h, dtype, hidden)
+    x2 = x2 + _qlinear_bf16(lp["fc2"], h, dtype, hidden, group=group)
     return x2.reshape(b, l, hidden)
 
 
-def apply_lm_head(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor) -> torch.Tensor:
+def apply_lm_head(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor,
+                  group=None) -> torch.Tensor:
     """Vocab projection [B, L, H] -> logits [B, L, V].
 
     A packed head (``QuantPolicy.with_head``) with quantized activations
@@ -607,20 +633,27 @@ def apply_lm_head(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy,
     back from the padded vocab to ``cfg.vocab_size``: pad logits read 0.0
     and could out-argmax real negative logits. A bf16 or tied head is a
     plain large product, left to torch.matmul as the reference left it to
-    XLA."""
+    XLA. With a process ``group`` the head is vocab-parallel: a bf16 or
+    packed head is this rank's column slice, whose logits are all-gathered
+    over the group and the vocab padding (the last rank's last columns)
+    sliced off after the gather; the tied embedding is replicated."""
     head = params.get("lm_head")
     if head is None:
-        head = params["embed"].T
+        return x @ params["embed"].T.to(x.dtype)
     if not isinstance(head, dict):
-        return x @ head.to(x.dtype)
+        logits = x @ head.to(x.dtype)
+        return logits if group is None else all_gather_cat(logits, group, -1)[..., : cfg.vocab_size]
     b, l, _ = x.shape
     xm = x.reshape(b * l, -1).contiguous()  # x may be the last_only slice
     abits = policy.act_bits.get("lm_head", 16)
+    n_out = cfg.vocab_size if group is None else None
     if abits >= 16:
-        logits = _qlinear_bf16(head, xm, x.dtype, n_out=cfg.vocab_size)
+        logits = _qlinear_bf16(head, xm, x.dtype, n_out=n_out)
     else:
         xq, xs = quant_act(xm, bits=abits)
-        logits = _qlinear(head, xq, xs, x.dtype, n_out=cfg.vocab_size)
+        logits = _qlinear(head, xq, xs, x.dtype, n_out=n_out)
+    if group is not None:
+        logits = all_gather_cat(logits, group, -1)[:, : cfg.vocab_size]
     return logits.reshape(b, l, cfg.vocab_size)
 
 
@@ -639,6 +672,7 @@ def forward_serve(
     page_table: Optional[torch.Tensor] = None,  # int32 [B, MAXPAGES] (present => paged pool)
     last_only: bool = False,
     device="cuda",
+    tp_group=None,
 ):
     """Quantized forward. Without a cache (``kv_k`` / ``kv_v`` None): the
     whole sequence under a causal mask (and the sliding window), for eval
@@ -652,7 +686,10 @@ def forward_serve(
     kv_k / kv_v (and the scales) a page pool, decode only (L == 1). Returns
     (logits [B, L, V] — [B, 1, V] with ``last_only`` — and the cache state
     (kv_k, kv_v) or (kv_k, kv_v, kv_k_scale, kv_v_scale), or None without
-    a cache)."""
+    a cache). ``tp_group``: one rank's forward under tensor parallelism
+    (``params`` its local shard, ``cfg`` the local head and FFN counts, the
+    cache its local kv heads), which parallel/tp.py::forward_serve_tp
+    drives."""
     require_servable(policy)
     dev = resolve_device(device)
     is_opt = cfg.arch == "opt"
@@ -702,20 +739,20 @@ def forward_serve(
     for i, lp in enumerate(params["layers"]):
         kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table) if have_cache else None
         if is_opt:
-            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths, mask=mask)
+            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths, mask=mask, group=tp_group)
         elif prefill_bf16:
             x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
-                                          mask=mask)
+                                          mask=mask, group=tp_group)
         else:
             x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
-                                  mask=mask)
+                                  mask=mask, group=tp_group)
     if not is_opt:
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     elif "final_norm" in params:
         x = layernorm(x, params["final_norm"]["g"], params["final_norm"]["b"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
+    logits = apply_lm_head(params, cfg, policy, x, tp_group)
     if not have_cache:
-        return apply_lm_head(params, cfg, policy, x), None
-    cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v)
-    return apply_lm_head(params, cfg, policy, x), cache
+        return logits, None
+    return logits, ((kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v))

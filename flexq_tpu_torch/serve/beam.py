@@ -97,7 +97,11 @@ def beam_search_nbest(engine, prompt_ids: Sequence[Sequence[int]], beams: BeamPa
     """Beam search over an Engine's dense cache: per row, the ``n_best``
     hypotheses as (tokens, length-penalized score), best first. The prompt
     rows are tiled K times and prefilled together; the host reads the
-    step's parents, tokens and finished flags once a step."""
+    step's parents, tokens and finished flags once a step. Under an
+    Engine's mesh it takes dp = 1: a beam's parent row may lie on another
+    data rank."""
+    if engine.mesh is not None and engine.mesh.dp > 1:
+        raise ValueError("beam search under a mesh takes dp = 1 (a reorder would cross data ranks)")
     prompts = [list(p) for p in prompt_ids]
     lens = {len(p) for p in prompts}
     if len(lens) != 1:

@@ -30,9 +30,18 @@ Three decode loops, as in the reference:
 Beam search over the Engine's cache is serve/beam.py. The spec loop and beam
 search stay eager.
 
-Not in this slice (NotImplementedError): meshes (tensor / pipeline
-parallel). The model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses
-its layers.
+Under a ``mesh`` (parallel/distributed.py: one process per rank, every rank
+calling ``generate`` with the same arguments) the Engine serves through
+parallel/tp.py::forward_serve_tp: it shards its parameters (unless they are
+a rank's shard already, as ``load_packed_sharded`` gives them), holds a
+cache of [L, B/dp, KVH/tp, S, D] on the rank's device, and every rank draws
+the same tokens from the gathered logits of all B rows with its seeded
+generator, so every rank returns all B rows. B must divide by dp; spec
+decoding and beam search take dp = 1. The fused loop's step graph holds
+the step's NCCL collectives; a gloo mesh on the card has no capturable
+collectives and refuses ``mode="fused"`` (``mode="step"`` serves it). The
+model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses its layers.
+Pipeline parallelism (``pp_mesh``) is a later slice.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch
 
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
-from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.parallel.tp import cache_forward, is_sharded, shard_params
 from flexq_tpu_torch.serve.graphs import StepGraph
 from flexq_tpu_torch.serve.sampling import SamplingParams, process_logits, sample
 from flexq_tpu_torch.utils.profiling import GenerationStats, StepTimer
@@ -76,10 +85,16 @@ class Engine:
         pp_mesh=None,
         device="cuda",
     ):
-        self.device = resolve_device(device)
         require_servable(policy)
-        if mesh is not None or pp_mesh is not None:
-            raise NotImplementedError("tensor- and pipeline-parallel serving are a later slice")
+        if pp_mesh is not None:
+            raise NotImplementedError("pipeline-parallel serving (pp_mesh) is a later slice (parallel/pp.py)")
+        self.mesh = mesh
+        if mesh is not None:
+            self.device = mesh.device
+            if not is_sharded(params, cfg, mesh.tp):
+                params = shard_params(params, mesh)
+        else:
+            self.device = resolve_device(device)
         if max_seq_len % 128:
             raise ValueError(f"max_seq_len={max_seq_len} must be a multiple of 128")
         if params["embed"].device != self.device:
@@ -100,8 +115,12 @@ class Engine:
         self._fused: Dict[Any, Tuple["_Decoding", StepGraph]] = {}
 
     def _kv_shape(self, batch: int) -> Tuple[int, ...]:
-        c = self.cfg
-        return (c.num_layers, batch, c.num_kv_heads, self.max_seq_len, c.head_dim)
+        """[L, B, KVH, S, D]; under a mesh this rank's [L, B/dp, KVH/tp, S, D]."""
+        c, m = self.cfg, self.mesh
+        if m is None:
+            return (c.num_layers, batch, c.num_kv_heads, self.max_seq_len, c.head_dim)
+        rows = m.rows(batch)
+        return (c.num_layers, rows.stop - rows.start, c.num_kv_heads // m.tp, self.max_seq_len, c.head_dim)
 
     @property
     def quantized_cache(self) -> bool:
@@ -116,12 +135,8 @@ class Engine:
         return cache
 
     def _fwd(self, ids, cache, positions, cache_pos, prefill_bf16: bool = False, last_only: bool = False):
-        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
-        return forward_serve(
-            self.params, self.cfg, self.policy, ids, positions=positions,
-            kv_k=cache[0], kv_v=cache[1], cache_pos=cache_pos, prefill_bf16=prefill_bf16,
-            last_only=last_only, device=self.device, **scales,
-        )
+        return cache_forward(self.params, self.cfg, self.policy, self.mesh, self.device, ids, cache, positions,
+                             cache_pos, prefill_bf16=prefill_bf16, last_only=last_only)
 
     def _prefill(self, ids, cache, prompt_len: int):
         b, l = ids.shape
@@ -204,13 +219,11 @@ class Engine:
         if cache is None:
             cache = self._fused_caches[b] = self.new_cache(b)
         dec = _Decoding(self, b, sampling, eos_id, stop_ids, logprobs, cache=cache)
-        params, cfg, policy, dev = self.params, self.cfg, self.policy, self.device
-        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
+        params, cfg, policy, mesh, dev = self.params, self.cfg, self.policy, self.mesh, self.device
 
         def step():  # reads and writes dec's buffers and the cache only (no reference to the Engine)
             # the per-row position tensor: _decode_step's writes and lengths, read from the device
-            logits, _ = forward_serve(params, cfg, policy, dec.fed, positions=dec.pos[:, None], kv_k=cache[0],
-                                      kv_v=cache[1], cache_pos=dec.pos, device=dev, **scales)
+            logits, _ = cache_forward(params, cfg, policy, mesh, dev, dec.fed, cache, dec.pos[:, None], dec.pos)
             dec.pos += 1
             dec.record(*dec.draw(logits[:, 0]))
 
@@ -335,6 +348,15 @@ class Engine:
         counts of the penalties start from the prompt's tokens; counts and
         lengths advance for finished rows too, as in the reference. ``seed``
         seeds the draws of non-greedy sampling."""
+        m = self.mesh
+        if m is not None:
+            if len(prompt_ids) % m.dp:
+                raise ValueError(f"batch {len(prompt_ids)} must divide by the data axis {m.dp}")
+            if mode == "spec" and m.dp > 1:
+                raise ValueError("spec mode under a mesh takes dp = 1 (as in the reference)")
+            if mode == "fused" and not m.capturable:
+                raise ValueError(f'mode="fused" replays a CUDA graph, which cannot hold {m.backend} collectives '
+                                 'on the card: use mode="step" (or an NCCL mesh)')
         if mode == "spec":
             if return_logprobs:
                 raise ValueError("logprobs are not served in spec mode (as in the reference)")

@@ -32,6 +32,22 @@ timeout answers 503.
 
 Run:  python -m flexq_tpu_torch.serve.http --checkpoint <packed dir> [--paged]
 (see main()); tests drive it in-process through serve_background().
+
+Tensor / data parallel (--tp / --dp): one process per rank, each given the
+rendezvous (--coordinator host:port of rank 0, --num-processes, --process-id;
+parallel/distributed.py; over several nodes, LOCAL_WORLD_SIZE set to the
+ranks of each node). Rank 0 serves HTTP over a leader
+ReplicatedScheduler (serve/replicated.py), which ships each tick's commands
+to the other ranks on --replication-port; they follow. A ``--tp N`` export
+is read rank by rank (load_packed_sharded); a checkpoint exported at
+another tp is refused. On one card with two ranks: --backend gloo and
+--fused-tick 0 (gloo's collectives go through the host and cannot be
+captured in the step graph):
+
+    python -m flexq_tpu_torch.serve.http --checkpoint ckpt_tp2 --tp 2 --backend gloo --fused-tick 0 \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 --port 8000 &
+    python -m flexq_tpu_torch.serve.http --checkpoint ckpt_tp2 --tp 2 --backend gloo --fused-tick 0 \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
 """
 
 from __future__ import annotations
@@ -875,12 +891,22 @@ def serve_background(scheduler, host: str = "127.0.0.1", port: int = 0,
     return server, service, server.server_address[1]
 
 
+def _share_port(port: Optional[int] = None) -> int:
+    """Rank 0's replication port, told to every rank through the
+    rendezvous (rank 0 passes it, the others receive it)."""
+    import torch.distributed as dist
+
+    box = [port]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def main(argv=None):
     import argparse
 
     import torch
 
-    from flexq_tpu_torch.export.exporter import load_packed
+    from flexq_tpu_torch.export.exporter import load_packed, load_packed_sharded, read_meta
     from flexq_tpu_torch.serve.scheduler import BatchScheduler
     from flexq_tpu_torch.serve.tokenizer import load_tokenizer
 
@@ -908,22 +934,51 @@ def main(argv=None):
                          "(0 = unbounded)")
     ap.add_argument("--queue-timeout", type=float, default=None,
                     help="shed queued requests not admitted within this many seconds (503; default: never)")
-    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways (only 1 yet)")
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel ways (only 1 yet)")
-    ap.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages (only 1 yet)")
-    ap.add_argument("--coordinator", default=None, help="multi-host serving: not served by the port yet")
+    # tensor / data parallel serving: one process per rank (the reference's
+    # mpirun ranks); rank 0 serves HTTP and replicates the scheduler's
+    # command log to the others (serve/replicated.py)
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways (one process per rank)")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel ways (a dense cache; --paged takes dp = 1)")
+    ap.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages (a later slice: only 1)")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's torch.distributed rendezvous (or a file:// store); over several "
+                         "nodes, set LOCAL_WORLD_SIZE to the ranks of each node")
+    ap.add_argument("--num-processes", type=int, default=None, help="ranks in all (default tp * dp)")
+    ap.add_argument("--process-id", type=int, default=None, help="this process's rank")
+    ap.add_argument("--replication-port", type=int, default=8476,
+                    help="rank 0's port for the scheduler command-log stream (0: a free one; the other ranks "
+                         "learn it through the rendezvous)")
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="collectives: nccl on the card (a card a rank, the default), gloo on the CPU or for "
+                         "ranks that share a card")
     ap.add_argument("--device", default="cuda", help="the card (cuda), or cpu for the plain versions")
     args = ap.parse_args(argv)
     # refused before anything loads
-    for flag in ("tp", "dp", "pp"):
-        if getattr(args, flag) > 1:
-            ap.error(f"--{flag} {getattr(args, flag)}: multi-device serving is not in the port yet")
-    if args.coordinator is not None:
-        ap.error("--coordinator: multi-host serving is not in the port yet")
+    if args.pp > 1:
+        ap.error(f"--pp {args.pp}: pipeline-parallel serving is a later slice of the port")
     if args.fused_tick < 0:
         ap.error(f"--fused-tick {args.fused_tick}: must be >= 0")
+    world = args.num_processes or args.tp * args.dp
+    if world != args.tp * args.dp:
+        ap.error(f"--num-processes {world} != --tp {args.tp} x --dp {args.dp}")
+    if world > 1 and (args.coordinator is None or args.process_id is None):
+        ap.error("--tp / --dp > 1: one process per rank, each given --coordinator and --process-id")
+    tp_ckpt = read_meta(args.checkpoint).get("tensor_parallel", 1)
+    if tp_ckpt not in (1, args.tp):
+        ap.error(f"the checkpoint is tp={tp_ckpt}-sharded: serve it with --tp {tp_ckpt}")
 
-    cfg, policy, params = load_packed(args.checkpoint, device=args.device)
+    mesh = None
+    device = args.device
+    if args.coordinator is not None:
+        from flexq_tpu_torch.parallel.distributed import initialize, process_mesh
+
+        initialize(args.coordinator, world, args.process_id or 0, backend=args.backend, device=args.device)
+        mesh = process_mesh(args.tp, args.dp)
+        device = mesh.device
+    if mesh is not None and tp_ckpt > 1:  # each rank reads its rank files only
+        cfg, policy, params = load_packed_sharded(args.checkpoint, mesh)
+    else:
+        cfg, policy, params = load_packed(args.checkpoint, device=device)
     sched = BatchScheduler(
         params,
         cfg,
@@ -935,9 +990,24 @@ def main(argv=None):
         page_size=args.page_size,
         prefill_chunk=args.prefill_chunk,
         prefix_cache=args.prefix_cache,
-        fused_tick=0 if args.pp > 1 else args.fused_tick,  # fused ticks stay off under pipeline parallelism
-        device=args.device,
+        fused_tick=args.fused_tick,
+        mesh=mesh,
+        device=device,
     )
+    if mesh is not None and world > 1:
+        from flexq_tpu_torch.parallel.distributed import shutdown as leave
+        from flexq_tpu_torch.serve.replicated import ReplicatedScheduler
+
+        if mesh.rank > 0:  # rank 0's host: the rendezvous's, or this machine's for a file:// store
+            host = "127.0.0.1" if args.coordinator.startswith("file://") else \
+                args.coordinator.split("://")[-1].rsplit(":", 1)[0]
+            port = _share_port()
+            print(f"rank {mesh.rank} following {host}:{port}", flush=True)
+            ReplicatedScheduler(sched, leader=False, leader_addr=(host, port)).serve_forever()
+            leave()
+            return
+        sched = ReplicatedScheduler(sched, leader=True, port=args.replication_port, num_followers=world - 1,
+                                    announce=_share_port)
     server, service, port = serve_background(
         sched, args.host, args.port,
         tokenizer=load_tokenizer(args.tokenizer), model_name=args.model_name,
@@ -951,6 +1021,9 @@ def main(argv=None):
     except KeyboardInterrupt:
         service.shutdown()
         server.shutdown()
+        if mesh is not None and world > 1:
+            sched.shutdown()  # the followers return from serve_forever
+            leave()
 
 
 if __name__ == "__main__":

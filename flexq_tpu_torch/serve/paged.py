@@ -31,7 +31,8 @@ class PagePool:
     def __init__(self, num_layers: int, num_pages: int, kv_heads: int, page_size: int, head_dim: int,
                  dtype=torch.bfloat16, partitions: int = 1, device="cuda"):
         if partitions != 1:
-            raise NotImplementedError("data-parallel pool partitions are a later slice")
+            raise NotImplementedError("data-parallel pool partitions (PagePool(partitions > 1), a paged pool under "
+                                      "dp > 1) are a later slice")
         if page_size % 128:
             raise ValueError(f"page size {page_size} must be a multiple of 128")
         device = resolve_device(device)  # the card unless the caller asks for the CPU, as the Engine's

@@ -36,7 +36,18 @@ logprobs), the float knobs in a static buffer (different temperatures share
 a graph); on the CPU the same step runs eagerly. The per-token tick
 (``fused_tick=0``) stays eager.
 
-Not in this slice (NotImplementedError): meshes (``mesh``, ``pp_mesh``).
+Under a ``mesh`` (parallel/distributed.py: one process per rank, every rank
+given the same commands, as serve/replicated.py replicates them) every
+forward is parallel/tp.py::forward_serve_tp over this rank's parameter
+shard and its local cache: a dense cache [L, S/dp, KVH/tp, max, D] (slot i
+on data rank i // (S/dp)) or, at dp = 1, a page pool of KVH/tp heads. Every
+rank samples the same tokens from the gathered logits, so the host state
+stays in lockstep. Admission prefills run at B = 1 on every data rank and
+the slot's owner keeps the scratch. At dp > 1 the cache is dense (a paged
+pool needs ``PagePool(partitions > 1)``, a later slice) and beam groups are
+refused (a reorder would cross data ranks). Fused ticks replay a graph
+that holds NCCL collectives; a gloo mesh on the card takes
+``fused_tick=0``. Pipeline parallelism (``pp_mesh``) is a later slice.
 """
 
 from __future__ import annotations
@@ -52,7 +63,7 @@ import torch
 
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
-from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.parallel.tp import cache_forward, is_sharded, shard_params
 from flexq_tpu_torch.serve.beam import NEG as BEAM_NEG, reorder_rows, topk_lower_first
 from flexq_tpu_torch.serve.graphs import StepGraph
 from flexq_tpu_torch.serve.paged import PagePool, PageTable, PrefixRegistry
@@ -169,12 +180,27 @@ class BatchScheduler:
         max_prefilling: Optional[int] = None,
         device="cuda",
     ):
-        if mesh is not None or pp_mesh is not None:
-            raise NotImplementedError("tensor- and pipeline-parallel continuous batching are a later slice")
+        if pp_mesh is not None:
+            raise NotImplementedError("pipeline-parallel continuous batching (pp_mesh) is a later slice "
+                                      "(parallel/pp.py)")
         if fused_tick < 0:
             raise ValueError(f"fused_tick={fused_tick} must be >= 0")
-        self.device = resolve_device(device)
         require_servable(policy)
+        self.mesh = mesh
+        self._dp = 1 if mesh is None else mesh.dp
+        if mesh is not None:
+            if num_slots % mesh.dp:
+                raise ValueError(f"num_slots {num_slots} must divide by the data axis {mesh.dp}")
+            if paged and mesh.dp > 1:
+                raise NotImplementedError("a paged pool under dp > 1 needs PagePool(partitions > 1), a later slice")
+            if fused_tick and not mesh.capturable:
+                raise ValueError(f"fused_tick={fused_tick} replays a CUDA graph, which cannot hold {mesh.backend} "
+                                 "collectives on the card: use fused_tick=0 (or an NCCL mesh)")
+            self.device = mesh.device
+            if not is_sharded(params, cfg, mesh.tp):
+                params = shard_params(params, mesh)
+        else:
+            self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params are on {params['embed'].device}, scheduler on {self.device}")
         if max_seq_len % 128:
@@ -200,20 +226,21 @@ class BatchScheduler:
             self.registry = PrefixRegistry()
         dev = self.device
         c = cfg
+        kvh = c.num_kv_heads // (1 if mesh is None else mesh.tp)  # this rank's kv heads
+        self._kvh = kvh
         if paged:
             if max_seq_len % page_size:
                 raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size {page_size}")
             if num_pages is None:
                 num_pages = num_slots * (max_seq_len // page_size) + 1
-            self.pool = PagePool(c.num_layers, num_pages, c.num_kv_heads, page_size, c.head_dim,
-                                 dtype=kv_dtype, device=dev)
+            self.pool = PagePool(c.num_layers, num_pages, kvh, page_size, c.head_dim, dtype=kv_dtype, device=dev)
             self.ptable = PageTable(num_slots, max_seq_len // page_size)
             # page 0 is the garbage page: inactive slots (an all-zero table
             # row) decode junk into it without touching live pages
             if self.pool.alloc(1) != [0]:
                 raise AssertionError("page 0 must be the first page allocated")
         else:
-            shape = (c.num_layers, num_slots, c.num_kv_heads, max_seq_len, c.head_dim)
+            shape = (c.num_layers, num_slots // self._dp, kvh, max_seq_len, c.head_dim)
             self.kv = tuple(torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in "kv")
             if self.quantized:
                 self.kv += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=dev) for _ in "kv")
@@ -241,12 +268,8 @@ class BatchScheduler:
 
     # ---- forward pieces --------------------------------------------------
     def _forward(self, ids, cache, positions, cache_pos, table=None, prefill_bf16=False, last_only=False):
-        scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
-        return forward_serve(
-            self.params, self.cfg, self.policy, ids, positions=positions, kv_k=cache[0], kv_v=cache[1],
-            cache_pos=cache_pos, prefill_bf16=prefill_bf16, page_table=table, last_only=last_only,
-            device=self.device, **scales,
-        )
+        return cache_forward(self.params, self.cfg, self.policy, self.mesh, self.device, ids, cache, positions,
+                             cache_pos, prefill_bf16=prefill_bf16, page_table=table, last_only=last_only)
 
     def _step_fn(self, ids, cache, positions):
         """One decode step over all slots, per-slot positions [S] (dense)."""
@@ -261,7 +284,7 @@ class BatchScheduler:
     def _new_scratch(self, bucket: int) -> Tuple:
         """A zeroed B=1 scratch cache tuple sized to the prompt bucket."""
         c = self.cfg
-        shape = (c.num_layers, 1, c.num_kv_heads, bucket, c.head_dim)
+        shape = (c.num_layers, 1, self._kvh, bucket, c.head_dim)
         cache = tuple(torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in "kv")
         if self.quantized:
             cache += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=self.device) for _ in "kv")
@@ -347,8 +370,10 @@ class BatchScheduler:
         i's pages (prefix pages are mapped without a copy), or its
         positions [0, plen) into row i of the dense cache."""
         if not self.paged:
-            for dst, src in zip(self.kv, kv1):
-                dst[:, i, :, :plen] = src[:, 0, :, :plen]
+            per = self.num_slots // self._dp  # slot i is row i % per of data rank i // per
+            if self.mesh is None or i // per == self.mesh.data_index:
+                for dst, src in zip(self.kv, kv1):
+                    dst[:, i % per, :, :plen] = src[:, 0, :, :plen]
             return
         shared = slot.shared_pages if slot is not None else []
         pfx = slot.prefix_len if slot is not None else 0
@@ -390,6 +415,8 @@ class BatchScheduler:
             raise ValueError(f"prompt {len(prompt)} + {max_new_tokens} new tokens exceed max_seq_len {self.max_seq_len}")
         if beam_width > self.num_slots:
             raise ValueError(f"beam_width {beam_width} exceeds the {self.num_slots} slots")
+        if beam_width > 1 and self._dp > 1:
+            raise ValueError("beam groups under a mesh take dp = 1 (a reorder would cross data ranks)")
         if beam_width > 1 and self.paged:
             need = self._beam_need(len(prompt), max_new_tokens, beam_width)
             if need > self.pool.num_pages - 1:  # page 0 is the garbage page
@@ -956,6 +983,7 @@ class _FusedState:
     def __init__(self, sched: "BatchScheduler"):
         dev, s = sched.device, sched.num_slots
         self.params, self.cfg, self.policy, self.device = sched.params, sched.cfg, sched.policy, dev
+        self.mesh = sched.mesh
         self.paged = sched.paged
         self.pool, self.kv, self.ptable = (sched.pool, None, sched.ptable) if sched.paged else (None, sched.kv, None)
         self.last_tokens, self.generator = sched.last_tokens, sched.generator
@@ -1015,12 +1043,8 @@ class _FusedState:
         rows, s = self.rows, self.num_slots
 
         def step():
-            scales = dict(zip(("kv_k_scale", "kv_v_scale"), self.cache[2:]))
-            logits, _ = forward_serve(
-                self.params, self.cfg, self.policy, self.last_tokens, positions=pos[:, None], kv_k=self.cache[0],
-                kv_v=self.cache[1], cache_pos=pos, page_table=self.table if self.paged else None, device=self.device,
-                **scales,
-            )
+            logits, _ = cache_forward(self.params, self.cfg, self.policy, self.mesh, self.device, self.last_tokens,
+                                      self.cache, pos[:, None], pos, page_table=self.table if self.paged else None)
             proc = process_logits_dynamic(
                 logits[:, 0], self.dyn, top_k=sampling.top_k, use_top_p=sampling.top_p < 1.0,
                 token_counts=self.counts if use_counts else None, cur_length=gen0 + nrec, eos_ids=eos,

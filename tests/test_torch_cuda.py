@@ -1257,3 +1257,98 @@ def test_trace_holds_a_cuda_kernel(gen, tmp_path):
     events = json.loads(path.read_text())["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
     assert any(e.get("name") == "traced_matmul" for e in events)
+
+
+# ---- tensor parallelism (tp = 2): a rank's local shapes; the refusals -------
+
+TP2_INT = [(4096, 2048), (4096, 5632), (2048, 4096), (5632, 4096), (4096, 16384), (8192, 4096)]
+
+
+@pytest.mark.parametrize("k,n", TP2_INT)
+@pytest.mark.parametrize("fmt", [6, 4, 8])
+def test_int_gemm_at_tp2_shard_shapes(gen, fmt, k, n):
+    """A rank's (K, N) at tp = 2 (LLaMA-2-7B's q/k/v, gate/up, o, down and
+    packed head halved; OPT-6.7B's fc2), M = 4 on both routes and M = 128
+    on the tensor cores: bit-exact against the plain version."""
+    for m, routes in ((4, (W6AX_STREAM, W6AX_MMA)), (128, (W6AX_MMA,))):
+        xq, xs, planes, ws, want = int_operands(gen, fmt, m, k, n)
+        for route in routes:
+            if route == W6AX_STREAM and not stream_takes(fmt, m, k, n):
+                continue
+            assert torch.equal(launch(fmt, xq, xs, planes, ws, torch.bfloat16, route=route), want), (m, route)
+
+
+@pytest.mark.parametrize("fmt,k,n,rope", [(6, 4096, 2048, True), (6, 2048, 4096, False), (6, 5632, 4096, False),
+                                          (4, 4096, 5632, False), (4, 4096, 2048, True)])
+def test_wa16_at_tp2_shard_shapes(gen, fmt, k, n, rope):
+    """K7 / K11 at a rank's local shapes, a 4 x 128-token prompt."""
+    test_wa16_matmul_kernel_edges(gen, fmt, 512, k, n, rope)
+
+
+def test_glu_and_producers_at_tp2_shard_shapes(gen):
+    """K8 and K5 at the local FFN width 5632 (44 groups), K4 at o_proj's
+    local K = 2048, K15 at OPT's local F = 8192."""
+    test_wa16_glu_kernel_edges(gen, False, "silu", 512, 4096, 5632)
+    gate, up = 2 * randn(gen, 16, 5632), randn(gen, 16, 5632)
+    assert_quant_close(glu_quant(gate, up, 8), glu_quant_plain(gate, up, 8))
+    x = randn(gen, 16, 2048)
+    assert_quant_close(quant_act(x, 6), quant_act_plain(x, 6))
+    h = 2 * randn(gen, 16, 8192)
+    assert all(torch.equal(a, b) for a, b in zip(relu_quant(h, 6), relu_quant_plain(h, 6)))
+
+
+@pytest.mark.parametrize("lq", [1, 16, 128])
+def test_attention_at_tp2_heads(gen, lq):
+    """K6 / K9 at 16 heads (LLaMA-2-7B's 32 halved) over a bf16 cache."""
+    b, h, s, d = 2, 16, 256, 128
+    kc, vc = randn(gen, 2, b, h, s, d), randn(gen, 2, b, h, s, d)
+    q = randn(gen, b, lq, h, d)
+    lengths = torch.full((b,), 200, dtype=torch.int32, device="cuda")
+    got = (flash_decode(q[:, 0], kc, vc, lengths, layer_idx=1) if lq == 1
+           else flash_prefill(q, kc, vc, lengths, layer_idx=1)).float().reshape(b, lq, h, d)
+    want = attend_cache_plain(q, kc, vc, lengths, 1, None, torch.bfloat16, lq == 1, torch.bfloat16).float()
+    want = want.reshape(b, lq, h, d)
+    assert ((got - want).abs().max() <= 2e-2 * want.abs().max()).item()
+
+
+def test_gloo_mesh_on_the_card_refuses_captured_steps(gen):
+    """A gloo mesh on the card cannot put its collectives in a CUDA graph:
+    mode="fused" and fused_tick > 0 raise, naming mode="step" and
+    fused_tick=0; nothing falls back."""
+    from flexq_tpu_torch.config import QuantPolicy
+    from flexq_tpu_torch.parallel import Mesh
+    from flexq_tpu_torch.serve import Engine
+    from flexq_tpu_torch.serve.scheduler import BatchScheduler
+
+    cfg = ModelConfig.llama(vocab_size=256, hidden_size=256, intermediate_size=512, num_layers=1, num_heads=2)
+    dense = {"embed": randn(gen, 256, 256), "final_norm": torch.ones(256, device="cuda"),
+             "lm_head": randn(gen, 256, 256),
+             "layers": [{"input_norm": torch.ones(256, device="cuda"), "post_norm": torch.ones(256, device="cuda"),
+                         **{n: {"w": 0.05 * randn(gen, 256, 256)} for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+                         "gate_proj": {"w": 0.05 * randn(gen, 256, 512)}, "up_proj": {"w": 0.05 * randn(gen, 256, 512)},
+                         "down_proj": {"w": 0.05 * randn(gen, 512, 256)}}]}
+    from flexq_tpu_torch.models.quantized import quantize_params
+
+    pol = QuantPolicy.llama_flex()
+    tree = quantize_params(dense, cfg, pol)
+    mesh = Mesh(tp=1, dp=1, rank=0, device=torch.device("cuda", 0), backend="gloo", model_group=None, data_group=None)
+    eng = Engine(tree, cfg, pol, max_seq_len=256, mesh=mesh)
+    with pytest.raises(ValueError, match='mode="step"'):
+        eng.generate([[1, 2, 3]], max_new_tokens=2, mode="fused")
+    with pytest.raises(ValueError, match="fused_tick=0"):
+        BatchScheduler(tree, cfg, pol, num_slots=2, max_seq_len=256, fused_tick=4, mesh=mesh)
+
+
+def test_nccl_refuses_two_ranks_on_one_card(gen, monkeypatch):
+    """More ranks on a node than cards under NCCL (the default on the card)
+    raise before any rendezvous, naming backend="gloo"; with
+    LOCAL_WORLD_SIZE unset the message also names it (a launch over several
+    nodes must set it)."""
+    from flexq_tpu_torch.parallel import initialize
+
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match='backend="gloo".*LOCAL_WORLD_SIZE'):
+        initialize("127.0.0.1:1", torch.cuda.device_count() + 1, 0, device="cuda")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(torch.cuda.device_count() + 1))
+    with pytest.raises(ValueError, match='backend="gloo"'):
+        initialize("127.0.0.1:1", 2 * (torch.cuda.device_count() + 1), 0, device="cuda")

@@ -11,7 +11,7 @@ logprobs equal the port's per-token ticks' (the same step arithmetic, row
 by row) and lie within 0.15 nats of the reference's, the bound of
 tests/test_torch_sched.py. Sampled fused ticks draw from the scheduler's
 torch.Generator, not jax.random: they are held by a repeat of the seed.
-The reference's mesh cases have no counterpart in the port yet.
+The reference's mesh cases (fused ticks at tp = 2) are in tests/test_torch_parallel.py.
 """
 
 import dataclasses

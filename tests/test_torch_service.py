@@ -71,7 +71,8 @@ from flexq_tpu_torch.bindings import FlexQCausalLM
 from flexq_tpu_torch.config import QuantPolicy
 from flexq_tpu_torch.convert import params_from_numpy
 from flexq_tpu_torch.export import safetensors_io
-from flexq_tpu_torch.export.exporter import export_checkpoint, load_packed, main as export_main
+from flexq_tpu_torch.export.exporter import export_checkpoint, load_packed, load_packed_sharded, main as export_main
+from flexq_tpu_torch.parallel import Mesh
 from flexq_tpu_torch.models import hf_loader, quantized
 from flexq_tpu_torch.models.quantized import forward_serve, quantize_linear, quantize_params
 from flexq_tpu_torch.quant.quantizer import CLIPMIN, QuantSpec
@@ -266,24 +267,28 @@ def test_export_round_trip_matches_jax(llama, tmp_path, case):
                 assert x.dtype == y.dtype and torch.equal(x, y), jax.tree_util.keystr(k)
 
 
-def test_tensor_parallel_checkpoints_are_refused(llama, tmp_path):
-    _, d, _, _ = llama
-    out = str(tmp_path / "tp2")
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        export_checkpoint(d, out, tp=2, device="cpu")
-    with pytest.raises(SystemExit):
-        export_main(["--model-dir", d, "--out", out, "--tp", "2", "--device", "cpu"])
-    assert not os.path.exists(out)
-    export_main(["--model-dir", d, "--out", out, "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        load_packed(out, rank=1, device="cpu")
-    with open(os.path.join(out, "meta.json")) as f:
-        meta = json.load(f)
-    meta["tensor_parallel"] = 2
-    with open(os.path.join(out, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="tensor-parallel"):
-        load_packed(out, device="cpu")
+def test_tensor_parallel_checkpoints_are_refused(tmp_path):
+    """A tp = 2 export (the CLI's --tp 2) is served only on a mesh of its
+    tp: load_packed reads its ranks (rank=r, or the whole tree), a rank
+    past tp is refused, and load_packed_sharded refuses a mesh of another
+    tp (the HTTP server's refusal); a tp = 1 export has only rank 0."""
+    # hidden 256, FFN 512: every row-parallel K splits into 128-row groups at tp = 2
+    d = str(tmp_path / "hf")
+    hf_model(LlamaForCausalLM, LlamaConfig(**dict(LLAMA, hidden_size=256, intermediate_size=512)), 0).save_pretrained(
+        d, safe_serialization=True)
+    out, out1 = str(tmp_path / "tp2"), str(tmp_path / "tp1")
+    export_main(["--model-dir", d, "--out", out, "--tp", "2", "--device", "cpu"])
+    export_main(["--model-dir", d, "--out", out1, "--device", "cpu"])
+    assert_torch_tree_equal(load_packed(out, device="cpu")[2], load_packed(out1, device="cpu")[2])
+    with pytest.raises(ValueError, match="rank"):
+        load_packed(out, rank=2, device="cpu")
+    with pytest.raises(ValueError, match="rank"):
+        load_packed(out1, rank=1, device="cpu")
+    one = Mesh(tp=1, dp=1, rank=0, device=torch.device("cpu"), backend="gloo", model_group=None, data_group=None)
+    with pytest.raises(ValueError, match="--tp 2"):
+        load_packed_sharded(out, one)
+    with pytest.raises(ValueError, match="--tp 1"):
+        load_packed_sharded(out1, dataclasses.replace(one, tp=2))
 
 
 # ---- the cache-less forward -----------------------------------------------

@@ -3,7 +3,8 @@ hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal, with the reference's parameters in its
 order and its return order (out, logprobs, stats); the paths still to port
-raise (meshes; a negative fused_tick is refused), the reference's refusal of
+raise (pipeline parallelism, a paged pool under dp > 1; a negative
+fused_tick is refused), the reference's refusal of
 logprobs in spec mode stays, and half a cache is refused (the cache-less
 forward takes neither kv_k nor kv_v)."""
 
@@ -25,6 +26,7 @@ from flexq_tpu.train.trainer import init_params
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.convert import params_from_numpy
 from flexq_tpu_torch.models.quantized import forward_serve
+from flexq_tpu_torch.parallel import Mesh
 from flexq_tpu_torch.serve import Engine, SamplingParams
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
@@ -105,14 +107,15 @@ def test_unsupported_paths_raise(model):
         eng.generate(prompts, max_new_tokens=2, mode="spec", sampling=SamplingParams(greedy=False,
                                                                                      repetition_penalty=1.2))
     with pytest.raises(NotImplementedError):
-        Engine(tq, cfg, pol, max_seq_len=S, mesh=object(), device="cpu")
+        Engine(tq, cfg, pol, max_seq_len=S, pp_mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
     with pytest.raises(ValueError):  # half a cache: the cache-less forward takes neither
         forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=eng.new_cache(2)[0], kv_v=None, cache_pos=0,
                       device="cpu")
-    # the scheduler's paths still to port: meshes
-    for kw in (dict(mesh=object()), dict(pp_mesh=object())):
+    # the scheduler's paths still to port: pipeline parallelism, a paged pool at dp > 1
+    dp2 = Mesh(tp=1, dp=2, rank=0, device=torch.device("cpu"), backend="gloo", model_group=None, data_group=None)
+    for kw in (dict(mesh=dp2, paged=True), dict(pp_mesh=object())):
         with pytest.raises(NotImplementedError):
             BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", **kw)
     with pytest.raises(ValueError):
