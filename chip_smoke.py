@@ -25,8 +25,9 @@ exits nonzero without the final line:
      their bf16 outputs that part from the CPU's); the W6A16 and W4A16 GEMMs
      (K7, K11) at M = 2048 with and without the RoPE epilogue, at the
      scheduler's chunk M = 256 and at M = 4 (weight-only decode; K11 also at
-     the head), the fused GLU (K8) at M = 2048 with separate and fused planes
-     and at M = 256; the paged attention (K13) over a
+     the head), K7 at M = 1024 for the three 7B (K, N) (a sequence-parallel
+     rank's chunk of a 2048-token prompt, phase 11), the fused GLU (K8) at
+     M = 2048 with separate and fused planes and at M = 256; the paged attention (K13) over a
      scrambled page table, B = 8 ragged rows up to 2048 keys, bf16 and int8
      pools, with and without a window; off the main path, K9 at Lq = 256
      over 768 keys, with a 512-key window and with GQA (H = 32, KVH = 8),
@@ -194,14 +195,46 @@ exits nonzero without the final line:
      --tp-rank r <dir>``) sharing the card over gloo: 2-layer forward parity
      at 7B and OPT-6.7B widths against one rank (logged; held by the code
      witness: the one rank with the TP run's activation codes and W*A16
-     layer inputs handed on, 2e-2 of max |logit|), the 32-layer Engine at
-     tp = 2 (mode="step"; held by the witness) and at tp = 1 x dp = 2 (held
-     over the decisive steps), phase 4's mix through the paged scheduler at
-     tp = 2 (held over the decisive steps), and phase 5's directory exported
-     with --tp 2 and served over HTTP by a leader ReplicatedScheduler with
-     rank 1 following (equal to a direct tp = 2 run). A rank that fails or
-     outlives its timeout fails the phase; the ranks' launches join the
-     kernels' counts.
+     layer inputs handed on, 2e-2 of max |logit|), the Engine at tp = 2
+     (mode="step"; held by the witness) and at tp = 1 x dp = 2 (held over
+     the decisive steps), phase 4's mix through the paged scheduler at
+     tp = 2 (held over the decisive steps) and at tp = 1 x dp = 2 (a pool
+     partition a data rank, held over the decisive steps against the dense
+     scheduler of the same world, every partition drained), all at 8 of
+     LLaMA-2-7B's 32 layers (TP_ENGINE_LAYERS: depth cut for the time
+     limit; the one-rank NCCL world keeps 32), and phase 5's directory
+     exported with --tp 2 and served over HTTP by a leader
+     ReplicatedScheduler with rank 1 following (equal to a direct tp = 2
+     run). A rank that fails or outlives its timeout fails the phase; the
+     ranks' launches join the kernels' counts.
+ 11. pipeline and sequence parallelism, after phase 10: two child ranks
+     (``chip_smoke.py --pp-rank r <dir>``) sharing the card over gloo in
+     one world. (a) pp = 2 on phase 4's 32-layer LLaMA-2-7B model, 16 layers
+     a rank (each rank draws only its layers, the embedding and the head:
+     the other stage's draws are skipped by moving the generator's offset):
+     Engine.generate at B = 4 over phase 4's 32-token prompts (the W*Ax
+     prefill, as under pp), 32 new tokens, the tokens equal to phase 4's and
+     the prompts' last logits bit-equal to phase 4's single-device prefill
+     (the hop passes the hidden state unchanged), over an int8 cache (phase
+     4's int8 tokens) and sampled (phase 6's parameters and seed: phase 6's
+     step-mode tokens); phase 4's 16-request mix through
+     BatchScheduler(pp_mesh=) (dense, fused_tick=0) held over the decisive
+     steps against phase 4's dense run (whose prompts of 64 tokens and more
+     took the W*A16 prefill); OPT-6.7B's widths at 2 layers under pp = 2
+     against one device (logits equal); phase 10's 4-layer directory
+     exported (tp = 1) and served by ``python -m flexq_tpu_torch.serve.http
+     --pp 2``, leader and follower, one completion equal to a direct pp = 2
+     run. (b) sp = 2 at LLaMA-2-7B width: sp_prefill and two sp_decode_steps
+     on 2 layers against the single-device forward (the W6A16 prefill;
+     phase 3's bounds), generate_sp at SP_GEN_LAYERS = 8 layers, B = 1, a
+     2000-token prompt, 16 new tokens, over a bf16 and an int8 prompt cache,
+     each held against rank 0's single-device run of generate_sp (a ring of
+     one: the prompt's logits, then a code witness, its decode steps fed
+     the sp = 2 run's tokens and activation codes) and logged against its
+     single-device Engine over that cache, and forward_sp on 2 dense f32
+     layers against
+     the dense forward (1e-3 of max |logit|). Each part's seconds and ms a
+     step are printed; the ranks' launches join the kernels' counts.
 Each phase prints its seconds. The line before the last is the kernels' JSON; the last is
 {"ok": true, "device": {...}}.
 """
@@ -216,6 +249,7 @@ import math
 import os
 import queue
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -271,6 +305,7 @@ from flexq_tpu_torch.kernels.int_matmul import STREAM_MAX_M, W6AX_MMA, W6AX_STRE
 from flexq_tpu_torch.models.llama import fake_quant_weights, forward as dense_forward, rope_cos_sin, rope_gemm_operands
 from flexq_tpu_torch.models.opt import fake_quant_weights as opt_fake_quant_weights, forward as opt_dense_forward
 from flexq_tpu_torch.models import hf_loader, llama, quantized
+from flexq_tpu_torch.parallel import sp_serve
 from flexq_tpu_torch.models.quantized import (all_gather_cat, forward_serve, quantize_layer, quantize_linear,
                                               quantize_params)
 from flexq_tpu_torch.packing.pack4 import pack4
@@ -280,6 +315,8 @@ from flexq_tpu_torch.quant.sensitivity import analyze_act_sensitivity
 from flexq_tpu_torch.quant.smooth import collect_llama_act_stats, smooth_llama
 from flexq_tpu_torch.serve import Engine, SamplingParams, beam, speculative
 from flexq_tpu_torch.serve import http as serve_http
+from flexq_tpu_torch.parallel import (SeqMesh, forward_sp, generate_sp, make_pipe_mesh, make_sp_mesh, serve_step_pp,
+                                     shard_cache_pp, sp_decode_step, sp_prefill)
 from flexq_tpu_torch.parallel.distributed import initialize, process_mesh, shutdown
 from flexq_tpu_torch.parallel.tp import forward_serve_tp, shard_params
 from flexq_tpu_torch.serve.replicated import ReplicatedScheduler
@@ -337,6 +374,7 @@ REPORT_SHAPE = {
     "layernorm_quant": "M=4 K=4096",
     "relu_quant": "M=4 F=16384",
 }
+SP_CHUNK_M = 1024  # a rank's rows of the sequence-parallel prefill: B = 1, 2048 tokens over sp = 2
 VERIFY_LENGTHS = (69, 75, 85, 96)  # phase 6's verify windows: 5 queries a row, each row at its own start
 VERIFY_SHAPE = f"B=4 Lq=5 H=32 D=128 S=2048 per-row len={'/'.join(map(str, VERIFY_LENGTHS))}"
 # further shapes whose times go into a kernel's JSON entry, under "also"
@@ -348,6 +386,8 @@ ALSO_REPORT = {
     # the exact GEMM on the tensor cores: phase 6's 4 x 5-token verify windows, a 4 x 32-token W6Ax
     # prompt, OPT's 4 x 512-token prompt
     "w6_matmul": ("M=20 K=4096 N=4096", "M=128 K=4096 N=4096", "M=2048 K=4096 N=4096"),
+    # K7 at a sequence-parallel rank's chunk (phase 11): q / k / v / o, gate / up, down
+    "w6_matmul_bf16": ("M=1024 K=4096 N=4096", "M=1024 K=4096 N=11264", "M=1024 K=11264 N=4096"),
     # W4A8 / W8A8 on the tensor cores: the 4 x 32-token prompt's gate / up
     "w4_matmul": ("M=128 K=4096 N=11264",),
     "w8_matmul": ("M=128 K=4096 N=11264",),
@@ -1057,6 +1097,11 @@ def check_wa16(results, dev, gen):
     g, u = wa16_planes(6, kg, ng, dev, gen), wa16_planes(6, kg, ng, dev, gen)
     cases += glu_cases(g, u, 2048, dev, gen, fused=True) + glu_cases(g, u, 256, dev, gen)  # 512-token prefill; chunk
     run_wa16_cases(results, cases, dev, gen)
+    # phase 11's sequence-parallel prefill: K7 a projection at a time (no RoPE
+    # epilogue, gate and up apart) on a rank's 1024-row chunk of a 2048-token
+    # prompt; inputs from a generator of their own, so the cases above keep theirs
+    gen_sp = torch.Generator(device=dev).manual_seed(SEED + 8)
+    run_wa16_cases(results, [wa16_case(6, SP_CHUNK_M, k, n, False, dev, gen_sp) for k, n in SHAPES_7B], dev, gen_sp)
 
 
 def wa16_planes(fmt, k, n, dev, gen):
@@ -1114,14 +1159,16 @@ def run_wa16_cases(results, cases, dev, gen):
                extra=f" (K x {n} dense bf16 matmul; tolerance: f32 1e-4 of max|out|, bf16 1 ulp)")
 
 
-def random_weights(cfg: ModelConfig, gen, dev, pack=None, res_std=None):
+def random_weights(cfg: ModelConfig, gen, dev, pack=None, res_std=None, keep=None):
     """Random f32 dense weights in the reference's tree, on the card, each
     layer handed to ``pack`` (e.g. quantize_layer) as soon as it is drawn:
     LLaMA (N(0, 0.02), residual outputs N(0, ``res_std``), by default 0.02
     scaled by 1/sqrt(2L), norms 1, an untied head) or pre-LN OPT (weights
     and biases N(0, 0.02), residual outputs as LLaMA's, LayerNorm g = 1 and
     b N(0, 0.02), max_seq_len + 2 learned positions, the head tied to the
-    embedding)."""
+    embedding). ``keep``: the indices of the layers to keep (a pipeline
+    stage's); the others' draws are skipped, so the kept layers and the
+    embedding and head are the whole model's (skip_draws)."""
     std = 0.02
     res_std = std / math.sqrt(2 * cfg.num_layers) if res_std is None else res_std
     h, f = cfg.hidden_size, cfg.intermediate_size
@@ -1138,25 +1185,61 @@ def random_weights(cfg: ModelConfig, gen, dev, pack=None, res_std=None):
         def norm():
             return {"g": torch.ones(h, device=dev), "b": randn(h)}
 
-        layers = [pack({"input_norm": norm(), "post_norm": norm(), "q_proj": lin(h, h), "k_proj": lin(h, h),
-                        "v_proj": lin(h, h), "o_proj": lin(h, h, res_std), "fc1": lin(h, f),
-                        "fc2": lin(f, h, res_std)}) for _ in range(cfg.num_layers)]
+        def layer():
+            return {"input_norm": norm(), "post_norm": norm(), "q_proj": lin(h, h), "k_proj": lin(h, h),
+                    "v_proj": lin(h, h), "o_proj": lin(h, h, res_std), "fc1": lin(h, f), "fc2": lin(f, h, res_std)}
+
+        layers = draw_layers(cfg.num_layers, layer, pack, gen, keep)
         return {"embed": randn(cfg.vocab_size, h), "pos_embed": randn(cfg.max_seq_len + 2, h), "final_norm": norm(),
                 "layers": layers}
-    layers = [pack({"input_norm": torch.ones(h, device=dev), "post_norm": torch.ones(h, device=dev),
-                    "q_proj": {"w": randn(h, nq)}, "k_proj": {"w": randn(h, nkv)}, "v_proj": {"w": randn(h, nkv)},
-                    "o_proj": {"w": randn(nq, h, s=res_std)}, "gate_proj": {"w": randn(h, f)},
-                    "up_proj": {"w": randn(h, f)}, "down_proj": {"w": randn(f, h, s=res_std)}})
-              for _ in range(cfg.num_layers)]
+
+    def layer():
+        return {"input_norm": torch.ones(h, device=dev), "post_norm": torch.ones(h, device=dev),
+                "q_proj": {"w": randn(h, nq)}, "k_proj": {"w": randn(h, nkv)}, "v_proj": {"w": randn(h, nkv)},
+                "o_proj": {"w": randn(nq, h, s=res_std)}, "gate_proj": {"w": randn(h, f)},
+                "up_proj": {"w": randn(h, f)}, "down_proj": {"w": randn(f, h, s=res_std)}}
+
+    layers = draw_layers(cfg.num_layers, layer, pack, gen, keep)
     return {"embed": randn(cfg.vocab_size, h), "final_norm": torch.ones(h, device=dev), "layers": layers,
             "lm_head": randn(h, cfg.vocab_size)}
 
 
-def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False):
+def draw_layers(n: int, layer, pack, gen, keep=None):
+    """``n`` layers drawn in order by ``layer()``, those in ``keep`` (all
+    by default) handed to ``pack`` and kept. A run of skipped layers draws
+    one (every layer draws the same shapes, so the same count of random
+    numbers) and, on the card, moves the generator's offset past the rest
+    (skip_draws); the CPU's generator has no offset, so there it draws them."""
+    out, i = [], 0
+    while i < n:
+        if keep is None or i in keep:
+            out.append(pack(layer()))
+            i += 1
+            continue
+        run = next((j for j in range(i, n) if j in keep), n) - i
+        skip_draws(gen, run, layer)
+        i += run
+    return out
+
+
+def skip_draws(gen, n: int, draw) -> None:
+    """Advance ``gen`` past ``n`` calls of ``draw`` that draw the same
+    shapes: one call, then the CUDA generator's Philox offset moved by
+    n - 1 times that call's advance."""
+    if gen.device.type != "cuda":
+        for _ in range(n):
+            draw()
+        return
+    start = gen.get_offset()
+    draw()
+    gen.set_offset(start + (gen.get_offset() - start) * n)
+
+
+def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse=False, keep=None):
     """random_weights' LLaMA quantized layer by layer on the card
     (``fuse=True``: the fused qkv_proj / gate_up tree; a policy with a
-    quantized head packs the lm_head too)."""
-    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev, fuse=fuse))
+    quantized head packs the lm_head too; ``keep``: only those layers)."""
+    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev, fuse=fuse), keep=keep)
     return {"embed": t["embed"].to(dtype), "final_norm": t["final_norm"].to(dtype), "layers": t["layers"],
             "lm_head": quantize_head(t["lm_head"].to(dtype), policy)}
 
@@ -1164,9 +1247,9 @@ def random_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, fuse
 OPT_67B = dict(vocab_size=50272, hidden_size=4096, intermediate_size=16384, num_layers=32, num_heads=32)
 
 
-def random_opt_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16):
+def random_opt_params(cfg: ModelConfig, policy, gen, dev, dtype=torch.bfloat16, keep=None):
     """random_weights' pre-LN OPT quantized layer by layer on the card."""
-    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev))
+    t = random_weights(cfg, gen, dev, lambda lp: quantize_layer(lp, cfg, policy, dtype, dev), keep=keep)
     return {"embed": t["embed"].to(dtype), "pos_embed": t["pos_embed"].to(dtype),
             "final_norm": {k: v.to(dtype) for k, v in t["final_norm"].items()}, "layers": t["layers"]}
 
@@ -1588,6 +1671,13 @@ PATH_KERNELS = {
     # the scheduler's beam groups beside regular requests
     "beam scheduler dense": W6AX,
     "beam scheduler paged": PRODUCERS + ("w6_matmul", "w6_matmul_stream", "flash_decode_paged", "flash_prefill"),
+    # phase 11: the pipelined Engine and scheduler on each stage (every prompt
+    # through the W*Ax layer: no W*A16 prefill under pp)
+    "pp 32-token": W6AX,
+    "pp scheduler": W6AX,
+    # the sequence-parallel prefill's W6A16 GEMMs (K7) on a rank's chunk, then
+    # the W6Ax decode layer (its attention plain tensor math, merged over the ring)
+    "sp": PRODUCERS + ("w6_matmul_bf16", "w6_matmul", "w6_matmul_stream"),
 }
 
 
@@ -1673,12 +1763,15 @@ def sched_requests(vocab: int):
 SCHED_RUNS = {}  # label -> streams and metrics of each sched_run in this call (phase 7 compares fused with per-token)
 
 
-def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
+def sched_run(label, path, params, cfg, policy, dev, reqs, keep_logits=False, **kw):
     """One BatchScheduler run over ``reqs`` (launch counts zeroed just before,
     read just after); checks that every request got exactly its max_new
     tokens and, paged, that the pool got every non-garbage page back.
-    Returns (token lists, counts, scheduler)."""
+    ``keep_logits``: SCHED_RUNS[label]["logits"] holds, per request, the
+    logits each token was drawn from (bf16 [n, V] on the host). Returns
+    (token lists, counts, scheduler)."""
     sched = BatchScheduler(params, cfg, policy, **SCHED, device=dev, **kw)
+    tap = SchedTap(sched) if keep_logits else None
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1716,6 +1809,8 @@ def sched_run(label, path, params, cfg, policy, dev, reqs, **kw):
     SCHED_RUNS[label] = dict(tokens=tokens, tokens_per_s=gen_tokens / wall, ticks=len(sched.tick_s),
                              ms_tick=statistics.mean(sched.tick_s) * 1e3, ms_step=ms_step,
                              ttft_p50=statistics.median(ttft), ttft_max=ttft[-1])
+    if tap is not None:
+        SCHED_RUNS[label]["logits"] = [torch.stack(tap.rows[i]).to(torch.bfloat16).cpu() for i in ids]
     if sched.fused_graphs:
         graphs = list(sched.fused_graphs.values())
         fused = [(s, n) for s, n, f in zip(sched.tick_s, sched.tick_steps, sched.tick_fused) if f]
@@ -1762,8 +1857,10 @@ def scheduler_runs(params, cfg, policy, dev):
     paged, counts, sched = sched_run("paged bf16", "scheduler paged", params, cfg, policy, dev, reqs, paged=True)
     add(counts)
     del sched
-    dense, counts, sched = sched_run("dense bf16", "scheduler dense", params, cfg, policy, dev, reqs)
+    dense, counts, sched = sched_run("dense bf16", "scheduler dense", params, cfg, policy, dev, reqs,
+                                     keep_logits=True)
     add(counts)
+    PHASE4["sched_dense"] = (dense, SCHED_RUNS["dense bf16"]["logits"])  # phase 11's pipelined scheduler's hold
     del sched
     first = [a[0] == b[0] for a, b in zip(paged, dense)]
     same = [a == b for a, b in zip(paged, dense)]
@@ -1803,6 +1900,7 @@ def scheduler_runs(params, cfg, policy, dev):
 
 
 SPEC_K = 4  # phase 6's draft length: verify windows of 1 + SPEC_K tokens
+SAMPLED = SamplingParams(temperature=0.8, top_p=0.9, repetition_penalty=1.1, greedy=False)  # phase 6's, seed 1
 
 
 def run_counted(label, path, fn):
@@ -2006,7 +2104,7 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
 
     eng = Engine(params, cfg, policy, max_seq_len=2048, device=dev)
     # sampled: fused == step under one seed, a repeat equal
-    sp = SamplingParams(temperature=0.8, top_p=0.9, repetition_penalty=1.1, greedy=False)
+    sp = SAMPLED
     eng.generate(p32, max_new_tokens=2, sampling=sp, eos_id=-1)  # warm-up
     t0 = time.perf_counter()
     (fused, stats), counts = run_counted("sampled fused", "32-token", lambda: eng.generate(
@@ -2019,6 +2117,7 @@ def decoding_modes(params, cfg, policy, dev, p32, greedy32):
         f"equal: {fused == again}; first row {fused[0][:8]} ({time.perf_counter() - t0:.1f}s)")
     if fused != step or fused != again or any(len(r) != new for r in fused):
         raise AssertionError("sampled Engine runs: fused and step, or a repeat of the seed, disagree")
+    PHASE4["sampled32"] = step  # phase 11's pipelined sampled run is held to it
     out, lps = eng.generate(p32, max_new_tokens=new, eos_id=-1, return_logprobs=True)
     finite = all(math.isfinite(x) and x <= 0 for r in lps for x in r)
     log(f"modes greedy with logprobs: tokens equal to phase 4's: {out == greedy32}; logprobs finite and <= 0: "
@@ -2341,7 +2440,12 @@ def end_to_end(dev, gen):
     p32 = prompts.tolist()
     out, counts, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev)
     add(counts)
-    PHASE4.update(p32=prompts, out32=out)
+    # phase 11's pipeline is held to these: the prompts' last logits, the
+    # tokens over a bf16 and an int8 cache (and phase 6's sampled tokens)
+    logits32 = eng.prefill_prompts(p32, eng.new_cache(b))[0]
+    out8 = Engine(params, cfg, policy, max_seq_len=2048, kv_dtype=torch.int8).generate(
+        prompts, max_new_tokens=new, eos_id=-1, mode="step")
+    PHASE4.update(p32=prompts, out32=out, logits32=logits32.cpu(), out32_int8=out8)
     step_out, _, _ = generate_run("bf16 cache", "32-token", eng, prompts, new, dev, mode="step", counted=False)
     if out != step_out:
         raise AssertionError("fused and step decode loops disagree")
@@ -3701,8 +3805,8 @@ def train_and_gate(dev):
 
 TP_RANKS = 2  # two ranks share the one card over gloo
 TP_TIMEOUT_S = 420  # the ranks' wall clock, the model draws and every part included
-TP_ENGINE_LAYERS = 32  # the Engine and scheduler runs' depth (LLaMA-2-7B's)
-PHASE4 = {}  # phase 4's prompts and tokens, which phase 10 (b) holds the one-rank NCCL world to
+TP_ENGINE_LAYERS = 8  # the gloo ranks' Engine and scheduler depth: LLaMA-2-7B's 32 cut to 8 for the time limit
+PHASE4 = {}  # phase 4's prompts, tokens and logits, which phase 10 (b) and phase 11 are held to
 
 
 def stream_hold(label, want, got, want_at, got_at) -> bool:
@@ -4035,14 +4139,14 @@ def tp_engine_runs(mesh, dev, full, cfg, policy, lead) -> bool:
             again = eng.generate(p, max_new_tokens=32, eos_id=-1, mode="step")
         ms = sum(stats.step_times_s) / len(stats.step_times_s) * 1e3
         if lead:
-            log(f"tp engine tp=2 dp=1 {name}-token prompts (32 layers, B=4, 32 new, mode=step): ttft_ms="
+            log(f"tp engine tp=2 dp=1 {name}-token prompts ({cfg.num_layers} layers, B=4, 32 new, mode=step): ttft_ms="
                 f"{stats.ttft_s * 1e3:.1f} decode_ms_per_step={ms:.2f} (two ranks time-sharing one card over gloo: a "
                 f"smoke figure, not a multi-GPU speed); the run again with its codes kept gives its tokens: "
                 f"{again == out}")
             want, want_tap = refs[name]
             stream_hold(f"tp engine tp=2 {name}-token vs one rank (logged)", want, out, want_tap.at, tap.at)
             w_steps, departure = engine_replay(full, cfg, policy, p, out, relay)
-            ok = witness_hold(f"engine tp=2 {name}-token (32 layers)", [tap.prompts[0]] + tap.steps, w_steps,
+            ok = witness_hold(f"engine tp=2 {name}-token ({cfg.num_layers} layers)", [tap.prompts[0]] + tap.steps, w_steps,
                               departure) and ok and again == out
         del relay
     del eng, local
@@ -4099,7 +4203,7 @@ def tp_scheduler_run(mesh, dev, full, cfg, policy, lead) -> bool:
     TP_COUNTS.append(launch_counts())
     if lead:
         n = sum(map(len, got[0]))
-        log(f"tp sched paged tp=2 (32 layers, 16 requests, fused_tick=0): {n} tokens in "
+        log(f"tp sched paged tp=2 ({cfg.num_layers} layers, 16 requests, fused_tick=0): {n} tokens in "
             f"{time.perf_counter() - t0:.1f}s, "
             f"mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.1f} (two ranks on one card over gloo, "
             f"the code relay's gathers included); pool free after {sched.pool.free_pages}/{sched.pool.num_pages - 1}")
@@ -4120,11 +4224,41 @@ def tp_scheduler_run(mesh, dev, full, cfg, policy, lead) -> bool:
         with CodeRelay(feed=relay) as fed:
             replay = run_mix(one, reqs, force=got[0])
         per_request = [[torch.stack(tap.rows[i]) for i in tap.ids] for tap in (got[1], replay[1])]
-        ok = witness_hold("sched paged tp=2 (32 layers, request by request)", *per_request, fed.departure) and ok
+        ok = witness_hold(f"sched paged tp=2 ({cfg.num_layers} layers, request by request)", *per_request, fed.departure) and ok
         ok = ok and replay[0] == got[0]
         del one
     del sched, local, relay
     return ok
+
+
+def dp_paged_scheduler_run(dev, full, cfg, policy, lead) -> bool:
+    """(a) phase 4's 16-request mix at tp = 1 x dp = 2 (fused_tick=0): the
+    paged scheduler, a pool partition a data rank (each rank's device pool
+    its own partition, the tables localized), against the dense scheduler
+    of the same world over the decisive steps; every partition drained to
+    its garbage page."""
+    dmesh = process_mesh(1, 2)
+    reqs = sched_requests(cfg.vocab_size)
+    dense = run_mix(BatchScheduler(full, cfg, policy, **SCHED, mesh=dmesh), reqs)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sched = BatchScheduler(full, cfg, policy, **SCHED, paged=True, mesh=dmesh)
+    got = run_mix(sched, reqs)
+    TP_COUNTS.append(launch_counts())
+    pool = sched.pool
+    free = [pool.free_in(d) for d in range(pool.partitions)]
+    drained = free == [pool.pages_per_partition - 1] * pool.partitions
+    if not lead:
+        return drained
+    n = sum(map(len, got[0]))
+    log(f"tp sched paged tp=1 dp=2 ({cfg.num_layers} layers, 16 requests, fused_tick=0): {n} tokens in "
+        f"{time.perf_counter() - t0:.1f}s, mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.1f} (two "
+        f"ranks on one card over gloo); pool {pool.num_pages} pages in {pool.partitions} partitions, free after "
+        f"{free} of {pool.pages_per_partition - 1} each")
+    held = stream_hold("tp sched paged dp=2 vs dense dp=2", dense[0], got[0], dense[1].at(dense[1].ids),
+                       got[1].at(got[1].ids))
+    return held and drained
 
 
 def tp_http(mesh, dev, ckpt, lead) -> bool:
@@ -4193,12 +4327,15 @@ def tp_rank(rank: int, workdir: str) -> None:
     t0 = time.perf_counter()
     cfg = ModelConfig.llama(num_layers=TP_ENGINE_LAYERS)
     flex = QuantPolicy.llama_flex()
-    full = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 2), dev)  # phase 4's weights
+    full = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 2), dev)  # phase 4's first layers
     res["holds"]["engine"] = tp_engine_runs(mesh, dev, full, cfg, flex, lead)
     res["seconds"]["engine"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["holds"]["scheduler"] = tp_scheduler_run(mesh, dev, full, cfg, flex, lead)
     res["seconds"]["scheduler"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["holds"]["paged dp=2"] = dp_paged_scheduler_run(dev, full, cfg, flex, lead)
+    res["seconds"]["paged dp=2"] = time.perf_counter() - t0
     del full
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4229,11 +4366,19 @@ def tp_children(dev, gen, workdir):
                    cwd=os.path.dirname(os.path.abspath(__file__)))
     log(f"tp exporter --tp {TP_RANKS}: {time.perf_counter() - t0:.1f}s, files {sorted(os.listdir(ckpt))[:4]}...")
     torch.cuda.empty_cache()
-    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(TP_RANKS)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--tp-rank", str(r), workdir],
+    return run_ranks("--tp-rank", TP_RANKS, workdir, TP_TIMEOUT_S, "phase 10")
+
+
+def run_ranks(flag: str, n: int, workdir: str, timeout_s: float, phase: str):
+    """``n`` child processes ``chip_smoke.py <flag> r <workdir>`` on the one
+    card; every child must exit 0 within ``timeout_s`` (else all are killed
+    and the phase fails). Logs their output; returns the ranks' results
+    (workdir/rank{r}.json)."""
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(n)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), workdir],
                               stdout=logs[r], stderr=subprocess.STDOUT, cwd=os.path.dirname(os.path.abspath(__file__)))
-             for r in range(TP_RANKS)]
-    deadline = time.monotonic() + TP_TIMEOUT_S
+             for r in range(n)]
+    deadline = time.monotonic() + timeout_s
     try:
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
             if any(p.poll() not in (None, 0) for p in procs):
@@ -4246,15 +4391,15 @@ def tp_children(dev, gen, workdir):
             p.wait()
         for f in logs:
             f.close()
-    for r in range(TP_RANKS):
+    for r in range(n):
         with open(os.path.join(workdir, f"rank{r}.log")) as f:
             for line in f.read().splitlines():
                 log(f"[rank {r}] {line}")
     rcs = [p.returncode for p in procs]
-    if rcs != [0] * TP_RANKS:
-        raise AssertionError(f"phase 10: a rank failed or outlived {TP_TIMEOUT_S}s: exit codes {rcs}")
+    if rcs != [0] * n:
+        raise AssertionError(f"{phase}: a rank failed or outlived {timeout_s}s: exit codes {rcs}")
     out = []
-    for r in range(TP_RANKS):
+    for r in range(n):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             out.append(json.load(f))
     return out
@@ -4299,17 +4444,17 @@ def nccl_one_rank(dev):
     return out == want, counts
 
 
-def tensor_parallel(dev, gen):
+def tensor_parallel(dev, gen, workdir):
     """Phase 10: (b) the one-rank NCCL world in this process, then (a) the
-    two gloo ranks on the one card. Returns the main-path launch counts of
-    both (the ranks' summed)."""
+    two gloo ranks on the one card (their files, the HF directory among
+    them, under ``workdir``). Returns the main-path launch counts of both
+    (the ranks' summed)."""
     t_phase = t0 = time.perf_counter()
     ok_b, counts = nccl_one_rank(dev)
     totals = dict(counts)
     log(f"phase 10 (b) one-rank NCCL world: {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="flexq_tp_") as workdir:
-        ranks = tp_children(dev, gen, workdir)
+    ranks = tp_children(dev, gen, workdir)
     for r, res in enumerate(ranks):
         for k, v in res["counts"].items():
             totals[k] = totals.get(k, 0) + v
@@ -4323,9 +4468,440 @@ def tensor_parallel(dev, gen):
     return totals
 
 
+# ---- phase 11: pipeline and sequence parallelism --------------------------
+
+PP_RANKS = 2  # two ranks share the one card over gloo: pp = 2, then sp = 2
+PP_TIMEOUT_S = 360  # the ranks' wall clock, the model draws and every part included
+SP_GEN_LAYERS = 8  # generate_sp's depth at LLaMA-2-7B width: 32 cut to 8 for the time limit
+SP_PROMPT = 2000  # generate_sp's prompt: near 2048, a multiple of the ranks
+SP_NEW = 16
+# generate_sp's witness: the share of K4's codes (the merged attention output) rank 0's ring of one may compute off the
+# handed ones, and how far apart. Set from the card (H100 80GB HBM3, 700 W): a sound run 0.055 / 0.073 of them, 1 / 2 apart (bf16 / int8
+# prompt cache); a merge whose MAX all-reduce is skipped 0.69, 35 apart.
+SP_K4_OFF = 0.2
+SP_K4_APART = 4
+PP_COUNTS = []  # the launch counts of each phase 11 main-path run in this process
+PP_HTTP_REQ = 0  # the index of the http_requests request served over HTTP by the --pp 2 pair
+
+
+def stage_layers(cfg: ModelConfig, mesh) -> range:
+    n = cfg.num_layers // mesh.pp
+    return range(mesh.stage * n, (mesh.stage + 1) * n)
+
+
+def counted(label, path, fn):
+    """``fn()`` with the launch counts zeroed just before and read just after
+    (kept in PP_COUNTS); every kernel of ``path`` must have launched (on
+    the card). Returns (fn's result, seconds)."""
+    sync()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    PP_COUNTS.append(counts)
+    missing = [k for k in PATH_KERNELS[path] if counts[k] == 0]
+    if torch.cuda.is_available() and missing:
+        raise AssertionError(f"{label}: kernels of the path never launched: {missing}")
+    return out, secs
+
+
+def pp_engine_runs(pm, dev, ph4, lead) -> bool:
+    """(a) pp = 2 on phase 4's 32-layer LLaMA-2-7B model, each rank drawing
+    only its 16 layers (the others' draws skipped) and the embedding and
+    head: Engine.generate at B = 4 over phase 4's 32-token prompts (W*Ax
+    prefill), 32 new tokens, over a bf16 cache (tokens equal to phase 4's,
+    the prompts' last logits bit-equal to phase 4's single-device prefill),
+    over an int8 cache (phase 4's int8 tokens) and sampled under phase 6's
+    parameters and seed (phase 6's step-mode tokens)."""
+    cfg, flex = ModelConfig.llama(), QuantPolicy.llama_flex()
+    t0 = time.perf_counter()
+    local = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 2), dev,
+                          keep=stage_layers(cfg, pm))
+    sync()
+    if lead:
+        log(f"pp: stage {pm.stage}'s {len(local['layers'])} of phase 4's {cfg.num_layers} layers drawn and quantized "
+            f"in {time.perf_counter() - t0:.1f}s")
+    p32 = ph4["p32"]
+    eng = Engine(local, cfg, flex, max_seq_len=2048, pp_mesh=pm)
+    eng.generate(p32, max_new_tokens=2, eos_id=-1)  # warm-up
+    logits = eng.prefill_prompts(p32.tolist(), eng.new_cache(len(p32)))[0].cpu()
+    (out, stats), secs = counted("pp engine bf16", "pp 32-token", lambda: eng.generate(
+        p32, max_new_tokens=32, eos_id=-1, return_stats=True))
+    eng8 = Engine(local, cfg, flex, max_seq_len=2048, kv_dtype=torch.int8, pp_mesh=pm)
+    out8, secs8 = counted("pp engine int8", "pp 32-token", lambda: eng8.generate(p32, max_new_tokens=32, eos_id=-1))
+    sampled, secs_s = counted("pp engine sampled", "pp 32-token", lambda: eng.generate(
+        p32, max_new_tokens=32, sampling=SAMPLED, eos_id=-1, seed=1))
+    del eng, eng8, local
+    torch.cuda.empty_cache()
+    bit_equal = torch.equal(logits, ph4["logits32"])
+    ok = bit_equal and out == ph4["out32"] and out8 == ph4["out32_int8"] and sampled == ph4["sampled32"]
+    if lead:
+        ms = sum(stats.step_times_s) / len(stats.step_times_s) * 1e3
+        gap = (logits.float() - ph4["logits32"].float()).abs().max().item()
+        log(f"pp engine pp=2 ({cfg.num_layers} layers, {cfg.num_layers // pm.pp} a rank, B=4, 32-token prompts, 32 "
+            f"new, mode=step, two ranks sharing one card over gloo): ttft_ms={stats.ttft_s * 1e3:.1f} decode_ms_per_step={ms:.2f} ({secs:.1f}s); prompts' "
+            f"last logits bit-equal to phase 4's: {bit_equal} (max |d| {gap:.3g}); tokens equal to phase 4's: "
+            f"{out == ph4['out32']}; int8 cache equal to phase 4's int8 run: {out8 == ph4['out32_int8']} "
+            f"({secs8:.1f}s); sampled (phase 6's parameters, seed 1) equal to phase 6's step run: "
+            f"{sampled == ph4['sampled32']} ({secs_s:.1f}s)")
+    return ok
+
+
+def pp_scheduler_run(pm, dev, ph4, lead) -> bool:
+    """(a) phase 4's 16-request mix through BatchScheduler(pp_mesh=) on the
+    32-layer model (dense bf16 cache, fused_tick=0; every prompt through the
+    W*Ax layer, as the reference's pipeline runs it), held over the decisive
+    steps against phase 4's dense run, whose prompts of 64 tokens and more
+    took the W*A16 prefill."""
+    cfg, flex = ModelConfig.llama(), QuantPolicy.llama_flex()
+    local = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 2), dev,
+                          keep=stage_layers(cfg, pm))
+    reqs = sched_requests(cfg.vocab_size)
+    sched = BatchScheduler(local, cfg, flex, **SCHED, pp_mesh=pm)
+    (got, tap), secs = counted("pp scheduler", "pp scheduler", lambda: run_mix(sched, reqs))
+    ok = all(len(t) == n for t, (_, n) in zip(got, reqs))
+    if lead:
+        want, want_logits = ph4["sched_dense"]
+        n = sum(map(len, got))
+        log(f"pp sched pp=2 dense ({cfg.num_layers} layers, 16 requests, fused_tick=0, W*Ax prompts): {n} tokens in {secs:.1f}s, "
+            f"mean_ms_per_decode_tick={statistics.mean(sched.tick_s) * 1e3:.1f} (two ranks on one card over gloo)")
+        ok = stream_hold("pp sched pp=2 vs phase 4's dense run", want, got, lambda r, i: want_logits[r][i],
+                         lambda r, i: tap.rows[tap.ids[r]][i].cpu()) and ok
+    del sched, local
+    torch.cuda.empty_cache()
+    return ok
+
+
+def pp_opt_parity(pm, dev, lead) -> bool:
+    """(a) OPT-6.7B's widths, 2 layers, opt_flex, pp = 2 (a layer a rank)
+    against one device, both on the card: a 16-token W*Ax prompt, then 2
+    decode steps, B = 2; rank 0 also runs the whole model. The hop passes
+    the hidden state unchanged, so the logits are held equal."""
+    ocfg, opt = ModelConfig.opt(**dict(OPT_67B, num_layers=2)), QuantPolicy.opt_flex()
+    local = random_opt_params(ocfg, opt, torch.Generator(device=dev).manual_seed(SEED + 11), dev,
+                              keep=stage_layers(ocfg, pm))
+    full = random_opt_params(ocfg, opt, torch.Generator(device=dev).manual_seed(SEED + 11), dev) if lead else None
+    b, s = 2, 256
+    cache = shard_cache_pp(pm, *dense_cache(ocfg, b, s, torch.bfloat16, dev))
+    whole = dense_cache(ocfg, b, s, torch.bfloat16, dev) if lead else None
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(0, ocfg.vocab_size, (b, 16)), device=dev)
+    pos, equal, worst = 0, True, 0.0
+    for step in range(3):
+        logits, _ = serve_step_pp(local, ocfg, opt, ids, pm, cache, pos)
+        if lead:
+            want, _ = forward_serve(full, ocfg, opt, ids, kv_k=whole[0], kv_v=whole[1], cache_pos=pos, device=dev,
+                                    positions=pos + torch.arange(ids.shape[1], device=dev).expand(b, -1))
+            equal = equal and torch.equal(logits, want)
+            worst = max(worst, ((logits.float() - want.float()).abs().max() / want.float().abs().max()).item())
+        pos += ids.shape[1]
+        ids = logits[:, -1].argmax(-1)[:, None]
+    if lead:
+        log(f"pp parity OPT opt_flex (2 layers at OPT-6.7B width, pp=2 vs one device, both on the card): 16-token "
+            f"prompt and 2 decode steps, logits equal {equal} (max |dlogit|/max|logit| {worst:.3g})")
+    del local, full
+    return equal
+
+
+def pp_direct_http_run(pm, ckpt):
+    """The direct pp = 2 run the --pp 2 HTTP pair is held to: the packed
+    4-layer checkpoint, each stage its 2 layers, the HTTP CLI's scheduler
+    (8 slots, max_seq_len 2048, dense bf16, fused_tick=0), one request."""
+    cfg, policy, tree = load_packed(ckpt, device="cpu")
+    sched = BatchScheduler(tree, cfg, policy, num_slots=8, max_seq_len=2048, pp_mesh=pm)
+    p, n = http_requests(cfg.vocab_size)[PP_HTTP_REQ]
+    rid = sched.add_request(p, max_new_tokens=n, eos_id=-1)
+    return sched.run()[rid]
+
+
+def sp_slice_parity(sm, dev, lead) -> bool:
+    """(b) sp = 2 at LLaMA-2-7B width, 2 layers, llama_flex: sp_prefill of a
+    128-token prompt (B = 2; the W6A16 GEMMs a projection at a time, ring
+    attention) and 2 sp_decode_steps (the W6Ax layer, the attention merged
+    over the ring) against the single-device forward_serve (the W6A16
+    prefill, then the W6Ax decode over a bf16 cache), both on the card, at
+    phase 3's bounds of max |logit|: the prompt's logits 2e-2, the decode
+    steps after a W6A16 prefill 1e-1 (the prefills' K / V part by bf16
+    ulps: the single-device q / k take K7's RoPE epilogue on the f32
+    accumulator, the sp prefill RoPE on the rounded output, as the
+    reference's sp prefill does; a ulp flips 6-bit codes downstream). Every
+    rank holds the whole model."""
+    cfg, flex = ModelConfig.llama(num_layers=2), QuantPolicy.llama_flex()
+    params = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 12), dev)
+    b, l = 2, 128
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (b, l)), device=dev)
+    logits, pc = sp_prefill(params, cfg, flex, ids, sm)
+    tail = (cfg.num_layers, b, cfg.num_kv_heads, 2, cfg.head_dim)
+    tk, tv = (torch.zeros(tail, dtype=torch.bfloat16, device=dev) for _ in "kv")
+    got = [logits]
+    for t in range(2):
+        tok = got[-1].argmax(-1)[:, None]
+        logits, tk, tv = sp_decode_step(params, cfg, flex, tok, sm, pc, tk, tv, t, l)
+        got.append(logits)
+    if not lead:
+        return True
+    c = dense_cache(cfg, b, 256, torch.bfloat16, dev)
+    want = [forward_serve(params, cfg, flex, ids, kv_k=c[0], kv_v=c[1], cache_pos=0, prefill_bf16=True,
+                          last_only=True, device=dev)[0][:, -1]]
+    for t in range(2):
+        tok = got[t].argmax(-1)[:, None]  # the sp run's tokens, fed to both
+        want.append(forward_serve(params, cfg, flex, tok, kv_k=c[0], kv_v=c[1], cache_pos=l + t, device=dev,
+                                  positions=torch.full((b, 1), l + t, device=dev))[0][:, 0])
+    ok = True
+    for step, (g, w) in enumerate(zip(got, want)):
+        worst = ((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+        agree = int((g.argmax(-1) == w.argmax(-1)).sum())
+        tol = 2e-2 if step == 0 else 1e-1
+        log(f"sp parity llama_flex (2 layers, 7B width, sp=2 vs one device, both on the card), "
+            f"{'128-token prompt' if step == 0 else f'decode step {step}'}: max |dlogit|/max|logit| = {worst:.3g} "
+            f"(tolerance {tol:g}), argmax equal {agree}/{b}")
+        ok = ok and worst <= tol
+    return ok
+
+
+class SpRelay:
+    """generate_sp's code witness: while open, each activation producer that
+    parallel/sp_serve.py calls (the decode layer's K1, K4, K5) keeps its
+    codes and scales in call order; with ``feed`` (such a relay) it hands
+    those on in place of its own, in order, and counts per producer how
+    far its own codes part from them (entries off, entries, most apart).
+    K4's input is the attention output, the one input of a decode layer
+    that the ring's merge computes."""
+
+    NAMES = ("rmsnorm_quant", "quant_act", "glu_quant")
+
+    def __init__(self, feed=None):
+        self.feed, self.calls = feed, []
+        self.off = {n: [0, 0, 0] for n in self.NAMES}
+
+    def __enter__(self):
+        self.saved = {n: getattr(sp_serve, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(sp_serve, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(sp_serve, n, fn)
+
+    def _wrap(self, name, fn):
+        def producer(*args, **kw):
+            out = fn(*args, **kw)
+            if self.feed is None:
+                self.calls.append((name, out[0], out[1]))
+                return out
+            want, q, sc = self.feed.calls[len(self.calls)]
+            if want != name:
+                raise AssertionError(f"sp relay: call {len(self.calls)} is {name}, the relay's {want}")
+            self.calls.append((name, q, sc))
+            d = (out[0].int() - q.int()).abs()
+            off = self.off[name]
+            off[0] += int((d > 0).sum())
+            off[1] += d.numel()
+            off[2] = max(off[2], int(d.max()))
+            return (q, sc) + tuple(out[2:])
+
+        return producer
+
+    def __str__(self):
+        return "; ".join(f"{n} codes {o[0]}/{o[1]} = {o[0] / max(o[1], 1):.3g} off, most {o[2]} apart"
+                         for n, o in self.off.items())
+
+
+def sp_generate_runs(sm, dev, lead) -> bool:
+    """(b) generate_sp at SP_GEN_LAYERS layers of LLaMA-2-7B width, B = 1,
+    a SP_PROMPT-token prompt (SP_PROMPT / 2 rows a rank at the prefill),
+    SP_NEW new tokens, over a bf16 and an int8 prompt cache, held against
+    rank 0's own single-device run of the same path (a ring of one): the
+    prompt's logits within phase 3's 2e-2 of max |logit| (the W*A16
+    prefill: the split, the ring and the f32 sums' order part the two),
+    then its decode steps fed the sp = 2 run's tokens with its activation
+    codes handed on (SpRelay), each step within 2e-2 and its argmax equal,
+    and the one rank's own codes off the handed ones: K1's and K5's none
+    (their inputs follow from handed codes), K4's (the merged attention
+    output over the prompt cache the two prefills wrote, which part by
+    bf16 ulps) within SP_K4_OFF of the entries and SP_K4_APART codes. At 8
+    random layers the two runs' own streams part within a few tokens at
+    near-ties (one bf16 ulp cascades through flipped 6-bit codes, as at
+    tp = 2), which leaves too few decisive steps to hold the streams; those
+    are logged, and so is the single-device Engine over a cache of that
+    dtype (the W6A16 prefill with K7's RoPE epilogue, W6Ax decode)."""
+    cfg, flex = ModelConfig.llama(num_layers=SP_GEN_LAYERS), QuantPolicy.llama_flex()
+    params = random_params(cfg, flex, torch.Generator(device=dev).manual_seed(SEED + 13), dev)
+    prompt = np.random.default_rng(SEED + 13).integers(0, cfg.vocab_size, (1, SP_PROMPT))
+    solo = torch.distributed.new_group([0])  # every rank makes it: rank 0's ring of one
+    ok = True
+    for kvd, name in ((torch.bfloat16, "bf16"), (torch.int8, "int8")):
+        with SpRelay() as relay:
+            (toks, logs), secs = counted(f"sp generate {name}", "sp", lambda: generate_sp(
+                params, cfg, flex, prompt, sm, SP_NEW, return_logits=True, kv_dtype=kvd))
+        if not lead:
+            continue
+        t0 = time.perf_counter()
+        mine = SeqMesh(sp=1, rank=0, device=dev, backend=sm.backend, group=solo)
+        own, own_logs = generate_sp(params, cfg, flex, prompt, mine, SP_NEW, return_logits=True, kv_dtype=kvd)
+        logits, pc = sp_prefill(params, cfg, flex, prompt, mine, kv_dtype=kvd)
+        tail = (cfg.num_layers, 1, cfg.num_kv_heads, SP_NEW, cfg.head_dim)
+        tk, tv = (torch.zeros(tail, dtype=torch.bfloat16, device=dev) for _ in "kv")
+        steps = [logits]
+        with SpRelay(feed=relay) as fed:
+            for t in range(SP_NEW - 1):
+                tok = torch.as_tensor(toks[:, t : t + 1], device=dev)
+                logits, tk, tv = sp_decode_step(params, cfg, flex, tok, mine, pc, tk, tv, t, SP_PROMPT)
+                steps.append(logits)
+        secs1 = time.perf_counter() - t0
+        gaps = [rel_gap(torch.from_numpy(logs[:, i]), st.float().cpu()) for i, st in enumerate(steps)]
+        agree = sum(int(st.argmax(-1).cpu() == torch.from_numpy(logs[:, i]).argmax(-1)) for i, st in enumerate(steps))
+        held = gaps[0] <= 2e-2 and max(gaps[1:]) <= 2e-2 and agree == len(steps)
+        k4 = fed.off["quant_act"]
+        held = (held and all(fed.off[n][0] == 0 for n in ("rmsnorm_quant", "glu_quant"))
+                and k4[0] <= SP_K4_OFF * k4[1] and k4[2] <= SP_K4_APART)
+        one = Engine(params, cfg, flex, max_seq_len=2048, kv_dtype=kvd)
+        with LogitTap(one) as tap:
+            want, stats = one.generate(prompt, max_new_tokens=SP_NEW, eos_id=-1, mode="step", return_stats=True)
+        del one
+        log(f"sp generate_sp sp=2 ({cfg.num_layers} layers, 7B width, B=1, {SP_PROMPT}-token prompt, {SP_NEW} new, "
+            f"{name} prompt cache, two ranks sharing one card over gloo): {secs:.1f}s, "
+            f"{secs / SP_NEW * 1e3:.1f} ms a token with the prefill; rank 0's ring of one {secs1:.1f}s for its run and "
+            f"the witness; the single-device Engine's ttft_ms={stats.ttft_s * 1e3:.1f} decode_ms_per_step="
+            f"{sum(stats.step_times_s) / len(stats.step_times_s) * 1e3:.2f}")
+        log(f"sp witness generate {name} (sp=2 vs rank 0's ring of one): the prompt's logits {gaps[0]:.3g} of max "
+            f"|logit| (tolerance 2e-2); the decode steps with sp=2's tokens and codes handed on: most "
+            f"{max(gaps[1:]):.3g} (tolerance 2e-2), argmax equal {agree}/{len(steps)}; the one rank's own codes off "
+            f"the handed ones (K1, K5 held at none; K4 at most {SP_K4_OFF:g} of the entries, {SP_K4_APART} codes "
+            f"apart): {fed}")
+        got_at = lambda r, i: torch.from_numpy(logs[r, i])  # noqa: E731
+        stream_hold(f"sp generate {name} sp=2 vs rank 0's ring of one, free-running (logged)", own.tolist(),
+                    toks.tolist(), lambda r, i: torch.from_numpy(own_logs[r, i]), got_at)
+        stream_hold(f"sp generate {name} sp=2 vs the single-device Engine (logged)", want, toks.tolist(),
+                    lambda r, i: tap.at(r, i).float().cpu(), got_at)
+        ok = ok and held
+    return ok
+
+
+def sp_forward_parity(sm, dev, lead) -> bool:
+    """(b) forward_sp, the dense f32 forward with the sequence split over
+    the ring, on the 2-layer model at 7B width (512 tokens, B = 1) against
+    the dense forward, both on the card, within 1e-3 of max |logit|."""
+    cfg = ModelConfig.llama(num_layers=2)
+    dense = random_weights(cfg, torch.Generator(device=dev).manual_seed(SEED + 14), dev)
+    ids = torch.as_tensor(np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, 512)), device=dev)
+    got = forward_sp(dense, cfg, ids, sm)
+    if not lead:
+        return True
+    want = dense_forward(dense, cfg, ids)
+    worst = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"sp forward_sp (2 dense f32 layers at 7B width, 512 tokens, sp=2 vs the dense forward, TF32 off): "
+        f"max |dlogit|/max|logit| = {worst:.3g} (tolerance 1e-3), argmax equal "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())}/512")
+    return worst <= 1e-3
+
+
+def pp_rank(rank: int, workdir: str) -> None:
+    """One rank of phase 11 (``chip_smoke.py --pp-rank r workdir``): a gloo
+    world of PP_RANKS processes on the one card, first a pipeline (pp = 2),
+    then a sequence ring (sp = 2) over the same world. Writes its holds,
+    seconds, peak memory and main-path launch counts to
+    workdir/rank{r}.json, and rank 0 the direct run of the HTTP request."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = initialize(f"file://{os.path.join(workdir, 'store')}", PP_RANKS, rank, backend="gloo", device="cuda",
+                     timeout_s=PP_TIMEOUT_S)
+    lead = rank == 0
+    ph4 = torch.load(os.path.join(workdir, "phase4.pt"), weights_only=False)
+    res = {"holds": {}, "seconds": {}}
+    pm = make_pipe_mesh(PP_RANKS)
+    sm = make_sp_mesh(PP_RANKS)
+    parts = (("pp engine", lambda: pp_engine_runs(pm, dev, ph4, lead)),
+             ("pp scheduler", lambda: pp_scheduler_run(pm, dev, ph4, lead)),
+             ("pp OPT parity", lambda: pp_opt_parity(pm, dev, lead)),
+             ("sp parity", lambda: sp_slice_parity(sm, dev, lead)),
+             ("sp generate", lambda: sp_generate_runs(sm, dev, lead)),
+             ("sp forward", lambda: sp_forward_parity(sm, dev, lead)))
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        res["holds"][name] = fn()
+        res["seconds"][name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    res["http_direct"] = pp_direct_http_run(pm, os.path.join(workdir, "ckpt"))
+    totals = {k: 0 for k in KERNELS}
+    for c in PP_COUNTS:
+        for k, v in c.items():
+            totals[k] += v
+    res["counts"] = totals
+    res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    shutdown()
+
+
+def pp_http(workdir, want) -> bool:
+    """(a) ``python -m flexq_tpu_torch.serve.http --pp 2`` over the packed
+    4-layer checkpoint, a leader and a follower process on the one card
+    (gloo, a file:// rendezvous): one completion, equal to the ranks'
+    direct pp = 2 run; SIGINT to the leader stops both."""
+    ckpt = os.path.join(workdir, "ckpt")
+    p, n = http_requests(ModelConfig.llama().vocab_size)[PP_HTTP_REQ]  # the HF directory's vocabulary
+    args = ["-m", "flexq_tpu_torch.serve.http", "--checkpoint", ckpt, "--pp", str(PP_RANKS), "--backend", "gloo",
+            "--coordinator", f"file://{os.path.join(workdir, 'http_store')}", "--num-processes", str(PP_RANKS),
+            "--replication-port", "0", "--slots", "8", "--max-seq-len", "2048", "--host", "127.0.0.1", "--port", "0"]
+    t0 = time.perf_counter()
+    with Proc(args + ["--process-id", "0"]) as lead, Proc(args + ["--process-id", "1"]) as follower:
+        line = lead.wait_for("serving on", 300)
+        port = int(line.split(":")[1].split()[0])
+        t1 = time.perf_counter()
+        got = http_post(port, "/v1/completions", {"prompt": p, "max_tokens": n, "temperature": 0,
+                                                  "eos_id": -1})["choices"][0]["token_ids"]
+        t_req = time.perf_counter() - t1
+        lead.p.send_signal(signal.SIGINT)
+        rcs = [lead.p.wait(120), follower.p.wait(120)]
+    log(f"pp http --pp 2 (4-layer 7B-width packed checkpoint, leader and follower on one card over gloo): started "
+        f"in {t1 - t0:.1f}s, one {len(p)}-token completion of {n} tokens in {t_req:.2f}s, equal to the direct pp = 2 "
+        f"run: {got == want}; exit codes after SIGINT {rcs}")
+    return got == want and rcs == [0, 0]
+
+
+def pipeline_and_sequence(dev, workdir):
+    """Phase 11: phase 10's 4-layer HF directory exported (tp = 1) by the
+    exporter's CLI, phase 4's prompts, tokens and logits written for the
+    ranks, PP_RANKS child processes (pp_rank) on the one card, then the
+    --pp 2 HTTP pair. Returns the ranks' main-path launch counts, summed."""
+    t_phase = time.perf_counter()
+    pdir = os.path.join(workdir, "pp")
+    os.makedirs(pdir)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "flexq_tpu_torch.export.exporter", "--model-dir",
+                    os.path.join(workdir, "hf"), "--out", os.path.join(pdir, "ckpt")], check=True,
+                   capture_output=True, text=True, timeout=300, cwd=os.path.dirname(os.path.abspath(__file__)))
+    log(f"pp exporter (tp = 1): {time.perf_counter() - t0:.1f}s")
+    torch.save(PHASE4, os.path.join(pdir, "phase4.pt"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks("--pp-rank", PP_RANKS, pdir, PP_TIMEOUT_S, "phase 11")
+    totals = {}
+    for r, res in enumerate(ranks):
+        for k, v in res["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"phase 11 rank {r}: seconds " + " ".join(f"{k}={v:.1f}" for k, v in res["seconds"].items())
+            + f"; peak_gib={res['peak_gib']:.2f}; holds {res['holds']}")
+    log(f"phase 11 two gloo ranks on one card: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    http_ok = pp_http(pdir, ranks[0]["http_direct"])
+    log(f"phase 11 --pp 2 HTTP pair: {time.perf_counter() - t0:.1f}s")
+    log(f"phase 11 launches: " + " ".join(f"{k}={v}" for k, v in totals.items() if v))
+    log(f"phase 11 pipeline and sequence parallelism: {time.perf_counter() - t_phase:.1f}s")
+    if not http_ok or not all(all(res["holds"].values()) for res in ranks):
+        raise AssertionError("phase 11: a hold failed (see the pp and sp lines)")
+    return totals
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--tp-rank":  # one rank of phase 10 (a), started by tp_children
         tp_rank(int(sys.argv[2]), sys.argv[3])
+        return 0
+    if len(sys.argv) == 4 and sys.argv[1] == "--pp-rank":  # one rank of phase 11, started by pipeline_and_sequence
+        pp_rank(int(sys.argv[2]), sys.argv[3])
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
@@ -4390,8 +4966,11 @@ def main() -> int:
             counts[k] += v
     for k, v in train_and_gate(dev).items():  # phase 9, after phase 8 has freed its models
         counts[k] += v
-    for k, v in tensor_parallel(dev, torch.Generator(device=dev).manual_seed(SEED + 10)).items():  # phase 10
-        counts[k] += v
+    with tempfile.TemporaryDirectory(prefix="flexq_par_") as workdir:
+        for k, v in tensor_parallel(dev, torch.Generator(device=dev).manual_seed(SEED + 10), workdir).items():
+            counts[k] += v  # phase 10
+        for k, v in pipeline_and_sequence(dev, workdir).items():  # phase 11, on phase 10's HF directory
+            counts[k] += v
     log(f"whole script after the build {time.perf_counter() - t_start:.1f}s")
     missing = [n for n, c in counts.items() if c == 0]
     if missing:

@@ -690,17 +690,8 @@ def forward_serve(
     (``params`` its local shard, ``cfg`` the local head and FFN counts, the
     cache its local kv heads), which parallel/tp.py::forward_serve_tp
     drives."""
-    require_servable(policy)
     dev = resolve_device(device)
-    is_opt = cfg.arch == "opt"
-    if is_opt and not cfg.do_layer_norm_before:
-        # the reference's serve layers apply pre-LN whatever the flag says,
-        # so they serve OPT-350m unlike its own model; the port refuses it
-        raise ValueError("post-LN OPT (do_layer_norm_before=False) is not served: the serve layers are pre-LN")
-    if policy.no_act_quant and not is_opt:
-        # W*A16: activations stay unquantized at decode too (an int8
-        # container cannot hold them), so every step takes the W6A16 layer
-        prefill_bf16 = True
+    prefill_bf16 = layer_choice(cfg, policy, prefill_bf16)
     quant_cache = kv_k_scale is not None
     if quant_cache != (kv_v_scale is not None):
         raise ValueError("the int8 cache needs both kv_k_scale and kv_v_scale")
@@ -717,15 +708,54 @@ def forward_serve(
     b, l = ids.shape
     if page_table is not None and l != 1:
         raise ValueError("the paged cache is decode-only (L == 1); prefill fills pages from a dense scratch")
-    x = params["embed"][ids]
-    if cfg.embed_scale is not None:
-        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     if positions is None:
         positions = torch.arange(l, device=dev).expand(b, l)
     positions = torch.as_tensor(positions, device=dev)
-    if is_opt:  # learned positions, per row where the rows are ragged; no RoPE
+    x = embed_ids(params, cfg, ids, positions)
+    ctx = step_context(cfg, positions, have_cache, cache_pos, dev)
+    cache = (kv_k, kv_v, kv_k_scale, kv_v_scale) if have_cache else None
+    x = run_layers(params["layers"], cfg, policy, x, ctx, cache, page_table, prefill_bf16, tp_group)
+    logits = final_logits(params, cfg, policy, x, last_only, tp_group)
+    if not have_cache:
+        return logits, None
+    return logits, ((kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v))
+
+
+def layer_choice(cfg: ModelConfig, policy: QuantPolicy, prefill_bf16: bool) -> bool:
+    """Refuse what the serve layers do not serve, and return whether a
+    LLaMA step takes the W*A16 layer: when asked (``prefill_bf16``) and
+    always under a no-act-quant policy."""
+    require_servable(policy)
+    is_opt = cfg.arch == "opt"
+    if is_opt and not cfg.do_layer_norm_before:
+        # the reference's serve layers apply pre-LN whatever the flag says,
+        # so they serve OPT-350m unlike its own model; the port refuses it
+        raise ValueError("post-LN OPT (do_layer_norm_before=False) is not served: the serve layers are pre-LN")
+    # W*A16: activations stay unquantized at decode too (an int8 container
+    # cannot hold them), so every step takes the W6A16 layer
+    return prefill_bf16 or (policy.no_act_quant and not is_opt)
+
+
+def embed_ids(params: Dict[str, Any], cfg: ModelConfig, ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """The first stage of the serve forward: the token embedding [B, L, H]
+    (Gemma's ``embed_scale``; OPT's learned positions, per row where the
+    rows are ragged)."""
+    x = params["embed"][ids]
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    if cfg.arch == "opt":
         x = x + params["pos_embed"][positions + POS_OFFSET]
-    else:
+    return x
+
+
+def step_context(cfg: ModelConfig, positions: torch.Tensor, have_cache: bool, cache_pos, dev):
+    """What every layer of a step reads besides its input: (cos, sin) of
+    RoPE (None for OPT), the causal mask of a cache-less forward, the
+    per-row lengths over a cache and ``cache_pos`` as the layers take it
+    (an int, or an int64 tensor [B])."""
+    b, l = positions.shape
+    cos = sin = None
+    if cfg.arch != "opt":
         cos, sin = rope_for_cfg(positions, cfg)
     mask = lengths = None
     if not have_cache:
@@ -736,23 +766,37 @@ def forward_serve(
     else:
         cache_pos = 0 if cache_pos is None else int(cache_pos)
         lengths = torch.full((b,), cache_pos + l, dtype=torch.int32, device=dev)
-    for i, lp in enumerate(params["layers"]):
-        kv = (kv_k, kv_v, kv_k_scale, kv_v_scale, i, page_table) if have_cache else None
-        if is_opt:
-            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths, mask=mask, group=tp_group)
+    return cos, sin, mask, lengths, cache_pos
+
+
+def run_layers(layers, cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor, ctx, cache, page_table,
+               prefill_bf16: bool, group=None) -> torch.Tensor:
+    """``layers`` in order over ``x`` [B, L, H]: OPT's, the W*A16 prefill
+    layer or the W*Ax layer. ``ctx`` is ``step_context``'s; ``cache`` the
+    (k, v, k_scale, v_scale) buffers whose layer i is ``layers[i]``'s (a
+    pipeline stage's local cache), or None."""
+    cos, sin, mask, lengths, cache_pos = ctx
+    for i, lp in enumerate(layers):
+        kv = None if cache is None else (*cache, i, page_table)
+        if cfg.arch == "opt":
+            x = opt_layer_serve(lp, cfg, policy, x, kv, cache_pos, lengths, mask=mask, group=group)
         elif prefill_bf16:
             x = llama_layer_serve_prefill(lp, cfg, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
-                                          mask=mask, group=tp_group)
+                                          mask=mask, group=group)
         else:
             x = llama_layer_serve(lp, cfg, policy, x, cos, sin, kv, cache_pos, lengths, window=cfg.sliding_window,
-                                  mask=mask, group=tp_group)
-    if not is_opt:
+                                  mask=mask, group=group)
+    return x
+
+
+def final_logits(params: Dict[str, Any], cfg: ModelConfig, policy: QuantPolicy, x: torch.Tensor, last_only: bool,
+                 group=None) -> torch.Tensor:
+    """The last stage of the serve forward: the final norm, the last
+    position only with ``last_only``, and the lm_head."""
+    if cfg.arch != "opt":
         x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     elif "final_norm" in params:
         x = layernorm(x, params["final_norm"]["g"], params["final_norm"]["b"], cfg.norm_eps)
     if last_only:
         x = x[:, -1:]
-    logits = apply_lm_head(params, cfg, policy, x, tp_group)
-    if not have_cache:
-        return logits, None
-    return logits, ((kv_k, kv_v, kv_k_scale, kv_v_scale) if quant_cache else (kv_k, kv_v))
+    return apply_lm_head(params, cfg, policy, x, group)

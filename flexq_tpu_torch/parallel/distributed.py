@@ -138,6 +138,21 @@ class Mesh:
         return slice(self.data_index * n, (self.data_index + 1) * n)
 
 
+def resolve_rank_device(device=None) -> torch.device:
+    """``device``, or the device ``initialize`` gave this rank."""
+    dev = resolve_device(device) if device is not None else _DEVICE
+    if dev is None:
+        raise ValueError("no device: pass device= or call initialize()")
+    return dev
+
+
+def host_staged(mesh) -> bool:
+    """Whether a mesh's point-to-point transfers go through a host copy:
+    gloo's send / recv take CPU tensors only (its collectives take CUDA
+    tensors, moving them through the host themselves)."""
+    return mesh.backend == "gloo" and mesh.device.type == "cuda"
+
+
 def process_mesh(tp: int, dp: int = 1, device=None) -> Mesh:
     """The (data, model) grid over the initialized world of tp * dp ranks:
     rank r at model index r % tp, data index r // tp. Every rank calls it
@@ -148,9 +163,7 @@ def process_mesh(tp: int, dp: int = 1, device=None) -> Mesh:
     if tp * dp != world:
         raise ValueError(f"tp * dp = {tp * dp} != world size {world}")
     rank = dist.get_rank()
-    dev = resolve_device(device) if device is not None else _DEVICE
-    if dev is None:
-        raise ValueError("no device: pass device= or call initialize()")
+    dev = resolve_rank_device(device)
     if world == 1:
         model_group = data_group = dist.group.WORLD
     else:

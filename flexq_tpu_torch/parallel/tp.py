@@ -32,6 +32,7 @@ import torch
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.models.quantized import _padded_width, all_gather_cat, forward_serve
 from flexq_tpu_torch.parallel.distributed import Mesh, process_mesh
+from flexq_tpu_torch.parallel.pp import PipeMesh, serve_step_pp
 
 COL_LINEARS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "fc1")
 ROW_LINEARS = ("o_proj", "down_proj", "fc2")
@@ -186,15 +187,17 @@ def forward_serve_tp(
     each data rank runs its B/dp rows against its B/dp cache rows and the
     logits are gathered over the data group; otherwise (a B = 1 admission
     prefill) every data rank runs all B rows over a cache of B rows, as the
-    reference runs such a batch data-replicated. Returns (logits [B, L, V]
-    on every rank, the local cache state or None)."""
+    reference runs such a batch data-replicated. A page table at dp > 1 is
+    the localized one (``PagePool.localize``) over this rank's partition
+    of the pool: each data rank reads its rows of it. Returns (logits
+    [B, L, V] on every rank, the local cache state or None)."""
     refuse_fused(params)
     ids = torch.as_tensor(ids, device=mesh.device)
     b = ids.shape[0]
     rows = mesh.rows(b)
     split = rows != slice(0, b)
     if split and page_table is not None:
-        raise NotImplementedError("a paged pool under dp > 1 needs PagePool(partitions > 1), a later slice")
+        page_table = torch.as_tensor(page_table, device=mesh.device)
 
     def local(x, batch_major):
         return x[rows] if split and batch_major and isinstance(x, torch.Tensor) and x.dim() > 0 else x
@@ -205,18 +208,25 @@ def forward_serve_tp(
         params, cfg, policy, local(ids, True), mesh,
         positions=None if positions is None else local(positions, positions.dim() == 2 and positions.shape[0] == b),
         kv_k=kv_k, kv_v=kv_v, cache_pos=local(cache_pos, True), prefill_bf16=prefill_bf16,
-        kv_k_scale=kv_k_scale, kv_v_scale=kv_v_scale, page_table=page_table, last_only=last_only,
+        kv_k_scale=kv_k_scale, kv_v_scale=kv_v_scale, page_table=local(page_table, True), last_only=last_only,
     )
     if split:
         logits = all_gather_cat(logits, mesh.data_group, 0)
     return logits, cache
 
 
-def cache_forward(params, cfg: ModelConfig, policy: QuantPolicy, mesh: Optional[Mesh], device, ids, cache,
-                  positions, cache_pos, **kw):
+def cache_forward(params, cfg: ModelConfig, policy: QuantPolicy, mesh, device, ids, cache, positions, cache_pos,
+                  **kw):
     """The serving loops' forward over a cache tuple (k, v[, k_scale,
     v_scale]): ``forward_serve`` on one device, ``forward_serve_tp`` under a
-    mesh."""
+    (data, model) mesh, ``serve_step_pp`` under a pipeline (a dense cache;
+    it takes no ``prefill_bf16``: pipelined prompts run the W*Ax layer, as
+    in the reference)."""
+    if isinstance(mesh, PipeMesh):
+        if kw.get("page_table") is not None:
+            raise ValueError("the pipeline serves a dense cache")
+        return serve_step_pp(params, cfg, policy, ids, mesh, cache, cache_pos, last_only=kw.get("last_only", False),
+                             positions=positions)
     scales = dict(zip(("kv_k_scale", "kv_v_scale"), cache[2:]))
     if mesh is not None:
         return forward_serve_tp(params, cfg, policy, ids, mesh, positions=positions, kv_k=cache[0], kv_v=cache[1],

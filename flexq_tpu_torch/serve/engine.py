@@ -41,7 +41,15 @@ decoding and beam search take dp = 1. The fused loop's step graph holds
 the step's NCCL collectives; a gloo mesh on the card has no capturable
 collectives and refuses ``mode="fused"`` (``mode="step"`` serves it). The
 model is a LLaMA or a pre-LN OPT: ``forward_serve`` chooses its layers.
-Pipeline parallelism (``pp_mesh``) is a later slice.
+
+Under a ``pp_mesh`` (parallel/pp.py: one process per stage, every rank
+calling ``generate`` with the same arguments) prefill, chunked prefill and
+decode all run through parallel/pp.py::serve_step_pp over this stage's
+layers and its cache of [L/pp, B, KVH, S, D]; ``mode`` becomes "step" and
+``mode="spec"`` is refused, as in the reference. Prompts run the W*Ax layer
+whatever their length (the reference's pipeline takes no W*A16 prefill),
+and every rank draws from the last stage's broadcast logits with its seeded
+generator.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ import torch
 
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
+from flexq_tpu_torch.parallel.pp import stage_params
 from flexq_tpu_torch.parallel.tp import cache_forward, is_sharded, shard_params
 from flexq_tpu_torch.serve.graphs import StepGraph
 from flexq_tpu_torch.serve.sampling import SamplingParams, process_logits, sample
@@ -86,10 +95,14 @@ class Engine:
         device="cuda",
     ):
         require_servable(policy)
-        if pp_mesh is not None:
-            raise NotImplementedError("pipeline-parallel serving (pp_mesh) is a later slice (parallel/pp.py)")
+        if pp_mesh is not None and mesh is not None:
+            raise ValueError("pp_mesh and mesh are exclusive (as in the reference)")
         self.mesh = mesh
-        if mesh is not None:
+        self.pp_mesh = pp_mesh
+        if pp_mesh is not None:
+            self.device = pp_mesh.device
+            params = stage_params(params, cfg, pp_mesh)
+        elif mesh is not None:
             self.device = mesh.device
             if not is_sharded(params, cfg, mesh.tp):
                 params = shard_params(params, mesh)
@@ -115,10 +128,11 @@ class Engine:
         self._fused: Dict[Any, Tuple["_Decoding", StepGraph]] = {}
 
     def _kv_shape(self, batch: int) -> Tuple[int, ...]:
-        """[L, B, KVH, S, D]; under a mesh this rank's [L, B/dp, KVH/tp, S, D]."""
+        """[L, B, KVH, S, D]; under a mesh this rank's [L, B/dp, KVH/tp, S, D],
+        under a pipeline this stage's [L/pp, B, KVH, S, D]."""
         c, m = self.cfg, self.mesh
         if m is None:
-            return (c.num_layers, batch, c.num_kv_heads, self.max_seq_len, c.head_dim)
+            return (len(self.params["layers"]), batch, c.num_kv_heads, self.max_seq_len, c.head_dim)
         rows = m.rows(batch)
         return (c.num_layers, rows.stop - rows.start, c.num_kv_heads // m.tp, self.max_seq_len, c.head_dim)
 
@@ -135,8 +149,8 @@ class Engine:
         return cache
 
     def _fwd(self, ids, cache, positions, cache_pos, prefill_bf16: bool = False, last_only: bool = False):
-        return cache_forward(self.params, self.cfg, self.policy, self.mesh, self.device, ids, cache, positions,
-                             cache_pos, prefill_bf16=prefill_bf16, last_only=last_only)
+        return cache_forward(self.params, self.cfg, self.policy, self.mesh or self.pp_mesh, self.device, ids, cache,
+                             positions, cache_pos, prefill_bf16=prefill_bf16, last_only=last_only)
 
     def _prefill(self, ids, cache, prompt_len: int):
         b, l = ids.shape
@@ -348,6 +362,10 @@ class Engine:
         counts of the penalties start from the prompt's tokens; counts and
         lengths advance for finished rows too, as in the reference. ``seed``
         seeds the draws of non-greedy sampling."""
+        if self.pp_mesh is not None:
+            if mode == "spec":
+                raise ValueError('mode="spec" is not served under a pipeline (as in the reference)')
+            mode = "step"  # a step's latency is the stage hops, not the host's dispatch
         m = self.mesh
         if m is not None:
             if len(prompt_ids) % m.dp:

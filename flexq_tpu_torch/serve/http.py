@@ -48,6 +48,16 @@ captured in the step graph):
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 --port 8000 &
     python -m flexq_tpu_torch.serve.http --checkpoint ckpt_tp2 --tp 2 --backend gloo --fused-tick 0 \\
         --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
+
+Pipeline parallel (--pp N, exclusive with --tp / --dp): one process per
+stage, the same flags; each stage reads the whole packed checkpoint on the
+host and keeps its L/N layers; a dense cache, and --fused-tick forced to 0
+(as in the reference):
+
+    python -m flexq_tpu_torch.serve.http --checkpoint ckpt --pp 2 --backend gloo \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 0 --port 8000 &
+    python -m flexq_tpu_torch.serve.http --checkpoint ckpt --pp 2 --backend gloo \\
+        --coordinator 127.0.0.1:29500 --num-processes 2 --process-id 1
 """
 
 from __future__ import annotations
@@ -938,8 +948,11 @@ def main(argv=None):
     # mpirun ranks); rank 0 serves HTTP and replicates the scheduler's
     # command log to the others (serve/replicated.py)
     ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ways (one process per rank)")
-    ap.add_argument("--dp", type=int, default=1, help="data-parallel ways (a dense cache; --paged takes dp = 1)")
-    ap.add_argument("--pp", type=int, default=1, help="pipeline-parallel stages (a later slice: only 1)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ways (--paged: one pool partition a data rank; --prefix-cache takes dp = 1)")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline-parallel stages (one process per stage; exclusive with --tp / --dp; a dense "
+                         "cache and per-token ticks)")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of rank 0's torch.distributed rendezvous (or a file:// store); over several "
                          "nodes, set LOCAL_WORLD_SIZE to the ranks of each node")
@@ -954,31 +967,41 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="the card (cuda), or cpu for the plain versions")
     args = ap.parse_args(argv)
     # refused before anything loads
-    if args.pp > 1:
-        ap.error(f"--pp {args.pp}: pipeline-parallel serving is a later slice of the port")
     if args.fused_tick < 0:
         ap.error(f"--fused-tick {args.fused_tick}: must be >= 0")
-    world = args.num_processes or args.tp * args.dp
-    if world != args.tp * args.dp:
-        ap.error(f"--num-processes {world} != --tp {args.tp} x --dp {args.dp}")
+    if args.pp > 1:
+        if args.tp * args.dp > 1:
+            ap.error("--pp is exclusive with --tp / --dp")
+        if args.paged or args.prefix_cache:
+            ap.error("--pp serves a dense cache (no --paged / --prefix-cache), as the reference's")
+        args.fused_tick = 0  # the pipeline's ticks are per token, as the reference's
+    ranks = args.tp * args.dp * args.pp
+    world = args.num_processes or ranks
+    if world != ranks:
+        ap.error(f"--num-processes {world} != --tp {args.tp} x --dp {args.dp} x --pp {args.pp}")
     if world > 1 and (args.coordinator is None or args.process_id is None):
-        ap.error("--tp / --dp > 1: one process per rank, each given --coordinator and --process-id")
+        ap.error("--tp / --dp / --pp > 1: one process per rank, each given --coordinator and --process-id")
     tp_ckpt = read_meta(args.checkpoint).get("tensor_parallel", 1)
     if tp_ckpt not in (1, args.tp):
         ap.error(f"the checkpoint is tp={tp_ckpt}-sharded: serve it with --tp {tp_ckpt}")
 
-    mesh = None
+    mesh = pp_mesh = None
     device = args.device
     if args.coordinator is not None:
         from flexq_tpu_torch.parallel.distributed import initialize, process_mesh
+        from flexq_tpu_torch.parallel.pp import make_pipe_mesh
 
         initialize(args.coordinator, world, args.process_id or 0, backend=args.backend, device=args.device)
-        mesh = process_mesh(args.tp, args.dp)
-        device = mesh.device
+        if args.pp > 1:
+            pp_mesh = make_pipe_mesh(args.pp)
+            device = pp_mesh.device
+        else:
+            mesh = process_mesh(args.tp, args.dp)
+            device = mesh.device
     if mesh is not None and tp_ckpt > 1:  # each rank reads its rank files only
         cfg, policy, params = load_packed_sharded(args.checkpoint, mesh)
-    else:
-        cfg, policy, params = load_packed(args.checkpoint, device=device)
+    else:  # a stage reads the whole tree on the host and keeps its layers
+        cfg, policy, params = load_packed(args.checkpoint, device="cpu" if pp_mesh is not None else device)
     sched = BatchScheduler(
         params,
         cfg,
@@ -992,17 +1015,19 @@ def main(argv=None):
         prefix_cache=args.prefix_cache,
         fused_tick=args.fused_tick,
         mesh=mesh,
+        pp_mesh=pp_mesh,
         device=device,
     )
-    if mesh is not None and world > 1:
+    rank_mesh = mesh or pp_mesh
+    if rank_mesh is not None and world > 1:
         from flexq_tpu_torch.parallel.distributed import shutdown as leave
         from flexq_tpu_torch.serve.replicated import ReplicatedScheduler
 
-        if mesh.rank > 0:  # rank 0's host: the rendezvous's, or this machine's for a file:// store
+        if rank_mesh.rank > 0:  # rank 0's host: the rendezvous's, or this machine's for a file:// store
             host = "127.0.0.1" if args.coordinator.startswith("file://") else \
                 args.coordinator.split("://")[-1].rsplit(":", 1)[0]
             port = _share_port()
-            print(f"rank {mesh.rank} following {host}:{port}", flush=True)
+            print(f"rank {rank_mesh.rank} following {host}:{port}", flush=True)
             ReplicatedScheduler(sched, leader=False, leader_addr=(host, port)).serve_forever()
             leave()
             return
@@ -1021,7 +1046,7 @@ def main(argv=None):
     except KeyboardInterrupt:
         service.shutdown()
         server.shutdown()
-        if mesh is not None and world > 1:
+        if rank_mesh is not None and world > 1:
             sched.shutdown()  # the followers return from serve_forever
             leave()
 

@@ -9,13 +9,14 @@ flash_decode_paged): no gathered copy of the cache is made.
 
 The reference's pool is immutable and updated by jitted donated scatters;
 here the pool tensors are written in place, one indexed copy per buffer.
-Data-parallel pool partitions are a later slice (``partitions`` must be 1).
+Under data parallelism the pool splits into partitions, one a data rank
+(``PagePool(partitions=dp, partition=d)``).
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,19 +27,34 @@ from flexq_tpu_torch.kernels.common import resolve_device
 class PagePool:
     """Fixed pool of KV pages and its free-list allocator (the same order
     of ids as the reference: ``alloc`` hands out the lowest free id first
-    on a fresh pool, and freed pages are reused last-in first-out)."""
+    on a fresh pool, and freed pages are reused last-in first-out).
+
+    ``partitions`` > 1 splits the page space into data-parallel shards:
+    partition d owns the global ids [d·P/dp, (d+1)·P/dp) and allocates only
+    from them. The allocator's bookkeeping (global ids) is the same on
+    every rank, as the scheduler's is; a page table goes to the device
+    localized (``localize``: global % P/dp, so unmapped entries land on each
+    partition's own garbage page, its local page 0). With ``partition``
+    (one process per data rank) the device buffers hold only that
+    partition's P/dp pages, and the copies into and out of them take global
+    ids of that partition; without it they hold all P pages, as the
+    reference's one process does."""
 
     def __init__(self, num_layers: int, num_pages: int, kv_heads: int, page_size: int, head_dim: int,
-                 dtype=torch.bfloat16, partitions: int = 1, device="cuda"):
-        if partitions != 1:
-            raise NotImplementedError("data-parallel pool partitions (PagePool(partitions > 1), a paged pool under "
-                                      "dp > 1) are a later slice")
+                 dtype=torch.bfloat16, partitions: int = 1, device="cuda", partition: Optional[int] = None):
         if page_size % 128:
             raise ValueError(f"page size {page_size} must be a multiple of 128")
+        if partitions < 1 or num_pages % partitions:
+            raise ValueError(f"{num_pages} pages do not split into {partitions} equal partitions")
+        if partition is not None and not 0 <= partition < partitions:
+            raise ValueError(f"partition {partition} of {partitions}")
         device = resolve_device(device)  # the card unless the caller asks for the CPU, as the Engine's
-        shape = (num_layers, num_pages, kv_heads, page_size, head_dim)
         self.page_size = page_size
         self.num_pages = num_pages
+        self.partitions = partitions
+        self.pages_per_partition = ppp = num_pages // partitions
+        self.partition = partition
+        shape = (num_layers, num_pages if partition is None else ppp, kv_heads, page_size, head_dim)
         self.quantized = dtype == torch.int8
         self.pool_k = torch.zeros(shape, dtype=dtype, device=device)
         self.pool_v = torch.zeros(shape, dtype=dtype, device=device)
@@ -47,19 +63,40 @@ class PagePool:
             self.scale_v = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
         else:
             self.scale_k = self.scale_v = None
-        self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._free: List[List[int]] = [list(range((d + 1) * ppp - 1, d * ppp - 1, -1)) for d in range(partitions)]
 
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._free)
 
-    def alloc(self, n: int = 1) -> List[int]:
-        if len(self._free) < n:
-            raise MemoryError(f"page pool exhausted ({n} wanted, {len(self._free)} free)")
-        return [self._free.pop() for _ in range(n)]
+    def free_in(self, part: int) -> int:
+        return len(self._free[part])
+
+    def alloc(self, n: int = 1, part: int = 0) -> List[int]:
+        """n pages of partition ``part`` (global ids)."""
+        free = self._free[part]
+        if len(free) < n:
+            raise MemoryError(f"page pool exhausted ({n} wanted, {len(free)} free in partition {part})")
+        return [free.pop() for _ in range(n)]
 
     def free(self, pages) -> None:
-        self._free.extend(int(p) for p in pages)
+        for p in pages:
+            self._free[int(p) // self.pages_per_partition].append(int(p))
+
+    def localize(self, table: np.ndarray) -> np.ndarray:
+        """A table of global page ids as each partition's device pool reads
+        it (the identity for one partition)."""
+        return table if self.partitions == 1 else table % self.pages_per_partition
+
+    def _index(self, pages) -> torch.Tensor:
+        """Global page ids as indices into the device buffers."""
+        pages = [int(p) for p in pages]
+        if self.partition is not None:
+            lo = self.partition * self.pages_per_partition
+            if any(not lo <= p < lo + self.pages_per_partition for p in pages):
+                raise ValueError(f"pages {pages} are not all in partition {self.partition}, the one this pool holds")
+            pages = [p - lo for p in pages]
+        return torch.as_tensor(pages, dtype=torch.int64, device=self.pool_k.device)
 
     def pages_for(self, num_tokens: int) -> int:
         return -(-max(num_tokens, 1) // self.page_size)
@@ -75,7 +112,7 @@ class PagePool:
         page past ``plen`` are copied too: they are never attended, and
         decode overwrites them."""
         n, ps = len(pages), self.page_size
-        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.pool_k.device)
+        idx = self._index(pages)
         srcs = [kv_k1, kv_v1] + ([ks1, vs1] if self.quantized else [])
         for pool, x in zip(self._buffers(), srcs):
             r = x[:, 0, :, : n * ps]  # [L, KVH, n*PS(, D)]
@@ -87,7 +124,7 @@ class PagePool:
         place: scratch = (k, v[, ks, vs]) with k/v [L, 1, KVH, S, D]; page i
         of ``pages`` lands at tokens [i*PS, (i+1)*PS). Returns ``scratch``."""
         m, ps = len(pages), self.page_size
-        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.pool_k.device)
+        idx = self._index(pages)
         for pool, dst in zip(self._buffers(), scratch):
             r = pool[:, idx].transpose(1, 2)  # [L, KVH, m, PS(, D)]
             dst[:, 0, :, : m * ps] = r.reshape(r.shape[:2] + (m * ps,) + r.shape[4:]).to(dst.dtype)
@@ -98,9 +135,7 @@ class PagePool:
         beam search's copy-on-divergence primitive)."""
         if not src:
             return
-        dev = self.pool_k.device
-        s = torch.as_tensor(list(src), dtype=torch.int64, device=dev)
-        d = torch.as_tensor(list(dst), dtype=torch.int64, device=dev)
+        s, d = self._index(src), self._index(dst)
         for pool in self._buffers():
             pool[:, d] = pool[:, s]
 
@@ -233,17 +268,19 @@ class PageTable:
         self.num_blocks[slot] = 0
         return pages
 
-    def to_device(self, device: torch.device) -> torch.Tensor:
+    def to_device(self, device: torch.device, localize=None) -> torch.Tensor:
         """The table as an int32 tensor on ``device`` (for a CUDA device the
-        same tensor each call, refreshed by an asynchronous copy)."""
+        same tensor each call, refreshed by an asynchronous copy), through
+        ``localize`` (a pool's ``localize``) where given."""
+        table = self.table if localize is None else localize(self.table)
         if device.type != "cuda":
-            return torch.from_numpy(self.table.copy()).to(device)
+            return torch.from_numpy(np.array(table, dtype=np.int32)).to(device)
         if self._dev is None:
             self._host = torch.empty(self.table.shape, dtype=torch.int32, pin_memory=True)
             self._dev = torch.empty(self.table.shape, dtype=torch.int32, device=device)
             self._copied = torch.cuda.Event()
         self._copied.synchronize()  # the previous copy has left the staging buffer
-        self._host.numpy()[...] = self.table
+        self._host.numpy()[...] = table
         self._dev.copy_(self._host, non_blocking=True)
         self._copied.record()
         return self._dev

@@ -43,11 +43,21 @@ shard and its local cache: a dense cache [L, S/dp, KVH/tp, max, D] (slot i
 on data rank i // (S/dp)) or, at dp = 1, a page pool of KVH/tp heads. Every
 rank samples the same tokens from the gathered logits, so the host state
 stays in lockstep. Admission prefills run at B = 1 on every data rank and
-the slot's owner keeps the scratch. At dp > 1 the cache is dense (a paged
-pool needs ``PagePool(partitions > 1)``, a later slice) and beam groups are
-refused (a reorder would cross data ranks). Fused ticks replay a graph
-that holds NCCL collectives; a gloo mesh on the card takes
-``fused_tick=0``. Pipeline parallelism (``pp_mesh``) is a later slice.
+the slot's owner keeps the scratch. At dp > 1 a paged pool splits into one
+partition a data rank (``PagePool(partitions=dp)``, the reference's
+per-data-shard pools): slot i allocates from the partition of its data rank
+i // (S/dp), the allocator's bookkeeping is the same on every rank, each
+rank's device pool holds only its partition, and the page table goes to
+the device localized. Beam groups and the prefix cache take dp = 1 (a
+reorder or a reused page would cross data ranks). Fused ticks replay a
+graph that holds NCCL collectives; a gloo mesh on the card takes
+``fused_tick=0``.
+
+Under a ``pp_mesh`` (parallel/pp.py, one process per stage) every forward
+is parallel/pp.py::serve_step_pp over this stage's layers and its dense
+cache [L/pp, S, KVH, max, D]; as in the reference the cache is dense, no
+prefix cache, ``fused_tick=0``, and prompts run the W*Ax layer whatever
+their length (the pipeline takes no W*A16 prefill).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ import torch
 
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy, require_servable
 from flexq_tpu_torch.kernels.common import resolve_device
+from flexq_tpu_torch.parallel.pp import stage_params
 from flexq_tpu_torch.parallel.tp import cache_forward, is_sharded, shard_params
 from flexq_tpu_torch.serve.beam import NEG as BEAM_NEG, reorder_rows, topk_lower_first
 from flexq_tpu_torch.serve.graphs import StepGraph
@@ -180,19 +191,28 @@ class BatchScheduler:
         max_prefilling: Optional[int] = None,
         device="cuda",
     ):
-        if pp_mesh is not None:
-            raise NotImplementedError("pipeline-parallel continuous batching (pp_mesh) is a later slice "
-                                      "(parallel/pp.py)")
         if fused_tick < 0:
             raise ValueError(f"fused_tick={fused_tick} must be >= 0")
         require_servable(policy)
         self.mesh = mesh
+        self.pp_mesh = pp_mesh
         self._dp = 1 if mesh is None else mesh.dp
-        if mesh is not None:
+        if pp_mesh is not None:
+            if mesh is not None:
+                raise ValueError("pp_mesh and mesh are exclusive (as in the reference)")
+            if paged or prefix_cache:
+                raise ValueError("the pipelined scheduler serves a dense cache (paged=False, no prefix_cache), as the "
+                                 "reference's")
+            if fused_tick:
+                raise ValueError(f"fused_tick={fused_tick}: the pipelined scheduler takes per-token ticks "
+                                 "(fused_tick=0), as the reference's")
+            self.device = pp_mesh.device
+            params = stage_params(params, cfg, pp_mesh)
+        elif mesh is not None:
             if num_slots % mesh.dp:
                 raise ValueError(f"num_slots {num_slots} must divide by the data axis {mesh.dp}")
-            if paged and mesh.dp > 1:
-                raise NotImplementedError("a paged pool under dp > 1 needs PagePool(partitions > 1), a later slice")
+            if prefix_cache and mesh.dp > 1:
+                raise ValueError("prefix_cache takes dp = 1 (a reused page cannot cross data partitions)")
             if fused_tick and not mesh.capturable:
                 raise ValueError(f"fused_tick={fused_tick} replays a CUDA graph, which cannot hold {mesh.backend} "
                                  "collectives on the card: use fused_tick=0 (or an NCCL mesh)")
@@ -228,19 +248,24 @@ class BatchScheduler:
         c = cfg
         kvh = c.num_kv_heads // (1 if mesh is None else mesh.tp)  # this rank's kv heads
         self._kvh = kvh
+        self._layers = len(params["layers"])  # this rank's layers (a pipeline stage's L/pp)
         if paged:
             if max_seq_len % page_size:
                 raise ValueError(f"max_seq_len {max_seq_len} must be a multiple of page_size {page_size}")
             if num_pages is None:
-                num_pages = num_slots * (max_seq_len // page_size) + 1
-            self.pool = PagePool(c.num_layers, num_pages, kvh, page_size, c.head_dim, dtype=kv_dtype, device=dev)
+                num_pages = num_slots * (max_seq_len // page_size) + self._dp
+            num_pages += (-num_pages) % self._dp  # equal partitions, one a data rank
+            self.pool = PagePool(self._layers, num_pages, kvh, page_size, c.head_dim, dtype=kv_dtype, device=dev,
+                                 partitions=self._dp, partition=None if self._dp == 1 else mesh.data_index)
             self.ptable = PageTable(num_slots, max_seq_len // page_size)
-            # page 0 is the garbage page: inactive slots (an all-zero table
-            # row) decode junk into it without touching live pages
-            if self.pool.alloc(1) != [0]:
-                raise AssertionError("page 0 must be the first page allocated")
+            # local page 0 of every partition is its garbage page: inactive
+            # slots (an all-zero table row) decode junk into it without
+            # touching live pages
+            for d in range(self._dp):
+                if self.pool.alloc(1, part=d) != [d * self.pool.pages_per_partition]:
+                    raise AssertionError("each partition's first page must be its first allocation")
         else:
-            shape = (c.num_layers, num_slots // self._dp, kvh, max_seq_len, c.head_dim)
+            shape = (self._layers, num_slots // self._dp, kvh, max_seq_len, c.head_dim)
             self.kv = tuple(torch.zeros(shape, dtype=kv_dtype, device=dev) for _ in "kv")
             if self.quantized:
                 self.kv += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=dev) for _ in "kv")
@@ -268,8 +293,8 @@ class BatchScheduler:
 
     # ---- forward pieces --------------------------------------------------
     def _forward(self, ids, cache, positions, cache_pos, table=None, prefill_bf16=False, last_only=False):
-        return cache_forward(self.params, self.cfg, self.policy, self.mesh, self.device, ids, cache, positions,
-                             cache_pos, prefill_bf16=prefill_bf16, page_table=table, last_only=last_only)
+        return cache_forward(self.params, self.cfg, self.policy, self.mesh or self.pp_mesh, self.device, ids, cache,
+                             positions, cache_pos, prefill_bf16=prefill_bf16, page_table=table, last_only=last_only)
 
     def _step_fn(self, ids, cache, positions):
         """One decode step over all slots, per-slot positions [S] (dense)."""
@@ -284,7 +309,7 @@ class BatchScheduler:
     def _new_scratch(self, bucket: int) -> Tuple:
         """A zeroed B=1 scratch cache tuple sized to the prompt bucket."""
         c = self.cfg
-        shape = (c.num_layers, 1, self._kvh, bucket, c.head_dim)
+        shape = (self._layers, 1, self._kvh, bucket, c.head_dim)
         cache = tuple(torch.zeros(shape, dtype=self.kv_dtype, device=self.device) for _ in "kv")
         if self.quantized:
             cache += tuple(torch.zeros(shape[:-1], dtype=torch.float32, device=self.device) for _ in "kv")
@@ -329,11 +354,17 @@ class BatchScheduler:
             self._record(i, slot, self._sample_one(logits[0, plen - 1 - start], slot))
 
     # ---- pages -----------------------------------------------------------
-    def _alloc(self, n: int) -> List[int]:
-        """Pool alloc that reclaims retained prefix pages under pressure."""
-        if self.registry is not None and self.pool.free_pages < n:
-            self.pool.free(self.registry.evict(n - self.pool.free_pages))
-        return self.pool.alloc(n)
+    def _part_of(self, i: int) -> int:
+        """The pool partition (data rank) of slot i: slots split over the
+        data ranks contiguously."""
+        return i // (self.num_slots // self._dp)
+
+    def _alloc(self, n: int, part: int = 0) -> List[int]:
+        """Pool alloc from partition ``part`` that reclaims retained prefix
+        pages under pressure."""
+        if self.registry is not None and self.pool.free_in(part) < n:
+            self.pool.free(self.registry.evict(n - self.pool.free_in(part)))
+        return self.pool.alloc(n, part)
 
     def _release_slot_pages(self, i: int) -> None:
         s = self.slots[i]
@@ -344,14 +375,16 @@ class BatchScheduler:
             pages = self.registry.release(pages)
         self.pool.free(pages)
 
-    def _preempt(self, exclude: Optional[int] = None) -> bool:
-        """Evict the youngest other request back to the head of the queue
+    def _preempt(self, exclude: Optional[int] = None, part: Optional[int] = None) -> bool:
+        """Evict the youngest other request (of partition ``part``'s slots,
+        where given: its pool ran dry) back to the head of the queue
         (recompute preemption): its pages free now; on re-admission it
         prefills prompt + generated, and ``prior`` is prepended to its
         output."""
         # beam lanes are never preempted: re-prefilling one lane cannot
         # rebuild the group's diverged KV
-        cands = [i for i, s in enumerate(self.slots) if i != exclude and s.req_id is not None and not s.beam]
+        cands = [i for i, s in enumerate(self.slots) if i != exclude and s.req_id is not None and not s.beam
+                 and (part is None or self._part_of(i) == part)]
         if not cands:
             return False
         i = max(cands, key=lambda j: self.slots[j].req_id)
@@ -377,15 +410,17 @@ class BatchScheduler:
             return
         shared = slot.shared_pages if slot is not None else []
         pfx = slot.prefix_len if slot is not None else 0
+        part = self._part_of(i)
         while True:
             try:
-                new_pages = self._alloc(self.pool.pages_for(plen) - len(shared))
+                new_pages = self._alloc(self.pool.pages_for(plen) - len(shared), part)
                 break
             except MemoryError:
-                if not self._preempt(exclude=i):
+                if not self._preempt(exclude=i, part=part):
                     raise
-        region = [x[:, :, :, pfx:] for x in kv1]
-        self.pool.insert_prefill(new_pages, region[0], region[1], plen - pfx, *region[2:])
+        if self.pool.partition in (None, part):  # the slot's data rank holds its pages
+            region = [x[:, :, :, pfx:] for x in kv1]
+            self.pool.insert_prefill(new_pages, region[0], region[1], plen - pfx, *region[2:])
         self.ptable.assign(i, shared + new_pages)
         if self.registry is not None and slot is not None:
             # publish the freshly written FULL prompt pages for reuse
@@ -476,7 +511,8 @@ class BatchScheduler:
                     self.pending.appendleft(req)  # bounded in-flight scratch caches
                     break
             if self.paged:
-                avail = self.pool.free_pages + (self.registry.reclaimable if self.registry is not None else 0)
+                avail = self.pool.free_in(self._part_of(i)) + (
+                    self.registry.reclaimable if self.registry is not None else 0)
                 # charge the REMAINING budget: a preempted request re-queues
                 # with prompt + generated and an unchanged max_new
                 if avail < self.pool.pages_for(len(req.prompt) + req.max_new - len(req.prior)):
@@ -817,12 +853,13 @@ class BatchScheduler:
             if self.slots[i].req_id is None:
                 continue  # preempted by an earlier slot's allocation
             needed = self.slots[i].pos // ps + 1
+            part = self._part_of(i)
             while self.ptable.num_blocks[i] < needed:
                 try:
-                    page = self._alloc(1)[0]
+                    page = self._alloc(1, part)[0]
                 except MemoryError:
-                    # the youngest request yields, possibly this very slot
-                    if not self._preempt():
+                    # the youngest request of the partition yields, possibly this very slot
+                    if not self._preempt(part=part):
                         raise
                     if self.slots[i].req_id is None:
                         break
@@ -853,7 +890,7 @@ class BatchScheduler:
             )
             if self.paged:
                 logits = self._step_paged_fn(self.last_tokens, self.pool.state(), positions,
-                                             self.ptable.to_device(self.device))
+                                             self.ptable.to_device(self.device, self.pool.localize))
             else:
                 logits = self._step_fn(self.last_tokens, self.kv, positions)
             # beam groups take their slots' rows jointly (top-k over k*V and
@@ -919,11 +956,12 @@ class BatchScheduler:
                 if self.slots[i].req_id is None:
                     continue  # preempted by an earlier slot's allocation
                 needed = min((self.slots[i].pos + k_steps - 1) // ps + 1, max_blocks)
+                part = self._part_of(i)
                 while self.ptable.num_blocks[i] < needed:
                     try:
-                        page = self._alloc(1)[0]
+                        page = self._alloc(1, part)[0]
                     except MemoryError:
-                        if not self._preempt():
+                        if not self._preempt(part=part):
                             raise
                         if self.slots[i].req_id is None:
                             break
@@ -1030,7 +1068,7 @@ class _FusedState:
         if self.paged:
             # the card's table is one tensor refreshed by an asynchronous
             # copy, queued here ahead of the steps (outside the graph)
-            self.table = self.ptable.to_device(self.device)
+            self.table = self.ptable.to_device(self.device, self.pool.localize)
         return int(min(k_steps, host[2, active].max()))
 
     def step_fn(self, sampling: SamplingParams, use_counts: bool, logprobs: bool):

@@ -20,8 +20,11 @@ all-reduce); GQA, replicate_kv_heads, the int8 and paged caches, a packed
 head, OPT and W4A16 against the single-rank forward; the Engine's fused
 and step loops and the scheduler (dense, paged, int8, prefix cache, dense
 at dp = 2) giving the reference's single-device tokens, as the reference's
-TP tests require; a biased LLaMA at tp = 2 equal to the single-rank
-forward, where the reference's TP forward adds its row-parallel biases
+TP tests require; the paged scheduler at tp = 2 x dp = 2 (a pool partition
+a data rank) equal to the dense one, every partition drained, and its int8
+fused ticks equal to its per-token ticks (the reference's
+test_paged_scheduler_dp2*), PagePool's partitions against the reference's;
+a biased LLaMA at tp = 2 equal to the single-rank forward, where the reference's TP forward adds its row-parallel biases
 once a rank; the ``--tp 2`` export byte-identical to the reference's and
 ``load_packed_sharded``; a two-process ReplicatedScheduler equal to one
 scheduler.
@@ -71,6 +74,8 @@ IDS = np.random.default_rng(0).integers(0, 256, (2, 6))
 PROMPTS = [[3, 14, 15, 9, 2, 6], [7, 7, 7, 7, 7, 7]]
 DP_PROMPTS = [[3, 14, 15, 9], [7, 7, 7, 7], [1, 2, 3, 4], [9, 9, 1, 1]]
 REQS = [([3, 14, 15, 9], 5), ([7, 7], 4)]
+DP_REQS = [([3, 14, 15, 9], 6), ([7, 7], 4), ([100, 2, 30, 4], 5), ([5, 5, 5], 3)]  # test_paged_scheduler_dp2's
+DP_INT8_REQS = [([3, 14, 15, 9], 5), ([7, 7], 5)]
 PREFIX = np.random.default_rng(4).integers(0, 256, 256).tolist()
 PREFIX_REQS = [(PREFIX + [1, 2], 3), (PREFIX + [8], 3)]
 SPEC_PROMPT = [[3, 14, 15, 9, 2, 6, 5, 3]]
@@ -322,7 +327,11 @@ def world_b(trees, tmp_path_factory):
     cases = {"mha": forward_case(trees, "mha", ids=IDS),
              "mha1": forward_case(trees, "mha", ids=IDS[:1]),
              "engine": ("engine", dict(model, runs=[("f32", "fused", DP_PROMPTS, 4), ("f32", "step", DP_PROMPTS, 4)])),
-             "sched": ("sched", dict(model, runs=[(dict(num_slots=2, max_seq_len=256), REQS)]))}
+             "sched": ("sched", dict(model, runs=[(dict(num_slots=2, max_seq_len=256), REQS)])),
+             "sched_dp": ("sched", dict(model, runs=[
+                 (dict(num_slots=4, max_seq_len=256), DP_REQS), (dict(num_slots=4, max_seq_len=256, paged=True), DP_REQS),
+                 (dict(num_slots=2, max_seq_len=256, paged=True, kv_dtype="int8", fused_tick=3), DP_INT8_REQS),
+                 (dict(num_slots=2, max_seq_len=256, paged=True, kv_dtype="int8"), DP_INT8_REQS)]))}
     calls, spec = cache_calls(2, "dense", "f32")
     cases["cache"] = forward_case(trees, "mha", calls=calls, cache=spec)
     return run_world(str(tmp_path_factory.mktemp("worlds") / "b"), 2, 2, cases)
@@ -546,9 +555,8 @@ def test_scheduler_tp_gives_the_reference_streams(world_a, reference_tokens, run
 
 
 def test_scheduler_tp_fused_ticks(world_a):
-    """test_paged_scheduler_dp2_int8_fused_tick at dp = 1 (a paged pool at
-    dp = 2 is a later slice): fused ticks over the tp = 2 int8 pool give
-    the per-token ticks' streams."""
+    """test_paged_scheduler_dp2_int8_fused_tick at dp = 1: fused ticks over
+    the tp = 2 int8 pool give the per-token ticks' streams."""
     for out in world_a:
         assert out["sched"][6][0] == out["sched"][3][0]
 
@@ -566,6 +574,53 @@ def test_scheduler_tp_dp2(world_b, reference_tokens):
     a data rank; B = 1 admissions run data-replicated)."""
     for out in world_b:
         assert out["sched"][0][0] == reference_tokens[("sched", "f32")]
+
+
+def test_paged_scheduler_dp2(world_b):
+    """tests/test_parallel.py::test_paged_scheduler_dp2: the paged scheduler
+    at tp = 2 x dp = 2 (a pool partition a data rank, each rank's device
+    pool holding its own, the tables localized) gives the same mesh's dense
+    streams, and every partition drains back to its garbage page."""
+    for out in world_b:
+        (dense, _, _), (paged, free, _) = out["sched_dp"][:2]
+        assert paged == dense
+        assert free == [4, 4]  # (4 slots x 2 pages + 2) / 2 partitions, less each one's garbage page
+
+
+def test_page_pool_partitions_match_the_reference():
+    """PagePool(partitions=2): the reference's global ids from each
+    partition's free list, frees back to the owning partition, the
+    localized table; a pool holding one partition (one process a data
+    rank) has its P/2 pages, takes that partition's global ids and refuses
+    the other's."""
+    from flexq_tpu.serve.paged import PagePool as JPagePool
+    from flexq_tpu_torch.serve.paged import PagePool
+
+    ref = JPagePool(2, 8, 1, 128, 8, dtype=jnp.float32, partitions=2)
+    whole = PagePool(2, 8, 1, 128, 8, dtype=torch.float32, partitions=2, device="cpu")
+    mine = PagePool(2, 8, 1, 128, 8, dtype=torch.float32, partitions=2, partition=1, device="cpu")
+    for pool in (ref, whole, mine):
+        got = [pool.alloc(1, part=0), pool.alloc(2, part=1), pool.alloc(1, part=1)]
+        pool.free(got[1])
+        got.append(pool.alloc(1, part=1))
+        assert got == [[0], [4, 5], [6], [5]]
+        assert (pool.free_pages, pool.free_in(0), pool.free_in(1)) == (5, 3, 2)
+        assert pool.localize(np.array([[0, 5, 6]])).tolist() == [[0, 1, 2]]
+    assert tuple(whole.pool_k.shape) == (2, 8, 1, 128, 8) and tuple(mine.pool_k.shape) == (2, 4, 1, 128, 8)
+    x = torch.arange(2 * 256 * 8, dtype=torch.float32).reshape(2, 1, 1, 256, 8)
+    for pool in (whole, mine):
+        pool.insert_prefill([5, 6], x, x + 1, 256)
+    torch.testing.assert_close(mine.pool_v[:, 1:3], whole.pool_v[:, 5:7], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="partition 1"):
+        mine.insert_prefill([1], x, x, 128)
+
+
+def test_paged_scheduler_dp2_int8_fused_tick(world_b):
+    """test_paged_scheduler_dp2_int8_fused_tick: over the int8 partitioned
+    pool, fused ticks (3 steps) give the per-token ticks' streams."""
+    for out in world_b:
+        assert out["sched_dp"][2][0] == out["sched_dp"][3][0]
+        assert out["sched_dp"][2][1] == out["sched_dp"][3][1] == [2, 2]
 
 
 def test_replicated_scheduler_equals_one_scheduler(trees, world_a):
@@ -608,8 +663,8 @@ def test_scheduler_refusals_under_a_mesh(trees):
     """What the mesh does not serve yet, or cannot on the card, raises."""
     _, cfg, (_, pol), _, tq = trees["mha"]
     dp2 = Mesh(tp=1, dp=2, rank=0, device=torch.device("cpu"), backend="gloo", model_group=None, data_group=None)
-    with pytest.raises(NotImplementedError, match="partitions"):
-        BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=256, paged=True, mesh=dp2)
+    with pytest.raises(ValueError, match="prefix_cache"):  # a reused page would cross data partitions
+        BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=256, paged=True, prefix_cache=True, mesh=dp2)
     with pytest.raises(ValueError, match="divide"):
         BatchScheduler(tq, cfg, pol, num_slots=3, max_seq_len=256, mesh=dp2)
     card = dataclasses.replace(dp2, dp=1, device=torch.device("cuda", 0))

@@ -2,12 +2,14 @@
 hidden 256, head_dim 128, GQA 2:1, FFN 512, vocab 256, max_seq_len 128),
 run in f32 on the CPU: forward_serve logits within 1e-4 of max |logit| and
 greedy Engine.generate tokens equal, with the reference's parameters in its
-order and its return order (out, logprobs, stats); the paths still to port
-raise (pipeline parallelism, a paged pool under dp > 1; a negative
-fused_tick is refused), the reference's refusal of
+order and its return order (out, logprobs, stats); what is not served
+raises (a pipeline with a mesh, layers that do not split over its stages,
+spec decoding, a paged pool or fused ticks under it; a prefix cache at
+dp > 1; a negative fused_tick), the reference's refusal of
 logprobs in spec mode stays, and half a cache is refused (the cache-less
 forward takes neither kv_k nor kv_v)."""
 
+import dataclasses
 import inspect
 
 import jax
@@ -26,7 +28,7 @@ from flexq_tpu.train.trainer import init_params
 from flexq_tpu_torch.config import ModelConfig, QuantPolicy
 from flexq_tpu_torch.convert import params_from_numpy
 from flexq_tpu_torch.models.quantized import forward_serve
-from flexq_tpu_torch.parallel import Mesh
+from flexq_tpu_torch.parallel import Mesh, PipeMesh
 from flexq_tpu_torch.serve import Engine, SamplingParams
 from flexq_tpu_torch.serve.scheduler import BatchScheduler
 
@@ -106,17 +108,25 @@ def test_unsupported_paths_raise(model):
     with pytest.raises(ValueError):
         eng.generate(prompts, max_new_tokens=2, mode="spec", sampling=SamplingParams(greedy=False,
                                                                                      repetition_penalty=1.2))
-    with pytest.raises(NotImplementedError):
-        Engine(tq, cfg, pol, max_seq_len=S, pp_mesh=object(), device="cpu")
+    # the pipeline's refusals (a world of 2 stages; none reached: each raises before a collective)
+    pp2 = PipeMesh(pp=2, rank=0, device=torch.device("cpu"), backend="gloo", group=None)
+    tp2 = Mesh(tp=2, dp=1, rank=0, device=torch.device("cpu"), backend="gloo", model_group=None, data_group=None)
+    with pytest.raises(ValueError, match="exclusive"):
+        Engine(tq, cfg, pol, max_seq_len=S, pp_mesh=pp2, mesh=tp2, device="cpu")
+    with pytest.raises(ValueError, match="split"):
+        Engine(tq, cfg, pol, max_seq_len=S, pp_mesh=dataclasses.replace(pp2, pp=3), device="cpu")
+    with pytest.raises(ValueError, match="spec"):
+        Engine(tq, cfg, pol, max_seq_len=S, pp_mesh=pp2).generate(prompts, max_new_tokens=2, mode="spec")
     with pytest.raises(ValueError):
         Engine(tq, cfg, pol, max_seq_len=100, device="cpu")
     with pytest.raises(ValueError):  # half a cache: the cache-less forward takes neither
         forward_serve(tq, cfg, pol, torch.from_numpy(prompts), kv_k=eng.new_cache(2)[0], kv_v=None, cache_pos=0,
                       device="cpu")
-    # the scheduler's paths still to port: pipeline parallelism, a paged pool at dp > 1
+    # what the scheduler does not serve: a paged pool or fused ticks under a pipeline, a prefix cache at dp > 1
     dp2 = Mesh(tp=1, dp=2, rank=0, device=torch.device("cpu"), backend="gloo", model_group=None, data_group=None)
-    for kw in (dict(mesh=dp2, paged=True), dict(pp_mesh=object())):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(mesh=dp2, paged=True, prefix_cache=True), dict(pp_mesh=pp2, paged=True),
+               dict(pp_mesh=pp2, fused_tick=2)):
+        with pytest.raises(ValueError):
             BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", **kw)
     with pytest.raises(ValueError):
         BatchScheduler(tq, cfg, pol, num_slots=2, max_seq_len=S, device="cpu", fused_tick=-1)
